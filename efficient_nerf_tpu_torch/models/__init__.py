@@ -1,0 +1,4 @@
+from .r2l import R2LNet, ResBlock, get_activation
+from . import weights
+from .weights import (r2l_params_from_state_dict, r2l_state_dict_from_jax,
+                      r2l_state_dict_from_params)

@@ -1,0 +1,1 @@
+from .r2l_renderer import make_r2l_forward, r2l_forward_rays, r2l_render_image
