@@ -2,32 +2,35 @@
 `efficient_nerf_tpu.core.ray_sampler`.
 
 The student consumes a whole ray as one input: n_sample points along it are
-flattened into the feature dimension ([B, n_sample*3]). Only the
-deterministic (eval) sampling is ported; the stratified jitter of training
-arrives with student training, `sample_patch_points` with the conv student.
+flattened into the feature dimension ([B, n_sample*3]). Stratified jitter
+is on in training (an augmentation) and off at test; `sample_patch_points`
+arrives with the conv student.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ..device import DeviceLike
 from .rays import get_rays, plucker_rays
-from .sampling import linear_zvals
+from .sampling import linear_zvals, stratify_zvals
 
 __all__ = ["sample_ray_points", "sample_image_points"]
 
 
 def sample_ray_points(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float,
-                      far: float, n_sample: int,
-                      perturb: bool = False) -> torch.Tensor:
+                      far: float, n_sample: int, perturb: bool = False,
+                      generator: Optional[torch.Generator] = None,
+                      t_rand: Optional[torch.Tensor] = None) -> torch.Tensor:
     """rays [B, 3] -> [B, n_sample*3] flattened sample coordinates, on the
-    rays' device."""
-    if perturb:
-        raise NotImplementedError(
-            "perturbed (training) sampling arrives with the student-training "
-            "slice (slice 2), together with stratify_zvals(t_rand=)")
+    rays' device. perturb: stratified jitter of the depths (training), with
+    uniforms `t_rand` [B, n_sample] or drawn from `generator`."""
     z = linear_zvals(near, far, n_sample, device=rays_o.device)  # [S]
-    pts = rays_o[..., None, :] + rays_d[..., None, :] * z[:, None]
+    z = z.expand(rays_o.shape[:-1] + (n_sample,))
+    if perturb:
+        z = stratify_zvals(z, t_rand, generator)
+    pts = rays_o[..., None, :] + rays_d[..., None, :] * z[..., :, None]
     return pts.reshape(pts.shape[:-2] + (n_sample * 3,))
 
 

@@ -42,7 +42,8 @@
 //     rays: 29.5 GB of L2 reads for a 160,000-ray frame, which with the
 //     mma.sync math is what bounds this version (PERF.md).
 //
-// wgmma, TMA and warp specialisation are later work.
+// wgmma, TMA and warp specialisation are later work. The products and the
+// weight stream are shared with the training kernels (r2l_mma.cuh).
 //
 // Shared memory (W = 256, in_pad = 1024, TB = 64): region 1 holds a and a2
 // (bf16, 33 KB each), or the head's weight buffers while the embed is live;
@@ -51,21 +52,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "r2l_mma.cuh"
 #include "trig.cuh"
 
 namespace {
 
-constexpr int TB = 64;             // rays per block
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int RT = TB / 16;        // 16-row tiles per block
-constexpr int WN = 32;             // output columns per warp
-constexpr int NJ = WN / 8;         // 8-column mma tiles per warp
-constexpr int KC = 64;             // input rows of a weight chunk
-constexpr int S = 2;               // weight ring stages
-constexpr int PAD = 8;             // bf16 row padding: rows 16 B apart in banks
-constexpr int LDS = KC + PAD;      // row stride of a ring stage
-constexpr int MAX_SMEM = 232448;   // 227 KB, the opt-in limit of sm_90
+using namespace enerf;  // TB, NWARPS, ..., Frag, mma_stream (r2l_mma.cuh)
 
 struct Args {
   const float* rays_o;             // [B, 3]
@@ -90,7 +82,7 @@ __host__ __device__ inline size_t max_sz(size_t x, size_t y) { return x > y ? x 
 
 __host__ __device__ inline Layout smem_layout(int in_pad, int W) {
   const size_t lda = W + PAD, lde = in_pad + PAD;
-  const size_t ring = (size_t)S * W * LDS * 2;
+  const size_t ring = (size_t)S * ring_stage_bytes(W);
   const size_t r1 = max_sz((size_t)2 * TB * lda * 2, ring);
   const size_t r2 = max_sz((size_t)TB * lde * 2, (size_t)TB * W * 4 + ring);
   Layout l;
@@ -102,130 +94,6 @@ __host__ __device__ inline Layout smem_layout(int in_pad, int W) {
   l.body_ring = r1 + (size_t)TB * W * 4;
   l.total = r1 + r2;
   return l;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-// Accumulator fragment of warp w, thread (g = lane / 4, t = lane % 4):
-// acc[i][j][e] is output row 16 i + g + 8 (e / 2), column WN w + 8 j + 2 t +
-// e % 2.
-typedef float Frag[RT][NJ][4];
-
-// Runs n_layers layers X_l[TB, K] @ W_l^T, W_l = Wg + l * layer_stride a
-// [W, K] bf16 matrix in global memory, X_l = X0 for even l and X1 for odd l
-// (bf16 in shared memory, row stride ldx). The weights stream through `ring`
-// in chunks of KC input rows, S - 1 chunks ahead; at the end of layer l each
-// warp that owns columns calls epi(l, acc).
-template <class Epi>
-__device__ __forceinline__ void mma_stream(const __nv_bfloat16* X0,
-                                           const __nv_bfloat16* X1, int ldx,
-                                           const __nv_bfloat16* Wg,
-                                           size_t layer_stride, int K,
-                                           int n_layers, int W,
-                                           __nv_bfloat16* ring, Epi epi) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int kchunks = K / KC, total = n_layers * kchunks;
-  const bool owns = warp * WN < W;  // other warps only help to load
-  const int n0 = warp * WN;
-
-  auto load_chunk = [&](int c) {
-    if (c < total) {
-      const int l = c / kchunks, kc = c % kchunks;
-      const __nv_bfloat16* src = Wg + (size_t)l * layer_stride + (size_t)kc * KC;
-      __nv_bfloat16* dst = ring + (size_t)(c % S) * W * LDS;
-      for (int q = tid; q < W * (KC / 8); q += NTHREADS) {
-        const int r = q / (KC / 8), piece = q % (KC / 8);
-        cp_async16(dst + r * LDS + piece * 8, src + (size_t)r * K + piece * 8);
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count uniform
-  };
-
-  for (int c = 0; c < S - 1; ++c) load_chunk(c);
-  Frag acc;
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  for (int c = 0; c < total; ++c) {
-    cp_async_wait<S - 2>();  // chunk c has landed (this thread's copies) ...
-    __syncthreads();         // ... everyone's, and stage (c - 1) % S is free
-    load_chunk(c + S - 1);
-    const int l = c / kchunks, kc = c % kchunks;
-    if (owns) {
-      const __nv_bfloat16* X = (l & 1) ? X1 : X0;
-      const __nv_bfloat16* st = ring + (size_t)(c % S) * W * LDS;
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        // B for columns n0 + 16 jj .. + 15: matrices (n lo, k lo),
-        // (n lo, k hi), (n hi, k lo), (n hi, k hi)
-        unsigned b[NJ / 2][4];
-#pragma unroll
-        for (int jj = 0; jj < NJ / 2; ++jj)
-          ldmatrix_x4(b[jj], st + (n0 + 16 * jj + (lane / 16) * 8 + lane % 8) * LDS +
-                                 kk + ((lane / 8) % 2) * 8);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          unsigned a[4];
-          ldmatrix_x4(a, X + (size_t)(16 * i + lane % 16) * ldx + kc * KC + kk +
-                             (lane / 16) * 8);
-#pragma unroll
-          for (int jj = 0; jj < NJ / 2; ++jj) {
-            mma_bf16(acc[i][2 * jj], a, b[jj][0], b[jj][1]);
-            mma_bf16(acc[i][2 * jj + 1], a, b[jj][2], b[jj][3]);
-          }
-        }
-      }
-    }
-    if (kc == kchunks - 1) {
-      if (owns) epi(l, acc);
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-    }
-  }
-  cp_async_wait<0>();
 }
 
 __global__ void __launch_bounds__(NTHREADS, 1) r2l_forward_kernel(const Args p) {

@@ -154,18 +154,31 @@ def _check_packed(packed, n_sample: int, L: int) -> None:
             f"L={packed['L']}; called with n_sample={n_sample}, L={L}")
 
 
-def _doubling_embed(rays_o, rays_d, z, L: int) -> torch.Tensor:
-    """[B, (2L+1)K] embed in the kernel's [sins | coss | p] block layout."""
-    B = rays_o.shape[0]
-    p = (rays_o[:, None, :] + z[None, :, None] * rays_d[:, None, :]
-         ).reshape(B, -1)                                     # [B, K] exact f32
+def doubling_sincos(p: torch.Tensor, L: int):
+    """Lists [sin(2^j p)] and [cos(2^j p)], j < L, as the kernels make them:
+    `fast_sincos(degree=9)` for j = 0, then the double-angle recurrence."""
     s, c = fast_sincos(p, degree=9)
     sins, coss = [s], [c]
     for _ in range(1, L):
         s, c = 2.0 * s * c, 1.0 - 2.0 * s * s
         sins.append(s)
         coss.append(c)
+    return sins, coss
+
+
+def doubling_embed(p: torch.Tensor, L: int) -> torch.Tensor:
+    """[B, K] points -> [B, (2L+1)K] in the kernels' [sins | coss | p] block
+    layout."""
+    sins, coss = doubling_sincos(p, L)
     return torch.cat(sins + coss + [p], dim=1)
+
+
+def _doubling_embed(rays_o, rays_d, z, L: int) -> torch.Tensor:
+    """[B, (2L+1)K] embed of the rays' points o + z d (exact f32)."""
+    B = rays_o.shape[0]
+    p = (rays_o[:, None, :] + z[None, :, None] * rays_d[:, None, :]
+         ).reshape(B, -1)
+    return doubling_embed(p, L)
 
 
 def r2l_forward_fused_ref(packed, rays_o: torch.Tensor, rays_d: torch.Tensor,

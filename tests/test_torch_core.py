@@ -70,10 +70,17 @@ def test_sample_ray_points(rng):
 
 
 def test_sample_ray_points_perturb_waits_for_training_slice(rng):
+    # the training slice has arrived: perturbed sampling with injected
+    # uniforms agrees with the JAX package's (the same f32 operations)
     o, d = _rays(rng)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ray_sampler.sample_ray_points(torch.from_numpy(o), torch.from_numpy(d),
-                                      2.0, 6.0, 4, perturb=True)
+    t_rand = rng.uniform(size=(13, 4)).astype(np.float32)
+    got = ray_sampler.sample_ray_points(torch.from_numpy(o), torch.from_numpy(d),
+                                        2.0, 6.0, 4, perturb=True,
+                                        t_rand=torch.from_numpy(t_rand)).numpy()
+    want = np.asarray(jrs.sample_ray_points(jnp.asarray(o), jnp.asarray(d), 2.0,
+                                            6.0, 4, perturb=True,
+                                            t_rand=jnp.asarray(t_rand)))
+    np.testing.assert_allclose(got, want, atol=GEOM_TOL)
 
 
 @pytest.mark.parametrize("plucker", [False, True])

@@ -1,0 +1,260 @@
+"""The fused training forward and backward: their plain versions (what the
+wrappers run on CPU tensors) and the autograd Function against the JAX Pallas
+kernels in interpret mode; the CUDA kernels against the plain versions on a
+card."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from efficient_nerf_tpu.ops.pallas import r2l_train as jtrain
+from efficient_nerf_tpu_torch.models import R2LNet
+from efficient_nerf_tpu_torch.models.weights import r2l_state_dict_from_params
+from efficient_nerf_tpu_torch.ops import fused_r2l_train_available
+from efficient_nerf_tpu_torch.ops import r2l_train as rt
+from efficient_nerf_tpu_torch.ops.r2l_forward import _doubling_head_perm_np
+
+N_SAMPLE, L, DEPTH, WIDTH, B = 4, 10, 8, 32, 37   # B: a ragged tile
+K = 3 * N_SAMPLE
+IN_DIM = K * (2 * L + 1)                          # 252, padded to 256
+# f32 operands on both sides. embed_L = 0: the same products in another
+# summation order, ~1e-6 relative. embed_L = 10: the fast trig of the two
+# packages differs by up to 1e-5 (tests/test_torch_trig.py) and the
+# double-angle recurrence amplifies that by up to 2^9; the JAX package's
+# own in-kernel-embed test allows 2e-4 on out and 5e-4 of each gradient's
+# largest magnitude for the same effect (tests/test_ops.py:284-321).
+TOL_OUT = {0: 1e-5, 10: 2e-4}
+TOL_GRAD = {0: 1e-5, 10: 5e-4}
+# bf16 operands on both sides: the same roundings, but a one-ulp difference
+# of an f32 sum can flip a bf16 rounding (2^-8 relative) of an activation or
+# a cotangent, and that carries through the blocks.
+TOL_BF16_OUT = 1e-2
+TOL_BF16_GRAD = 3e-2
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card: README, port section)")
+    return torch.device("cuda")
+
+
+def _setup(rng, *, grs=False, res_scale=1.0, embed_L=10, dtype=np.float32,
+           depth=DEPTH, width=WIDTH):
+    # flax is imported here, not at the top, so that the card tests below
+    # also collect on a GPU host that has jax but not flax
+    from efficient_nerf_tpu.models import R2LNet as JaxR2LNet
+
+    jm = JaxR2LNet(input_dim=IN_DIM, depth=depth, width=width,
+                   res_scale=res_scale, use_residual=grs, dtype=jnp.float32)
+    p = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, IN_DIM)))["params"]
+    params = jax.tree_util.tree_map(
+        lambda v: (np.asarray(v) + rng.normal(scale=0.02, size=v.shape)
+                   ).astype(np.float32), p)
+    tm = R2LNet(IN_DIM, depth, width, res_scale=res_scale, use_residual=grs,
+                dtype=torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+                ).load_jax_params(params)
+    if embed_L:
+        x = (rng.normal(size=(B, K)) * 3.0).astype(np.float32)
+    else:
+        x = rng.normal(size=(B, IN_DIM)).astype(np.float32)
+    dout = rng.normal(size=(B, 3)).astype(np.float32)
+    return params, tm, x, dout
+
+
+def _jax_vjp(params, x, dout, *, grs, res_scale, embed_L, need_dx, dtype):
+    def f(p, xx):
+        return jtrain.r2l_train_apply(
+            p, xx, res_scale=res_scale, use_global_residual=grs, tile_b=16,
+            tile_b_bwd=32, dtype=dtype, embed_L=embed_L, need_dx=need_dx,
+            interpret=True)
+
+    out, vjp = jax.vjp(f, params, jnp.asarray(x))
+    g_params, g_x = vjp(jnp.asarray(dout))
+    sd = r2l_state_dict_from_params(jax.tree_util.tree_map(np.asarray, g_params))
+    return np.asarray(out), sd, np.asarray(g_x)
+
+
+def _port_grads(tm, x, dout, embed_L, need_dx):
+    xt = torch.from_numpy(x).requires_grad_(need_dx)
+    out = rt.r2l_train_apply(tm, xt, embed_L=embed_L, need_dx=need_dx)
+    out.backward(torch.from_numpy(dout))
+    grads = {k: v.grad.numpy() for k, v in tm.named_parameters()}
+    return out.detach().numpy(), grads, (xt.grad.numpy() if need_dx else None)
+
+
+def _assert_grads(got, want, tol):
+    assert set(got) == set(want)
+    for k, w in want.items():
+        scale = float(np.abs(w).max()) + 1e-12
+        np.testing.assert_allclose(got[k], w, atol=tol * scale, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("need_dx", [False, True])
+@pytest.mark.parametrize("embed_L", [0, 10])
+@pytest.mark.parametrize("grs,res_scale", [(False, 1.0), (True, 0.5)])
+def test_function_matches_pallas_interpret_f32(grs, res_scale, embed_L, need_dx,
+                                               rng):
+    params, tm, x, dout = _setup(rng, grs=grs, res_scale=res_scale,
+                                 embed_L=embed_L)
+    out_w, g_w, dx_w = _jax_vjp(params, x, dout, grs=grs, res_scale=res_scale,
+                                embed_L=embed_L, need_dx=need_dx,
+                                dtype=jnp.float32)
+    launches = (rt.r2l_train_fwd.launches, rt.r2l_train_bwd.launches)
+    out, grads, dx = _port_grads(tm, x, dout, embed_L, need_dx)
+    assert (rt.r2l_train_fwd.launches, rt.r2l_train_bwd.launches) == launches
+    assert out.shape == (B, 3)
+    np.testing.assert_allclose(out, out_w, atol=TOL_OUT[embed_L], rtol=0)
+    # every weight and bias gradient, the head's rows back in ray_embed order
+    _assert_grads(grads, g_w, TOL_GRAD[embed_L])
+    if need_dx:
+        _assert_grads({"dx": dx}, {"dx": dx_w}, TOL_GRAD[embed_L])
+    else:
+        assert not np.any(dx_w)   # the JAX kernel returns zeros
+
+
+@pytest.mark.parametrize("grs", [False, True])
+def test_function_matches_pallas_interpret_bf16(grs, rng):
+    params, tm, x, dout = _setup(rng, grs=grs, embed_L=10, dtype=jnp.bfloat16)
+    out_w, g_w, dx_w = _jax_vjp(params, x, dout, grs=grs, res_scale=1.0,
+                                embed_L=10, need_dx=True, dtype=jnp.bfloat16)
+    out, grads, dx = _port_grads(tm, x, dout, 10, True)
+    np.testing.assert_allclose(out, out_w, atol=TOL_BF16_OUT, rtol=0)
+    _assert_grads(grads, g_w, TOL_BF16_GRAD)
+    _assert_grads({"dx": dx}, {"dx": dx_w}, TOL_BF16_GRAD)
+
+
+@pytest.mark.parametrize("embed_L", [0, 10])
+def test_plain_versions_are_the_wrappers_on_cpu(embed_L, rng):
+    _, tm, x, dout = _setup(rng, embed_L=embed_L)
+    packed = rt.pack_r2l_train_weights(rt._model_params(tm), embed_L,
+                                       torch.float32)
+    xt, dt = torch.from_numpy(x), torch.from_numpy(dout)
+    out, hs = rt.r2l_train_fwd(packed, xt)
+    out_p, hs_p = rt.r2l_train_fwd_ref(packed, xt)
+    assert torch.equal(out, out_p) and torch.equal(hs, hs_p)
+    nb = (DEPTH - 2) // 2
+    assert hs.shape == (nb + 1, B, WIDTH)
+    g = rt.r2l_train_bwd(packed, xt, hs, dt, need_dx=False)
+    assert g["dx"] is None
+    assert g["head_w"].shape == (WIDTH, 256) and g["body_w"].shape == (nb, 2, WIDTH, WIDTH)
+    # the padding columns of the head carry no gradient
+    assert torch.all(g["head_w"][:, IN_DIM:] == 0)
+
+
+def test_pack_layout(rng):
+    params, tm, _, _ = _setup(rng)
+    packed = rt.pack_r2l_train_weights(rt._model_params(tm), L)
+    assert packed["head_w"].shape == (WIDTH, 256)
+    assert packed["head_w"].dtype == torch.bfloat16
+    perm = _doubling_head_perm_np(N_SAMPLE, L)
+    np.testing.assert_array_equal(
+        packed["head_w"][:, :IN_DIM].float().numpy(),
+        torch.from_numpy(params["head"]["kernel"][perm].T).bfloat16().float().numpy())
+    assert torch.all(packed["head_w"][:, IN_DIM:] == 0)
+    # embed_L = 0: the head keeps ray_embed's column order
+    plain = rt.pack_r2l_train_weights(rt._model_params(tm), 0, torch.float32)
+    np.testing.assert_array_equal(plain["head_w"][:, :IN_DIM].numpy(),
+                                  params["head"]["kernel"].T)
+    nb = (DEPTH - 2) // 2
+    assert packed["body_w"].shape == (nb, 2, WIDTH, WIDTH)
+    np.testing.assert_array_equal(
+        packed["body_w"][2, 1].float().numpy(),
+        torch.from_numpy(params["body"]["lin_1"]["kernel"][2].T).bfloat16().float().numpy())
+    np.testing.assert_array_equal(packed["body_b"][1, 0].numpy(),
+                                  params["body"]["lin_0"]["bias"][1])
+    assert packed["tail_w"].shape == (3, WIDTH) and packed["tail_b"].shape == (3,)
+    fwd, bwd = rt.r2l_train_flops(packed, 10)
+    assert fwd == 2 * 10 * (IN_DIM * WIDTH + 2 * nb * WIDTH ** 2 + WIDTH * 3)
+    assert bwd == 2 * 10 * (5 * nb * WIDTH ** 2 + 3 * WIDTH * 3 + IN_DIM * WIDTH)
+
+
+def test_flagship_bounds_match_the_slice():
+    """The operation counts behind the bounds at W256 D88, 98,304 rays."""
+    tm = R2LNet(1008, 88, 256)
+    packed = rt.pack_r2l_train_weights(rt._model_params(tm), 10)
+    fwd, bwd = rt.r2l_train_flops(packed, 1)
+    assert (fwd // 2, bwd // 2) == (5_894_912, 14_350_592)
+
+
+def test_body_gradients_are_views_of_one_buffer(rng):
+    _, tm, x, dout = _setup(rng)
+    out = rt.r2l_train_apply(tm, torch.from_numpy(x), embed_L=L, need_dx=False)
+    names, params = zip(*tm.named_parameters())
+    grads = torch.autograd.grad(out, params, torch.from_numpy(dout))
+    body = [g for n, g in zip(names, grads) if n.startswith("body.")]
+    bases = {g._base.data_ptr() for g in body if g._base is not None}
+    # weights and biases: two stacked buffers, no copy per parameter
+    assert len(body) == 4 * ((DEPTH - 2) // 2) and len(bases) == 2
+    assert all(g._base is not None for g in body)
+
+
+def test_other_profiles_and_inputs_raise(rng):
+    tm = R2LNet(IN_DIM, DEPTH, WIDTH, linear_tail=True)
+    with pytest.raises(ValueError, match="profile"):
+        rt.r2l_train_apply(tm, torch.zeros(4, K), embed_L=L)
+    with pytest.raises(ValueError, match="K\\*\\(2L\\+1\\)"):
+        rt.pack_r2l_train_weights(rt._model_params(R2LNet(250, DEPTH, WIDTH)), L)
+    assert fused_r2l_train_available("cuda")
+    assert not fused_r2l_train_available("cpu")
+
+
+def _random_model(rng, depth, grs=False, dtype=torch.float32):
+    # lecun-normal kernels with each block's second linear times 0.1, small
+    # biases: the outputs stay clear of the sigmoid's flat ends (chip_smoke.py)
+    tm = R2LNet(IN_DIM, depth, 256, use_residual=grs, dtype=dtype)
+    with torch.no_grad():
+        for name, v in tm.named_parameters():
+            scale = 0.01 if name.endswith("bias") else v.shape[-1] ** -0.5
+            if ".body.2.weight" in name:
+                scale *= 0.1
+            v.copy_(torch.from_numpy(
+                rng.normal(scale=scale, size=tuple(v.shape)).astype(np.float32)))
+    return tm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("embed_L", [0, 10])
+@pytest.mark.parametrize("grs", [False, True])
+def test_kernels_match_plain_versions(grs, embed_L, cuda_device, rng):
+    tm = _random_model(rng, 12, grs).to(cuda_device)
+    packed = rt.pack_r2l_train_weights(rt._model_params(tm), embed_L)
+    cols = K if embed_L else IN_DIM
+    x = torch.from_numpy((rng.normal(size=(B, cols)) * 3.0).astype(np.float32)
+                         ).to(cuda_device)
+    dout = torch.from_numpy(rng.normal(size=(B, 3)).astype(np.float32)).to(cuda_device)
+    launches = (rt.r2l_train_fwd.launches, rt.r2l_train_bwd.launches)
+    out, hs = rt.r2l_train_fwd(packed, x, use_global_residual=grs)
+    out_p, hs_p = rt.r2l_train_fwd_ref(packed, x, use_global_residual=grs)
+    g = rt.r2l_train_bwd(packed, x, hs_p, dout, use_global_residual=grs)
+    g_p = rt.r2l_train_bwd_ref(packed, x, hs_p, dout, use_global_residual=grs)
+    torch.cuda.synchronize()
+    assert (rt.r2l_train_fwd.launches, rt.r2l_train_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    # chip_smoke.py's tolerances, set from the measured summation-order
+    # noise (bf16 roundings that flip) at 88 layers
+    torch.testing.assert_close(out, out_p, atol=4e-3, rtol=0)
+    for name, got, want, tol in [("hs", hs, hs_p, 2e-2)] + [
+            (k, g[k], g_p[k], 4e-2 if k == "dx" else 1e-2) for k in g_p]:
+        err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+        assert err <= tol, (name, err.item())
+
+
+@pytest.mark.cuda
+def test_function_on_the_card_matches_the_cpu(cuda_device, rng):
+    """The autograd Function through the kernels against the same Function
+    on the CPU (the plain versions), bf16 operands on both."""
+    tm = _random_model(rng, DEPTH, dtype=torch.bfloat16)
+    tc = _random_model(rng, DEPTH, dtype=torch.bfloat16)
+    tc.load_state_dict(tm.state_dict())
+    tc = tc.to(cuda_device)
+    x = (rng.normal(size=(B, K)) * 3.0).astype(np.float32)
+    dout = rng.normal(size=(B, 3)).astype(np.float32)
+    out, grads, _ = _port_grads(tm, x, dout, 10, False)
+    xc = torch.from_numpy(x).to(cuda_device)
+    oc = rt.r2l_train_apply(tc, xc, embed_L=10, need_dx=False)
+    oc.backward(torch.from_numpy(dout).to(cuda_device))
+    np.testing.assert_allclose(oc.detach().cpu().numpy(), out, atol=4e-3, rtol=0)
+    _assert_grads({k: v.grad.cpu().numpy() for k, v in tc.named_parameters()},
+                  grads, 1e-2)
