@@ -26,9 +26,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 81,920-row pool, perturbed, Adam with the warmup schedule):
                 10 steps on rays of pose_spherical frames with targets from
                 a second R2L of another seed, the launch counters set to 0
-                just before and read just after; then the step time split
-                into its parts, and each training kernel's time beside its
-                bound, its plain version and the unfused cuBLAS autograd path.
+                just before and read just after; then both training kernels
+                against their plain versions at the step's 98,304 rays; the
+                step time split into its parts, and each training kernel's
+                time beside its bound, its plain version and the unfused
+                cuBLAS autograd path.
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Weights are random, made from --seed, with
@@ -535,6 +537,31 @@ def phase_train(sm: Smoke) -> None:
     kw = dict(res_scale=model.res_scale, use_global_residual=model.use_residual)
     out, hs = rt.r2l_train_fwd(packed, x, **kw)
     dout = torch.randn(out.shape, generator=gen, device=dev) * 1e-5
+
+    # ---- both kernels against their plain versions at the step's shape,
+    # where the backward sums the weight gradients of every ray tile
+    out_p, hs_p = rt.r2l_train_fwd_ref(packed, x, **kw)
+    g = rt.r2l_train_bwd(packed, x, hs_p, dout, need_dx=False, **kw)
+    g_p = rt.r2l_train_bwd_ref(packed, x, hs_p, dout, need_dx=False, **kw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all() or not torch.isfinite(hs.float()).all():
+        fail("training forward output is not finite at the step's shape")
+    full = {"out": (out - out_p).abs().max().item(), "hs": rel_err(hs, hs_p),
+            "grad": max(rel_err(g[k], g_p[k]) for k in rt._OPERANDS),
+            "grad_abs": max((g[k] - g_p[k]).abs().max().item() for k in rt._OPERANDS)}
+    del out_p, hs_p, g, g_p
+    print(f"train: kernels vs plain versions at B={n_rays} ({-(-n_rays // 64)} "
+          f"ray tiles): forward out {full['out']:.3g} (tol {KERNEL_TOL:g}), hs "
+          f"{full['hs']:.3g}, gradients {full['grad']:.3g} of their largest "
+          f"magnitude (tol {json.dumps(TRAIN_TOL)})", flush=True)
+    if not full["out"] <= KERNEL_TOL:
+        fail(f"training forward differs from its plain version by {full['out']} "
+             f"at B={n_rays}")
+    for k in ("hs", "grad"):
+        if not full[k] <= TRAIN_TOL[k]:
+            fail(f"training kernels' {k} differs from the plain version by "
+                 f"{full[k]:.3g} of its largest magnitude at B={n_rays} "
+                 f"(tol {TRAIN_TOL[k]})")
     parts = {
         "sampling": cuda_ms(torch, lambda: sample_ray_points(
             o_aug, d_aug, NEAR, FAR, N_SAMPLE, perturb=True, generator=gen), 10),
@@ -601,13 +628,14 @@ def phase_train(sm: Smoke) -> None:
     sm.entries["r2l_train_fwd"] = {
         "name": "r2l_train_fwd", **common,
         "replaces": "efficient_nerf_tpu/ops/pallas/r2l_train.py:261",
-        "launches": launches[0], "max_abs_err": errs["out"],
+        "launches": launches[0], "max_abs_err": max(errs["out"], full["out"]),
         "ms": parts["forward kernel"], "plain_ms": plain_fwd,
         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": lib_fwd}
     sm.entries["r2l_train_bwd"] = {
         "name": "r2l_train_bwd", **common,
         "replaces": "efficient_nerf_tpu/ops/pallas/r2l_train.py:323",
-        "launches": launches[1], "max_abs_err": errs["grad_abs"],
+        "launches": launches[1],
+        "max_abs_err": max(errs["grad_abs"], full["grad_abs"]),
         "ms": parts["backward kernel"], "plain_ms": plain_bwd,
         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": lib_bwd}
 

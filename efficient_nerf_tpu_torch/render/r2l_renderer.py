@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.optim.optimizer import register_optimizer_step_post_hook
 
 from ..core.encoding import ray_embed
 from ..core.ray_sampler import sample_image_points, sample_ray_points
@@ -58,12 +59,27 @@ def _fused_eligible(model: R2LNet, plucker: bool, perturb: bool,
             and fused_r2l_available(dev))
 
 
+_optimizer_steps = 0
+
+
+def _count_optimizer_step(optimizer, args, kwargs) -> None:
+    global _optimizer_steps
+    _optimizer_steps += 1
+
+
+# a fused optimizer (Adam(fused=True)) writes the parameters without bumping
+# their version counters, so the pack's key also counts every optimizer step
+# taken in the process
+register_optimizer_step_post_hook(_count_optimizer_step)
+
+
 def _packed(model: R2LNet, n_sample: int, L: int) -> Dict[str, object]:
     """The model's kernel operands, packed once and reused while no
     parameter changes: the key holds each parameter's storage and version
-    counter, which every in-place update (optimizer step, load_state_dict)
-    bumps."""
-    key: Tuple = (n_sample, L) + tuple(
+    counter, which in-place updates through autograd-visible ops
+    (load_state_dict, a foreach optimizer) bump, and the count of optimizer
+    steps, which also covers the fused optimizers that do not."""
+    key: Tuple = (n_sample, L, _optimizer_steps) + tuple(
         (p.data_ptr(), p._version) for p in model.parameters())
     cached = getattr(model, "_fused_pack", None)
     if cached is None or cached[0] != key:

@@ -21,7 +21,6 @@ import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
-from torch.autograd.graph import increment_version
 
 from ..core.encoding import ray_embed
 from ..core.ray_sampler import sample_ray_points
@@ -79,9 +78,11 @@ def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
     at schedule(0).
 
     fused: the fused training kernels. None takes them on a CUDA device for
-    the eligible profile (steps.py:83-94) with bf16 operands (model.dtype);
-    True on an ineligible model, or on the card with another dtype, raises
-    ValueError; True on the CPU runs the kernels' plain versions.
+    the eligible profile (steps.py:83-94), and the unfused path otherwise;
+    the kernels take bf16 operands (model.dtype), so an eligible model of
+    another dtype on the card raises ValueError unless fused=False. True on
+    an ineligible model raises ValueError; True on the CPU runs the kernels'
+    plain versions.
     The fused apply embeds in the kernel (embed_L = L when fast_embed) and
     skips the input gradient (need_dx=False): the points are data.
 
@@ -99,12 +100,12 @@ def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
             raise ValueError("fused train step requires the uniform "
                              "scan-body R2LNet profile")
         on_card = fused_r2l_train_available(dev)
-        if fused and on_card and model.dtype != torch.bfloat16:
+        if eligible and on_card and model.dtype != torch.bfloat16:
             raise ValueError("the fused training kernels take bf16 operands: "
-                             "build the model with dtype=torch.bfloat16")
+                             "build the model with dtype=torch.bfloat16, or "
+                             "pass fused=False for the unfused R2LNet path")
         # off the card the plain versions run, in any dtype
-        fused = eligible and (bool(fused) or (
-            on_card and model.dtype == torch.bfloat16))
+        fused = eligible and (bool(fused) or on_card)
 
     def forward(pts: torch.Tensor) -> torch.Tensor:
         if fused:
@@ -156,11 +157,6 @@ def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
             for group in optimizer.param_groups:
                 group["lr"] = lr
         optimizer.step()
-        # a fused optimizer writes the parameters without bumping their
-        # version counters, which caches of the parameters (the serving
-        # pack, render/r2l_renderer._packed) key on
-        for p in params:
-            increment_version(p)
 
         if hard is not None:
             rows_aug = torch.cat([rays_o, rays_d, target], -1)

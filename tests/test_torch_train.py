@@ -267,10 +267,42 @@ def test_auto_mode_takes_the_unfused_path_on_the_cpu(rng, monkeypatch):
         assert len(calls) == want and np.isfinite(float(met["loss_rgb"]))
 
 
+def test_auto_mode_on_the_card_refuses_a_model_the_kernels_cannot_take(rng, monkeypatch):
+    # an eligible f32 model on the card raises rather than quietly taking
+    # the unfused path; fused=False asks for that path
+    from efficient_nerf_tpu_torch.train import steps
+
+    monkeypatch.setattr(steps, "fused_r2l_train_available", lambda dev: True)
+    _, _, tm = _models(rng, False)
+    opt = torch.optim.Adam(tm.parameters())
+    kw = dict(near=NEAR, far=FAR, n_sample=N_SAMPLE, device="cpu")
+    for fused in (None, True):
+        with pytest.raises(ValueError, match="bf16"):
+            make_r2l_train_step(tm, opt, fused=fused, **kw)
+    make_r2l_train_step(tm, opt, fused=False, **kw)
+    bm = R2LNet(IN_DIM, DEPTH, WIDTH, dtype=torch.bfloat16)
+    make_r2l_train_step(bm, torch.optim.Adam(bm.parameters()), **kw)
+
+
+def test_serving_sees_a_fused_adam_step_taken_outside_the_train_step(rng):
+    # fused Adam writes the parameters without bumping their version
+    # counters; the serving pack's key counts optimizer steps as well
+    _, _, tm = _models(rng, False)
+    opt = torch.optim.Adam(tm.parameters(), lr=1e-3, fused=True)
+    before = _packed(tm, N_SAMPLE, L)
+    versions = [p._version for p in tm.parameters()]
+    for p in tm.parameters():
+        p.grad = torch.from_numpy(rng.normal(size=p.shape).astype(np.float32))
+    opt.step()
+    assert [p._version for p in tm.parameters()] == versions   # no bump
+    after = _packed(tm, N_SAMPLE, L)
+    assert after is not before
+    assert not torch.equal(after["body_w"], before["body_w"])
+    assert _packed(tm, N_SAMPLE, L) is after        # cached again
+
+
 @pytest.mark.parametrize("fused_adam", [False, True])
 def test_a_step_moves_the_weights_that_serving_uses(fused_adam, rng):
-    # fused Adam writes the parameters without bumping their version
-    # counters; the step bumps them so that the serving pack sees the update
     _, _, tm = _models(rng, False)
     opt = torch.optim.Adam(tm.parameters(), lr=1e-3, fused=fused_adam)
     step = make_r2l_train_step(tm, opt, near=NEAR, far=FAR, n_sample=N_SAMPLE,
