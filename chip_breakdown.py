@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Where a fused R2L kernel's time goes, on one CUDA card.
 
-    python3 chip_breakdown.py [--seed N] [--kernel serve|train_bwd]
+    python3 chip_breakdown.py [--seed N] [--kernel serve|serve_int8|train_bwd]
 
-Builds the kernel as shipped and variants of it made by replacing one
-statement each, all with nvcc in parallel into build/kernels/breakdown/,
+Builds the kernel as shipped and variants of it made by replacing a few
+statements each, all with nvcc in parallel into build/kernels/breakdown/,
 and times each with CUDA events at the main path's shape (W256 D88).
 
 serve: csrc/r2l_forward.cu on the rays of one 400x400 frame, its variants
@@ -12,6 +12,21 @@ edited in the weight stream it includes (csrc/r2l_mma.cuh):
   shipped      the kernel as the port runs it
   no_loads     no weight copies: the products and barriers alone
   no_products  no mma.sync or ldmatrix: the weight stream and barriers alone
+
+serve_int8: csrc/r2l_int8.cu with static activation scales (from
+calibrate_r2l_int8 on the frame's first 1024 rays) on the rays of one
+400x400 frame, its variants edited in its own int8 weight stream:
+  shipped      the kernel as the port runs it
+  no_loads     no int8 weight copies: the products, epilogues and barriers
+  no_products  no int8 mma.sync or ldmatrix: the weight stream, epilogues and
+               barriers
+  no_epilogues the static epilogues skipped (no dequantize, requantize or
+               residual): the weight stream, products and barriers
+  first_conversions  the kernel's first conversions, (float) of the int32
+               sums and rintf, clip and a truncating cast for the levels:
+               quarter-rate conversions, the same results
+  ring_64x4    64-byte weight chunks in 4 stages instead of 128 in 2: a
+               deeper ring, a barrier per chunk
 
 train_bwd: the training backward of csrc/r2l_train.cu at 98,304 rays (the
 training step's), need_dx off:
@@ -51,35 +66,64 @@ _FLOAT4 = """            if (hf == 1) continue;
             atomicAdd(reinterpret_cast<float4*>(gW + (size_t)(row + (odd ? 8 : 0)) * ldg +
                                                 n0 + 8 * j + 4 * (t / 2)), v);"""
 _DW = "  const int g = lane / 4, t = lane % 4, mi = lane / 8;\n  for (int m0"
-# kernel: (file edited, file built, {variant: (old, new) or None})
+_LOAD8 = "cp_async16(dst + r * LDS8 + piece * 16, src + (size_t)r * W + piece * 16);"
+_PRODUCTS8 = "    if (owns) {\n      const int8_t* X = (l & 1) ? X1 : X0;"
+_EPI_EVEN = "      } else if (owns) {\n        // t = acc * (dqs0 * inv1)"
+_EPI_ODD = "    if (owns) {\n      float sg[RT][2];"
+_EPI_QH = "    if (b + 1 < n_block) quantize_h(b + 1, owns);"
+_CVT_SUM = "  return __fsub_rn(__int_as_float(v + 0x4B400000), 12582912.0f);"
+_CVT_LEVELS = """  unsigned r;
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;\\n"
+      : "=r"(r)
+      : "r"(__float2int_rn(fmaxf(y, -127.0f))), "r"(__float2int_rn(fmaxf(x, -127.0f))),
+        "r"(0));
+  *reinterpret_cast<unsigned short*>(p) = (unsigned short)r;"""
+_FIRST_LEVELS = """  const int a = (int)fminf(fmaxf(rintf(x), -127.0f), 127.0f);
+  const int b = (int)fminf(fmaxf(rintf(y), -127.0f), 127.0f);
+  *reinterpret_cast<unsigned short*>(p) = (unsigned short)((a & 0xff) | ((b & 0xff) << 8));"""
+# kernel: (file edited, file built, {variant: [(old, new), ...]}); the
+# shipped variant has no edits
 KERNELS = {
     "serve": ("r2l_mma.cuh", "r2l_forward.cu", {
-        "shipped": None,
-        "no_loads": (_LOAD, ""),
-        "no_products": (_PRODUCTS, _PRODUCTS.replace("(owns)", "(false)")),
+        "shipped": [],
+        "no_loads": [(_LOAD, "")],
+        "no_products": [(_PRODUCTS, _PRODUCTS.replace("(owns)", "(false)"))],
+    }),
+    "serve_int8": ("r2l_int8.cu", "r2l_int8.cu", {
+        "shipped": [],
+        "no_loads": [(_LOAD8, "")],
+        "no_products": [(_PRODUCTS8, _PRODUCTS8.replace("(owns)", "(false)"))],
+        "no_epilogues": [(_EPI_EVEN, _EPI_EVEN.replace("(owns)", "(false)")),
+                         (_EPI_ODD, _EPI_ODD.replace("(owns)", "(false)")),
+                         (_EPI_QH, "")],
+        "first_conversions": [(_CVT_SUM, "  return (float)v;"),
+                              (_CVT_LEVELS, _FIRST_LEVELS)],
+        "ring_64x4": [("constexpr int KC8 = 128; ", "constexpr int KC8 = 64;  "),
+                      ("constexpr int S8 = 2;", "constexpr int S8 = 4;")],
     }),
     "train_bwd": ("r2l_train.cu", "r2l_train.cu", {
-        "shipped": None,
-        "float4_atomics": (_ATOMIC, _FLOAT4),
-        "no_atomics": (_ATOMIC, "            if (acc[i][j][2 * hf] == 1.2345e-38f) "
-                                "gW[(size_t)row * ldg + col] = acc[i][j][2 * hf + 1];"),
-        "no_weight_grads": (_DW, _DW.replace("  for (int m0", "  if (M > 0) return;\n"
-                                                           "  for (int m0")),
+        "shipped": [],
+        "float4_atomics": [(_ATOMIC, _FLOAT4)],
+        "no_atomics": [(_ATOMIC, "            if (acc[i][j][2 * hf] == 1.2345e-38f) "
+                                 "gW[(size_t)row * ldg + col] = acc[i][j][2 * hf + 1];")],
+        "no_weight_grads": [(_DW, _DW.replace("  for (int m0", "  if (M > 0) return;\n"
+                                                            "  for (int m0"))],
     }),
 }
 
 
 def _build(name, edited_name, edited, source, out_dir, nvcc, flags, csrc):
-    """The kernel with the edited file beside it (a quoted include finds the
-    including file's directory first; the other headers come from csrc)."""
+    """The kernel built from a copy of csrc's headers and the source side by
+    side, the edited file among them: a quoted include finds the including
+    file's directory first, so every header, also one included by another
+    header, resolves to the variant's copy."""
     out_dir = out_dir / name
     out_dir.mkdir(parents=True, exist_ok=True)
+    for src in [*csrc.glob("*.cuh"), csrc / source]:
+        (out_dir / src.name).write_text(src.read_text())
     (out_dir / edited_name).write_text(edited)
-    cu = out_dir / source
-    if source != edited_name:
-        cu.write_text((csrc / source).read_text())
     so = out_dir / f"lib{name}.so"
-    r = subprocess.run([nvcc, *flags, "-I", str(csrc), "-o", str(so), str(cu)],
+    r = subprocess.run([nvcc, *flags, "-o", str(so), str(out_dir / source)],
                        capture_output=True, text=True, timeout=600)
     if r.returncode:
         raise SystemExit(f"nvcc failed for {name}:\n{r.stdout}{r.stderr}")
@@ -121,7 +165,49 @@ def _serve_runner(torch, dev, seed):
     def error():
         return (out - want).abs().max().item()
 
-    return n_rays, fwd.r2l_forward_flops(packed, n_rays), make_run, error
+    bound_ms = fwd.r2l_forward_flops(packed, n_rays) / cs.H100_BF16_FLOPS * 1e3
+    return n_rays, bound_ms, cs.KERNEL_TOL, make_run, error
+
+
+def _serve_int8_runner(torch, dev, seed):
+    from efficient_nerf_tpu_torch.core.poses import pose_spherical
+    from efficient_nerf_tpu_torch.core.rays import get_rays
+    from efficient_nerf_tpu_torch.ops import r2l_int8 as i8
+    from efficient_nerf_tpu_torch.ops.r2l_forward import _zvals
+
+    sd = {k: v.to(dev) for k, v in cs.random_state_dict(seed, torch).items()}
+    packed = i8.pack_r2l_weights_int8(sd, cs.N_SAMPLE, cs.L_FREQ)
+    ro, rd = get_rays(cs.FRAME_H, cs.FRAME_W, cs.FOCAL,
+                      pose_spherical(-30.0, -30.0, 4.0)[:3, :4], device=dev)
+    ro, rd = ro.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
+    n_rays = ro.shape[0]
+    act = i8.calibrate_r2l_int8(sd, ro[:cs.INT8_CAL], rd[:cs.INT8_CAL], cs.NEAR,
+                                cs.FAR, cs.N_SAMPLE, cs.L_FREQ)
+    z = _zvals(cs.NEAR, cs.FAR, cs.N_SAMPLE, dev)
+    want = i8.r2l_forward_int8_ref(packed, ro, rd, cs.NEAR, cs.FAR, cs.N_SAMPLE,
+                                   cs.L_FREQ, act_scales=act)
+    width, in_pad = packed["head_w"].shape
+    n_block = packed["body_qw"].shape[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty((n_rays, 3), device=dev)
+
+    def make_run(lib):
+        fn = lib.r2l_int8_launch
+        restype, argtypes = i8._SIGNATURES["r2l_int8_launch"]
+        fn.restype, fn.argtypes = restype, list(argtypes)
+        ptr = {k: packed[k].data_ptr() for k in i8._OPERANDS}
+        return lambda: fn(ro.data_ptr(), rd.data_ptr(), z.data_ptr(), ptr["head_w"],
+                          ptr["head_b"], ptr["body_qw"], ptr["body_sw"], ptr["body_b"],
+                          act.data_ptr(), ptr["tail_w"], ptr["tail_b"], out.data_ptr(),
+                          n_rays, cs.N_SAMPLE, cs.L_FREQ, in_pad, width, n_block, 3,
+                          1.0, 0, stream)
+
+    def error():
+        return (out - want).abs().max().item()
+
+    ops8, ops16 = i8.r2l_int8_ops(packed, n_rays)
+    bound_ms = cs.bound(ops16, 0, int8_ops=ops8)[0]
+    return n_rays, bound_ms, cs.INT8_TOL["static"], make_run, error
 
 
 def _train_bwd_runner(torch, dev, seed):
@@ -169,7 +255,12 @@ def _train_bwd_runner(torch, dev, seed):
     def error():
         return max(cs.rel_err(grads[k], want[k]) for k in rt._OPERANDS)
 
-    return n_rays, rt.r2l_train_flops(packed, n_rays)[1], make_run, error
+    bound_ms = rt.r2l_train_flops(packed, n_rays)[1] / cs.H100_BF16_FLOPS * 1e3
+    return n_rays, bound_ms, cs.TRAIN_TOL["grad"], make_run, error
+
+
+RUNNERS = {"serve": _serve_runner, "serve_int8": _serve_int8_runner,
+           "train_bwd": _train_bwd_runner}
 
 
 def main() -> None:
@@ -187,10 +278,13 @@ def main() -> None:
     edited_name, source, variants = KERNELS[args.kernel]
     shipped = (build.CSRC / edited_name).read_text()
     sources = {}
-    for name, edit in variants.items():
-        if edit is not None and edit[0] not in shipped:
-            cs.fail(f"variant {name}: its statement is not in the source")
-        sources[name] = shipped if edit is None else shipped.replace(*edit)
+    for name, edits in variants.items():
+        text = shipped
+        for old, new in edits:
+            if text.count(old) != 1:
+                cs.fail(f"variant {name}: its statement is not once in the source")
+            text = text.replace(old, new)
+        sources[name] = text
     out_dir = build.BUILD_DIR / "breakdown" / args.kernel
     out_dir.mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(len(sources)) as ex:
@@ -201,9 +295,7 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    runner = _serve_runner if args.kernel == "serve" else _train_bwd_runner
-    n_rays, flops, make_run, error = runner(torch, dev, args.seed)
-    bound_ms = flops / cs.H100_BF16_FLOPS * 1e3
+    n_rays, bound_ms, tol, make_run, error = RUNNERS[args.kernel](torch, dev, args.seed)
 
     result = {"kernel": args.kernel, "rays": n_rays, "bound_ms": bound_ms,
               "variants": {}}
@@ -222,7 +314,6 @@ def main() -> None:
         print(f"{name:16s} {ms:8.3f} ms  error vs the port's kernel or plain "
               f"version {err:.3g}  {regs}", flush=True)
         result["variants"][name] = {"ms": ms, "err": err}
-    tol = cs.KERNEL_TOL if args.kernel == "serve" else cs.TRAIN_TOL["grad"]
     if not result["variants"]["shipped"]["err"] <= tol:
         cs.fail("the shipped kernel disagrees with its reference")
     result["card"] = cs.gpu_line()

@@ -17,6 +17,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 counters set to 0 just before and read just after; then the
                 frame time, the kernel time beside its bound, the plain
                 version and the unfused cuBLAS path (the library yardstick).
+  kernel_int8   the W8A8 kernel at W256 D88, B 8192, static scales (from
+                calibrate_r2l_int8 on 1024 of those rays) and dynamic ones,
+                use_residual off and on, and a ragged B 37, against
+                r2l_forward_int8_ref; max and mean error, the share of rays
+                beyond 4e-3, and the noise of the plain version on the CPU
+                against on the card (B 2048).
+  main_int8     calibrate_serving_scales once on the first 1024 rays of frame
+                0, then r2l_render_image(quant="int8", act_scales=...) for
+                the 3 poses as a user calls it, the launch counters set to 0
+                just before and read just after (one int8 launch a frame, no
+                bf16 launch); the frame against the plain version; frame and
+                kernel time beside the bound, the plain version, the unfused
+                torch._int_mm path (the library yardstick) and the bf16
+                kernel; the int8 frame against the bf16 kernel's.
   train_kernel  the training kernels at W256 D88, embed_L 10, bf16, B 8192
                 and a ragged B 37, use_residual and need_dx off and on:
                 out and hs of the forward, every gradient and dx of the
@@ -46,6 +60,7 @@ import subprocess
 import time
 
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak, H100 SXM data sheet
+H100_INT8_OPS = 1979e12    # dense int8 tensor-core peak, H100 SXM data sheet
 H100_HBM_BYTES = 3.35e12   # HBM3 bandwidth, H100 SXM data sheet
 
 # Flagship student: W256 D88, 16 samples, L 10 -> input 1008.
@@ -90,6 +105,19 @@ KERNEL_TOL = 4e-3
 # amounts the noise line prints. The limits are 3-4x those; a wrong index or
 # orientation gives errors of order 1.
 TRAIN_TOL = {"hs": 2e-2, "grad": 1e-2, "dx": 4e-2}
+# int8 kernel vs its plain version: the int8 products are exact on both
+# sides and the epilogues round alike, so they differ only where the bf16
+# head's (or tail's) f32 sum lands an ulp apart and that ulp moves a value
+# across a quantizer's rounding boundary: one int8 level of one activation,
+# carried through the remaining blocks. The JAX package allows 1e-2 (static)
+# and 1.5e-2 (dynamic) for its int8 kernel against its twin
+# (tests/test_ops.py:259, :230). On the card the plain version alone, on the
+# CPU against on the card, differs by up to 2.4e-3 (the noise line below),
+# and the kernel by up to 4.7e-3 over 8192 and 160,000 rays, in 0.015% of
+# rays beyond 4e-3 (PERF.md); 8e-3 is 1.7x that, and a wrong layout, scale or
+# rounding moves outputs by 1e-1 and more.
+INT8_TOL = {"static": 8e-3, "dynamic": 8e-3}
+INT8_CAL = 1024   # calibration rays, as bench.py calibrates
 
 
 def fail(msg: str) -> None:
@@ -141,9 +169,10 @@ def cuda_ms(torch, fn, n: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound(flops: float, nbytes: float):
-    """(bound ms, 'operations' or 'bytes') at the card's data-sheet peaks."""
-    t_ops = flops / H100_BF16_FLOPS * 1e3
+def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
+    """(bound ms, 'operations' or 'bytes') at the card's data-sheet peaks:
+    flops at the bf16 rate, int8_ops at the int8 rate."""
+    t_ops = (flops / H100_BF16_FLOPS + int8_ops / H100_INT8_OPS) * 1e3
     t_bytes = nbytes / H100_HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -359,6 +388,189 @@ def phase_main(sm: Smoke) -> None:
         "replaces": "efficient_nerf_tpu/ops/pallas/r2l_forward.py:505",
         "launches": launches,
         "max_abs_err": max(sm.serve_err, frame_err),
+        "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms}
+
+
+def _int8_errors(torch, got, want):
+    """(max, mean, share of rays beyond KERNEL_TOL) of |got - want|."""
+    e = (got - want).abs()
+    return (e.max().item(), e.mean().item(),
+            (e.amax(-1) > KERNEL_TOL).float().mean().item())
+
+
+def phase_kernel_int8(sm: Smoke) -> None:
+    from efficient_nerf_tpu_torch.ops.r2l_int8 import (
+        calibrate_r2l_int8, pack_r2l_weights_int8, r2l_forward_int8,
+        r2l_forward_int8_ref)
+
+    torch, dev, ko, kd = sm.torch, sm.dev, sm.ko, sm.kd
+    sd = {k: v.to(dev) for k, v in sm.sd.items()}
+    packed = pack_r2l_weights_int8(sd, N_SAMPLE, L_FREQ)
+    act = calibrate_r2l_int8(sd, ko[:INT8_CAL], kd[:INT8_CAL], NEAR, FAR, N_SAMPLE, L_FREQ)
+    errs = {"static": 0.0, "dynamic": 0.0}
+    for mode, scales in (("static", act), ("dynamic", None)):
+        for B, use_res in ((KERNEL_B, False), (KERNEL_B, True), (37, False)):
+            o, d = ko[:B].contiguous(), kd[:B].contiguous()
+            kw = dict(use_global_residual=use_res, act_scales=scales)
+            got = r2l_forward_int8(packed, o, d, NEAR, FAR, N_SAMPLE, L_FREQ, **kw)
+            want = r2l_forward_int8_ref(packed, o, d, NEAR, FAR, N_SAMPLE, L_FREQ, **kw)
+            torch.cuda.synchronize()
+            if got.shape != (B, 3) or not torch.isfinite(got).all():
+                fail("int8 kernel output has the wrong shape or is not finite")
+            e_max, e_mean, share = _int8_errors(torch, got, want)
+            print(f"kernel_int8: W{WIDTH} D{DEPTH} {mode} B={B} use_residual="
+                  f"{use_res}: max |kernel - plain| {e_max:.3g} (mean {e_mean:.3g}, "
+                  f"tol {INT8_TOL[mode]:g}); share of rays beyond {KERNEL_TOL:g}: "
+                  f"{share:.5f}", flush=True)
+            if not e_max <= INT8_TOL[mode]:
+                fail(f"int8 kernel ({mode}) differs from its plain version by {e_max}")
+            errs[mode] = max(errs[mode], e_max)
+    # the noise of summation order alone: the plain version on the host CPU
+    # and on the card, on the first NOISE_B of these rays
+    cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in packed.items()}
+    o, d = ko[:NOISE_B], kd[:NOISE_B]
+    for mode, scales in (("static", act), ("dynamic", None)):
+        want_cpu = r2l_forward_int8_ref(cpu, o.cpu(), d.cpu(), NEAR, FAR, N_SAMPLE,
+                                        L_FREQ, act_scales=None if scales is None
+                                        else scales.cpu())
+        want = r2l_forward_int8_ref(packed, o, d, NEAR, FAR, N_SAMPLE, L_FREQ,
+                                    act_scales=scales)
+        got = r2l_forward_int8(packed, o, d, NEAR, FAR, N_SAMPLE, L_FREQ,
+                               act_scales=scales)
+        n_max, n_mean, n_share = _int8_errors(torch, want.cpu(), want_cpu)
+        k_max, _, _ = _int8_errors(torch, got, want)
+        print(f"kernel_int8: summation-order noise ({mode}), plain version on the "
+              f"CPU vs on the card, B={NOISE_B}: max {n_max:.3g} (mean {n_mean:.3g}, "
+              f"share beyond {KERNEL_TOL:g} {n_share:.5f}); kernel vs plain on the "
+              f"same rays {k_max:.3g}", flush=True)
+    sm.int8_err = max(errs.values())
+
+
+def int8_library_forward(torch, packed, ro, rd, act, res_scale=1.0):
+    """The static-scale W8A8 forward unfused, one library call per product:
+    the embed and every quantize, dequantize and residual step as torch
+    elementwise ops, the head and tail as cuBLAS bf16 GEMMs, each body
+    product torch._int_mm (cuBLASLt int8 -> int32). The library yardstick;
+    the port never calls it."""
+    from efficient_nerf_tpu_torch.ops.r2l_forward import _doubling_embed, _zvals
+
+    x = _doubling_embed(ro, rd, _zvals(NEAR, FAR, N_SAMPLE, ro.device), L_FREQ)
+    head_w = packed["head_w"][:, :x.shape[1]]
+    h = torch.relu((x.to(torch.bfloat16) @ head_w.t()).float() + packed["head_b"])
+    qw, b = packed["body_qw"], packed["body_b"]
+    dqs = act[:, :, None] * packed["body_sw"]
+    inv = torch.reciprocal(act)
+    c0, c1 = dqs[:, 0] * inv[:, 1:], b[:, 0] * inv[:, 1:]
+    for i in range(qw.shape[0]):
+        q = torch.clamp(torch.round(h * inv[i, 0]), -127, 127).to(torch.int8)
+        t = torch._int_mm(q, qw[i, 0].t()).float() * c0[i] + c1[i]
+        q = torch.clamp(torch.round(torch.relu(t)), -127, 127).to(torch.int8)
+        h = (torch._int_mm(q, qw[i, 1].t()).float() * dqs[i, 1] + b[i, 1]) * res_scale + h
+    t = (h.to(torch.bfloat16) @ packed["tail_w"].t()).float() + packed["tail_b"]
+    return torch.sigmoid(t)
+
+
+def phase_main_int8(sm: Smoke) -> None:
+    import numpy as np
+
+    from efficient_nerf_tpu_torch.ops import r2l_forward_fused
+    from efficient_nerf_tpu_torch.ops.r2l_int8 import (
+        pack_r2l_weights_int8, r2l_forward_int8, r2l_forward_int8_ref, r2l_int8_ops)
+    from efficient_nerf_tpu_torch.ops.trig import fast_sincos_cuda
+    from efficient_nerf_tpu_torch.render import calibrate_serving_scales, r2l_render_image
+
+    torch, dev, rays = sm.torch, sm.dev, sm.rays
+    model = sm.model(sm.sd).eval()
+    c2ws = [np.asarray(p[:3, :4]) for p in sm.poses]
+    fo = rays[0][0].reshape(-1, 3).contiguous()
+    fd = rays[0][1].reshape(-1, 3).contiguous()
+    # once per checkpoint, as bench.py:91 does: the first 1024 rays of frame 0
+    scales = calibrate_serving_scales(model, fo[:INT8_CAL], fd[:INT8_CAL], NEAR, FAR,
+                                      N_SAMPLE, L_FREQ)
+    r2l_render_image(model, c2ws[0], FRAME_H, FRAME_W, FOCAL, NEAR, FAR, N_SAMPLE,
+                     L_FREQ, quant="int8", act_scales=scales)          # warm-up
+    torch.cuda.synchronize()
+    r2l_forward_int8.launches = 0
+    r2l_forward_fused.launches = 0
+    fast_sincos_cuda.launches = 0
+    # as a user calls it: numpy poses, the default device (CUDA)
+    frames = [r2l_render_image(model, c2w, FRAME_H, FRAME_W, FOCAL, NEAR, FAR,
+                               N_SAMPLE, L_FREQ, quant="int8", act_scales=scales)
+              for c2w in c2ws]
+    torch.cuda.synchronize()
+    launches = r2l_forward_int8.launches
+    print(f"main_int8: 3 frames of {FRAME_H}x{FRAME_W}: r2l_forward_int8 launches "
+          f"{launches}, r2l_forward_fused launches {r2l_forward_fused.launches}",
+          flush=True)
+    if launches != len(frames) or r2l_forward_fused.launches:
+        fail(f"expected one int8 launch per frame and no bf16 launch, counted "
+             f"{launches} and {r2l_forward_fused.launches}")
+    for img in frames:
+        if img.shape != (FRAME_H, FRAME_W, 3) or not torch.isfinite(img).all() \
+                or img.min() < 0 or img.max() > 1:
+            fail("int8 frame has the wrong shape or values outside [0, 1]")
+
+    packed = pack_r2l_weights_int8({k: v.to(dev) for k, v in sm.sd.items()},
+                                   N_SAMPLE, L_FREQ)
+    kw = dict(act_scales=scales)
+    got = r2l_forward_int8(packed, fo, fd, NEAR, FAR, N_SAMPLE, L_FREQ, **kw)
+    want = r2l_forward_int8_ref(packed, fo, fd, NEAR, FAR, N_SAMPLE, L_FREQ, **kw)
+    torch.cuda.synchronize()
+    e_max, e_mean, share = _int8_errors(torch, got, want)
+    f_max, f_mean, f_share = _int8_errors(torch, frames[0].reshape(-1, 3), want)
+    print(f"main_int8: frame rays B={fo.shape[0]}: max |kernel - plain| {e_max:.3g} "
+          f"(mean {e_mean:.3g}, share beyond {KERNEL_TOL:g} {share:.5f}); the frame "
+          f"r2l_render_image rendered: max {f_max:.3g} (mean {f_mean:.3g}, share "
+          f"{f_share:.5f}); tol {INT8_TOL['static']:g}", flush=True)
+    if not max(e_max, f_max) <= INT8_TOL["static"]:
+        fail(f"int8 kernel differs from its plain version by {max(e_max, f_max)} "
+             f"on a frame")
+
+    n_rays = fo.shape[0]
+    frame_ms = cuda_ms(torch, lambda: r2l_render_image(
+        model, c2ws[1], FRAME_H, FRAME_W, FOCAL, NEAR, FAR, N_SAMPLE, L_FREQ,
+        quant="int8", act_scales=scales), 10)
+    kern_ms = cuda_ms(torch, lambda: r2l_forward_int8(
+        packed, fo, fd, NEAR, FAR, N_SAMPLE, L_FREQ, **kw), 10)
+    dyn_ms = cuda_ms(torch, lambda: r2l_forward_int8(
+        packed, fo, fd, NEAR, FAR, N_SAMPLE, L_FREQ), 10)
+    bf16_ms = cuda_ms(torch, lambda: r2l_forward_fused(
+        sm.packed, fo, fd, NEAR, FAR, N_SAMPLE, L_FREQ), 10)
+    plain_ms = cuda_ms(torch, lambda: r2l_forward_int8_ref(
+        packed, fo, fd, NEAR, FAR, N_SAMPLE, L_FREQ, **kw), 3, warmup=1)
+    lib = int8_library_forward(torch, packed, fo, fd, scales)
+    lib_err = (lib - want).abs().max().item()
+    library_ms = cuda_ms(torch, lambda: int8_library_forward(
+        torch, packed, fo, fd, scales), 5)
+
+    ops8, ops16 = r2l_int8_ops(packed, n_rays)
+    weight_bytes = sum(t.numel() * t.element_size() for k, t in packed.items()
+                       if k in ("head_w", "head_b", "body_qw", "body_sw", "body_b",
+                                "tail_w", "tail_b")) + scales.numel() * 4
+    bound_ms, bound_by = bound(ops16, n_rays * (3 * 4 * 2 + 3 * 4) + weight_bytes,
+                               int8_ops=ops8)
+    print(f"main_int8: r2l_render_image(quant='int8') {frame_ms:.3f} ms/frame "
+          f"({n_rays / frame_ms * 1e3 / 1e6:.2f} M rays/s); kernel {kern_ms:.3f} ms "
+          f"static, {dyn_ms:.3f} ms dynamic, at B={n_rays}; bound {bound_ms:.3f} ms "
+          f"({ops8 / 1e12:.3f} T int8 operations at 1979 TOPS + {ops16 / 1e12:.4f} "
+          f"TFLOP at 989 TFLOP/s) -> {bound_ms / kern_ms * 100:.1f}% of the bound; "
+          f"bf16 kernel {bf16_ms:.3f} ms on the same rays; plain version "
+          f"{plain_ms:.3f} ms (not a yardstick); unfused torch._int_mm path "
+          f"(library_ms) {library_ms:.3f} ms (max {lib_err:.3g} from the plain "
+          f"version)", flush=True)
+
+    # quality: the int8 frame against the bf16 kernel's frame
+    bf16 = r2l_forward_fused(sm.packed, fo, fd, NEAR, FAR, N_SAMPLE, L_FREQ)
+    d = (frames[0].reshape(-1, 3) - bf16).abs()
+    psnr = -10.0 * torch.log10((d ** 2).mean()).item()
+    print(f"main_int8: int8 frame vs the bf16 kernel's frame: max {d.max().item():.3g}, "
+          f"mean {d.mean().item():.3g}, PSNR {psnr:.2f} dB", flush=True)
+    sm.entries["r2l_forward_int8"] = {
+        "name": "r2l_forward_int8", "route": "cuda",
+        "source": "efficient_nerf_tpu_torch/csrc/r2l_int8.cu",
+        "replaces": "efficient_nerf_tpu/ops/pallas/r2l_int8.py:280",
+        "launches": launches, "max_abs_err": max(sm.int8_err, e_max, f_max),
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms}
 
@@ -647,16 +859,17 @@ def main() -> None:
 
     sm = Smoke(args)
     for phase in (phase_build, phase_trig, phase_kernel, phase_main,
-                  phase_train_kernel, phase_train):
+                  phase_kernel_int8, phase_main_int8, phase_train_kernel, phase_train):
         t0 = time.perf_counter()
         phase(sm)
         print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
     # the helper runs inside every launch of the kernels that embed
     sm.entries["fast_sincos"]["launches"] = sum(
-        sm.entries[k]["launches"] for k in ("r2l_forward_fused", "r2l_train_fwd",
-                                            "r2l_train_bwd"))
+        sm.entries[k]["launches"] for k in ("r2l_forward_fused", "r2l_forward_int8",
+                                            "r2l_train_fwd", "r2l_train_bwd"))
     print(json.dumps({"kernels": [sm.entries[k] for k in (
-        "r2l_forward_fused", "fast_sincos", "r2l_train_fwd", "r2l_train_bwd")]}))
+        "r2l_forward_fused", "fast_sincos", "r2l_forward_int8", "r2l_train_fwd",
+        "r2l_train_bwd")]}))
     print(sm.gpu)  # the card, as nvidia-smi names it and its power limit
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": sm.torch.cuda.get_device_name(0),

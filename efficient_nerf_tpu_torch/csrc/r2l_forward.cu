@@ -3,22 +3,19 @@
 // Replaces efficient_nerf_tpu/ops/pallas/r2l_forward.py::r2l_forward_fused
 // (:388, its pallas_call at :505) in its production configuration: the
 // double-angle embedding (fast_embed=True), f32 epilogues, no diagnostics.
-// One thread block renders a tile of TB rays end to end:
+// One thread block renders a tile of TB rays end to end: the embed, the bf16
+// head and the tail with its sigmoid are r2l_serve.cuh's (shared with the
+// int8 forward, r2l_int8.cu); this file holds the bf16 body:
 //
-//   rays (o, d) -> points p = o + z_s d          (exact f32, elementwise)
-//     -> embed [sin_0..sin_{L-1} | cos_0..cos_{L-1} | p] in K-column blocks
-//        (fast_sincos of trig.cuh once per point, then L-1 doublings)
-//     -> head in_dim -> W, relu -> n_block x (lin, relu, lin, * res_scale, + h)
-//     -> optional global residual (+ post-relu head output) -> tail + sigmoid
+//   n_block x (lin, relu, lin, * res_scale, + h)
+//     -> optional global residual (+ post-relu head output)
 //
-// The head weight columns arrive permuted into the embed's block layout
-// (ops/r2l_forward.py::_doubling_head_perm_np), so the embed needs no
-// reordering. Precision contract of the Pallas kernel (:251-264): every
+// Precision contract of the Pallas kernel (:251-264): every
 // matmul takes bf16 operands and accumulates in f32; bias, relu, the residual
 // g * res_scale + h and the global residual are f32; h is rounded to bf16
 // only as a matmul operand; the tail is out_dim dot products and a sigmoid in
-// f32. The points, the recurrence and the residual use the round-to-nearest
-// intrinsics, so they round as the plain version (ops/r2l_forward.py) does.
+// f32. The residual uses the round-to-nearest intrinsics, so it rounds as the
+// plain version (ops/r2l_forward.py) does.
 //
 // Bound: 11.79 MFLOP per ray at W256 D88 (2 x (1008*256 + 86*256^2 +
 // 256*3)); 24 bytes of rays in and 12 of rgb out per ray, plus the 11.8 MB of
@@ -53,11 +50,11 @@
 #include <cuda_runtime.h>
 
 #include "r2l_mma.cuh"
-#include "trig.cuh"
+#include "r2l_serve.cuh"
 
 namespace {
 
-using namespace enerf;  // TB, NWARPS, ..., Frag, mma_stream (r2l_mma.cuh)
+using namespace enerf;  // TB, NWARPS, ..., Frag, mma_stream, embed_tile, ...
 
 struct Args {
   const float* rays_o;             // [B, 3]
@@ -106,56 +103,16 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_forward_kernel(const Args p) 
   float* h0 = reinterpret_cast<float*>(smem + lay.h0);
   __nv_bfloat16* head_ring = reinterpret_cast<__nv_bfloat16*>(smem + lay.head_ring);
   __nv_bfloat16* body_ring = reinterpret_cast<__nv_bfloat16*>(smem + lay.body_ring);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4, n0 = warp * WN;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int n0 = (threadIdx.x / 32) * WN;
   const long long ray0 = (long long)blockIdx.x * TB;
 
-  // ---- embedding: one (ray, point coordinate) pair per thread and step
-  const int K = 3 * p.n_sample, L = p.L, in_dim = K * (2 * L + 1);
-  for (int idx = tid; idx < TB * K; idx += NTHREADS) {
-    const int row = idx / K, m = idx % K;   // m = s * 3 + c
-    const long long ray = ray0 + row;
-    float o = 0.0f, d = 0.0f;               // rays past B embed as zeros
-    if (ray < p.B) {
-      o = p.rays_o[ray * 3 + m % 3];
-      d = p.rays_d[ray * 3 + m % 3];
-    }
-    const float pt = __fadd_rn(o, __fmul_rn(p.z[m / 3], d));
-    float s, c;
-    enerf::fast_sincos(pt, s, c, 9);
-    __nv_bfloat16* e = emb + (size_t)row * lde;
-    for (int j = 0; j < L; ++j) {
-      e[j * K + m] = __float2bfloat16_rn(s);
-      e[(L + j) * K + m] = __float2bfloat16_rn(c);
-      const float s2 = __fmul_rn(__fmul_rn(2.0f, s), c);
-      c = __fsub_rn(1.0f, __fmul_rn(__fmul_rn(2.0f, s), s));
-      s = s2;
-    }
-    e[2 * L * K + m] = __float2bfloat16_rn(pt);
-  }
-  const int n_pad = p.in_pad - in_dim;
-  for (int idx = tid; idx < TB * n_pad; idx += NTHREADS)
-    emb[(size_t)(idx / n_pad) * lde + in_dim + idx % n_pad] = __float2bfloat16_rn(0.0f);
-  // (mma_stream's first barrier orders these writes before the head reads)
-
-  // ---- head + relu into the register-resident residual stream h
-  // (the epilogues capture locals, never the kernel parameter itself)
-  const float* head_b = p.head_b;
-  const float* body_b = p.body_b;
+  // ---- embedding, then head + relu into the register-resident residual
+  // stream h (head_relu's first barrier orders the embed's writes)
+  embed_tile(emb, lde, p.rays_o, p.rays_d, p.z, ray0, p.B, p.n_sample, p.L, p.in_pad);
+  const float* body_b = p.body_b;  // (epilogues capture locals, not the parameter)
   Frag h;
-  mma_stream(emb, emb, lde, p.head_w, 0, p.in_pad, 1, W, head_ring,
-             [&](int, Frag& acc) {
-#pragma unroll
-               for (int i = 0; i < RT; ++i)
-#pragma unroll
-                 for (int j = 0; j < NJ; ++j) {
-                   const int col = n0 + 8 * j + 2 * t;
-                   const float b0 = head_b[col], b1 = head_b[col + 1];
-#pragma unroll
-                   for (int e = 0; e < 4; ++e)
-                     h[i][j][e] = fmaxf(acc[i][j][e] + ((e & 1) ? b1 : b0), 0.0f);
-                 }
-             });
+  head_relu(h, emb, lde, p.head_w, p.head_b, p.in_pad, W, head_ring);
   __syncthreads();  // the embed and the head ring are dead from here on
   if (n0 < W) {
 #pragma unroll
@@ -221,19 +178,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_forward_kernel(const Args p) 
   }
   __syncthreads();
 
-  // ---- tail and sigmoid: one warp per (ray, output)
-  for (int q = warp; q < TB * p.out_dim; q += NWARPS) {
-    const int row = q / p.out_dim, j = q % p.out_dim;
-    float acc = 0.0f;
-    for (int n = lane; n < W; n += 32)
-      acc += __bfloat162float(a[row * lda + n]) *
-             __bfloat162float(p.tail_w[(size_t)j * W + n]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    const long long ray = ray0 + row;
-    if (lane == 0 && ray < p.B)
-      p.out[ray * p.out_dim + j] = 1.0f / (1.0f + expf(-(acc + p.tail_b[j])));
-  }
+  // ---- tail and sigmoid
+  tail_sigmoid(a, lda, p.tail_w, p.tail_b, p.out, ray0, p.B, W, p.out_dim);
 }
 
 }  // namespace

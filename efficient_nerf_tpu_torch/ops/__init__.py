@@ -2,6 +2,10 @@
 
   * `r2l_forward_fused` (r2l_forward.py, csrc/r2l_forward.cu): the whole R2L
     inference forward, rays in, rgb out.
+  * `r2l_forward_int8` (r2l_int8.py, csrc/r2l_int8.cu): the same forward
+    with the residual body in int8 (W8A8, static or per-row dynamic
+    activation scales), beside `pack_r2l_weights_int8` and
+    `calibrate_r2l_int8`.
   * `r2l_train_fwd` / `r2l_train_bwd` (r2l_train.py, csrc/r2l_train.cu):
     the fused training forward and backward, behind `r2l_train_apply`.
   * `fast_sin` / `fast_cos` / `fast_sincos` (trig.py, csrc/trig.cuh): the
@@ -15,12 +19,16 @@ from __future__ import annotations
 import torch
 
 from .r2l_forward import pack_r2l_weights, r2l_forward_fused, r2l_forward_fused_ref
+from .r2l_int8 import (calibrate_r2l_int8, pack_r2l_weights_int8, r2l_forward_int8,
+                       r2l_forward_int8_ref)
 from .r2l_train import (pack_r2l_train_weights, r2l_train_apply, r2l_train_bwd,
                         r2l_train_bwd_ref, r2l_train_fwd, r2l_train_fwd_ref)
 from .trig import fast_cos, fast_sin, fast_sincos, fast_sincos_cuda
 
 __all__ = ["fused_r2l_available", "fused_r2l_train_available",
            "pack_r2l_weights", "r2l_forward_fused", "r2l_forward_fused_ref",
+           "pack_r2l_weights_int8", "calibrate_r2l_int8", "r2l_forward_int8",
+           "r2l_forward_int8_ref",
            "pack_r2l_train_weights", "r2l_train_apply", "r2l_train_fwd",
            "r2l_train_fwd_ref", "r2l_train_bwd", "r2l_train_bwd_ref",
            "fast_sin", "fast_cos", "fast_sincos", "fast_sincos_cuda"]

@@ -177,7 +177,7 @@ def _doubling_embed(rays_o, rays_d, z, L: int) -> torch.Tensor:
     """[B, (2L+1)K] embed of the rays' points o + z d (exact f32)."""
     B = rays_o.shape[0]
     p = (rays_o[:, None, :] + z[None, :, None] * rays_d[:, None, :]
-         ).reshape(B, -1)
+         ).reshape(B, 3 * z.shape[0])
     return doubling_embed(p, L)
 
 

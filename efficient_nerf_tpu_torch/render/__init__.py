@@ -1,1 +1,2 @@
-from .r2l_renderer import make_r2l_forward, r2l_forward_rays, r2l_render_image
+from .r2l_renderer import (calibrate_serving_scales, make_r2l_forward, r2l_forward_rays,
+                           r2l_render_image)

@@ -5,13 +5,20 @@ Eligible models (the flagship profile: uniform-width resmlp body, relu,
 sigmoid tail, eval mode, no Plucker input) on a CUDA device go through the
 fused kernel `ops.r2l_forward_fused`; everything else goes through
 `sample_ray_points` -> `ray_embed` -> `R2LNet`. On the CPU the unfused path
-runs, as the JAX package's XLA path does off the TPU. int8 serving and
-`calibrate_serving_scales` arrive with the int8 slice; the conv student is
-not ported yet.
+runs, as the JAX package's XLA path does off the TPU.
+
+`quant="int8"` serves through the W8A8 kernel `ops.r2l_forward_int8`, with
+activation scales from `calibrate_serving_scales` (once per checkpoint) or,
+without them, calibrated on the first 1024 rays of the call. It needs the
+flagship profile and raises `ValueError` otherwise, on any device. A
+deliberate divergence: the JAX package's int8 branch raises off the TPU,
+where its Pallas kernel is unavailable; here a CPU device runs the int8
+kernel's plain version, so that the tests can hold the whole int8 path
+against the JAX package. The conv student is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.optim.optimizer import register_optimizer_step_post_hook
@@ -21,17 +28,18 @@ from ..core.ray_sampler import sample_image_points, sample_ray_points
 from ..core.rays import get_rays, plucker_rays
 from ..device import DeviceLike, resolve_device, to_device
 from ..models.r2l import R2LNet
-from ..ops import fused_r2l_available, pack_r2l_weights, r2l_forward_fused
+from ..ops import (calibrate_r2l_int8, fused_r2l_available, pack_r2l_weights,
+                   pack_r2l_weights_int8, r2l_forward_fused, r2l_forward_int8)
 from ..ops.r2l_forward import MAX_WIDTH, WIDTH_ALIGN
 
-__all__ = ["r2l_forward_rays", "r2l_render_image", "make_r2l_forward"]
+__all__ = ["r2l_forward_rays", "r2l_render_image", "make_r2l_forward",
+           "calibrate_serving_scales"]
+
+_PACKERS = {"": pack_r2l_weights, "int8": pack_r2l_weights_int8}
 
 
 def _check_model(model, quant: str, dev: torch.device) -> None:
-    if quant == "int8":
-        raise NotImplementedError(
-            "quant='int8' serving arrives with the int8 slice (slice 3)")
-    if quant:
+    if quant not in _PACKERS:
         raise ValueError(f"unknown quant mode {quant!r}")
     if not isinstance(model, R2LNet):
         raise NotImplementedError(
@@ -43,11 +51,10 @@ def _check_model(model, quant: str, dev: torch.device) -> None:
                          "the model with model.to(device)")
 
 
-def _fused_eligible(model: R2LNet, plucker: bool, perturb: bool,
-                    dev: torch.device) -> bool:
-    """The fused kernel covers the flagship profile: uniform-width resmlp
+def _profile_eligible(model: R2LNet, plucker: bool, perturb: bool) -> bool:
+    """The fused kernels cover the flagship profile: uniform-width resmlp
     body, relu in-act, sigmoid tail, eval mode, non-Plucker, a width the
-    kernel's warps cover, on a CUDA device."""
+    kernels' warps cover."""
     return (not plucker and not perturb
             and model.body_arch == "resmlp"
             and not model.layerwise_widths
@@ -55,8 +62,13 @@ def _fused_eligible(model: R2LNet, plucker: bool, perturb: bool,
             and model.act == "relu" and model.inact == "relu"
             and model.outact == "none"
             and not model.linear_tail
-            and model.width % WIDTH_ALIGN == 0 and model.width <= MAX_WIDTH
-            and fused_r2l_available(dev))
+            and model.width % WIDTH_ALIGN == 0 and model.width <= MAX_WIDTH)
+
+
+def _fused_eligible(model: R2LNet, plucker: bool, perturb: bool,
+                    dev: torch.device) -> bool:
+    """The bf16 kernel serves the flagship profile on a CUDA device."""
+    return _profile_eligible(model, plucker, perturb) and fused_r2l_available(dev)
 
 
 _optimizer_steps = 0
@@ -73,19 +85,23 @@ def _count_optimizer_step(optimizer, args, kwargs) -> None:
 register_optimizer_step_post_hook(_count_optimizer_step)
 
 
-def _packed(model: R2LNet, n_sample: int, L: int) -> Dict[str, object]:
-    """The model's kernel operands, packed once and reused while no
-    parameter changes: the key holds each parameter's storage and version
-    counter, which in-place updates through autograd-visible ops
-    (load_state_dict, a foreach optimizer) bump, and the count of optimizer
-    steps, which also covers the fused optimizers that do not."""
+def _packed(model: R2LNet, n_sample: int, L: int,
+            quant: str = "") -> Dict[str, object]:
+    """The model's operands for the bf16 (quant "") or the int8 kernel,
+    packed once and reused while no parameter changes: the key holds each
+    parameter's storage and version counter, which in-place updates through
+    autograd-visible ops (load_state_dict, a foreach optimizer) bump, and the
+    count of optimizer steps, which also covers the fused optimizers that do
+    not. The int8 pack quantizes the body once per parameter version, not
+    once per frame."""
     key: Tuple = (n_sample, L, _optimizer_steps) + tuple(
         (p.data_ptr(), p._version) for p in model.parameters())
-    cached = getattr(model, "_fused_pack", None)
+    attr = "_int8_pack" if quant else "_fused_pack"
+    cached = getattr(model, attr, None)
     if cached is None or cached[0] != key:
         with torch.no_grad():
-            cached = (key, pack_r2l_weights(model.state_dict(), n_sample, L))
-        model._fused_pack = cached
+            cached = (key, _PACKERS[quant](model.state_dict(), n_sample, L))
+        setattr(model, attr, cached)
     return cached[1]
 
 
@@ -93,19 +109,64 @@ def _as_rays(x, dev: torch.device) -> torch.Tensor:
     return to_device(x, dev).contiguous()
 
 
+def calibrate_serving_scales(model: R2LNet, rays_o, rays_d, near: float,
+                             far: float, n_sample: int, L: int = 10,
+                             n_cal: int = 1024,
+                             device: DeviceLike = None) -> torch.Tensor:
+    """Per-checkpoint int8 activation scales [n_block, 2] f32 on `device`
+    (default CUDA), computed once at load time from the first n_cal rays and
+    passed to every frame as `act_scales`, so that no frame calibrates
+    itself."""
+    dev = resolve_device(device)
+    _check_model(model, "int8", dev)
+    n_cal = min(n_cal, len(rays_o))
+    rays_o = _as_rays(rays_o[:n_cal], dev)
+    rays_d = _as_rays(rays_d[:n_cal], dev)
+    with torch.no_grad():
+        return calibrate_r2l_int8(model.state_dict(), rays_o, rays_d, near, far,
+                                  n_sample, L, res_scale=model.res_scale)
+
+
+def _forward_int8(model: R2LNet, rays_o, rays_d, near, far, n_sample, L,
+                  act_scales, dev: torch.device) -> torch.Tensor:
+    if act_scales is None:
+        # self-calibration on the call's own first rays: right for a one-off
+        # render; a serving loop passes calibrate_serving_scales' result
+        act_scales = calibrate_serving_scales(model, rays_o, rays_d, near, far,
+                                              n_sample, L, device=dev)
+    return r2l_forward_int8(
+        _packed(model, n_sample, L, "int8"), rays_o, rays_d, near, far,
+        n_sample, L, res_scale=model.res_scale,
+        use_global_residual=model.use_residual,
+        act_scales=to_device(act_scales, dev).contiguous())
+
+
 def r2l_forward_rays(model: R2LNet, rays_o, rays_d, near: float, far: float,
                      n_sample: int, L: int = 10, plucker: bool = False,
                      perturb: bool = False, allow_fused: bool = True,
-                     quant: str = "", device: DeviceLike = None) -> torch.Tensor:
+                     quant: str = "", device: DeviceLike = None,
+                     act_scales=None) -> torch.Tensor:
     """[B, 3] rays -> [B, output_dim] colors on `device` (default CUDA).
 
     Eligible models on CUDA dispatch to the fused kernel
-    (allow_fused=False forces the unfused path).
+    (allow_fused=False forces the unfused path). quant="int8" takes the W8A8
+    kernel (its plain version on the CPU) with act_scales from
+    `calibrate_serving_scales`, or calibrates on the first 1024 rays when
+    act_scales is None; it raises ValueError for a model off the flagship
+    profile or with allow_fused=False.
     """
     dev = resolve_device(device)
     _check_model(model, quant, dev)
     rays_o, rays_d = _as_rays(rays_o, dev), _as_rays(rays_d, dev)
+    if quant == "int8" and not (allow_fused and _profile_eligible(model, plucker, perturb)):
+        raise ValueError("int8 inference requires the fused-kernel profile "
+                         "(uniform resmlp body, relu, sigmoid tail, eval mode, "
+                         f"no Plucker input, a width that is a multiple of "
+                         f"{WIDTH_ALIGN} up to {MAX_WIDTH})")
     with torch.no_grad():
+        if quant == "int8":
+            return _forward_int8(model, rays_o, rays_d, near, far, n_sample, L,
+                                 act_scales, dev)
         if allow_fused and _fused_eligible(model, plucker, perturb, dev):
             return r2l_forward_fused(
                 _packed(model, n_sample, L), rays_o, rays_d, near, far,
@@ -135,19 +196,23 @@ def make_r2l_forward(model: R2LNet, near: float, far: float, n_sample: int,
 def r2l_render_image(model: R2LNet, c2w, H: int, W: int, focal: float,
                      near: float, far: float, n_sample: int, L: int = 10,
                      plucker: bool = False, chunk: int = 0, quant: str = "",
-                     device: DeviceLike = None) -> torch.Tensor:
+                     device: DeviceLike = None,
+                     act_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Render a full frame -> [H, W, output_dim] on `device` (default CUDA).
 
-    Eligible models render the whole frame in one fused launch; the
+    Eligible models render the whole frame in one fused launch (quant="int8":
+    the W8A8 kernel, act_scales from `calibrate_serving_scales`, which a
+    serving loop passes; None calibrates on the frame's first 1024 rays); the
     unfused path evaluates `chunk` rays at a time when chunk > 0.
     """
     dev = resolve_device(device)
     _check_model(model, quant, dev)
-    if _fused_eligible(model, plucker, perturb=False, dev=dev):
+    if quant == "int8" or _fused_eligible(model, plucker, perturb=False, dev=dev):
         rays_o, rays_d = get_rays(H, W, focal, c2w, device=dev)
         rgb = r2l_forward_rays(model, rays_o.reshape(-1, 3),
                                rays_d.reshape(-1, 3), near, far, n_sample, L,
-                               device=dev)
+                               plucker=plucker, quant=quant, device=dev,
+                               act_scales=act_scales)
         return rgb.reshape(H, W, -1)
     with torch.no_grad():
         pts = sample_image_points(c2w, H, W, focal, near, far, n_sample,

@@ -8,9 +8,13 @@ import torch
 from efficient_nerf_tpu.core.poses import pose_spherical
 from efficient_nerf_tpu.models import R2LNet as JaxR2LNet
 from efficient_nerf_tpu.render import r2l_renderer as jren
+from efficient_nerf_tpu.core.rays import get_rays as jax_get_rays
+from efficient_nerf_tpu.ops.pallas import r2l_int8 as jint8
 from efficient_nerf_tpu_torch.models import R2LNet
-from efficient_nerf_tpu_torch.render import (make_r2l_forward, r2l_forward_rays,
-                                             r2l_render_image)
+from efficient_nerf_tpu_torch.ops import pack_r2l_weights_int8, r2l_forward_int8
+from efficient_nerf_tpu_torch.render import (calibrate_serving_scales, make_r2l_forward,
+                                             r2l_forward_rays, r2l_render_image)
+from efficient_nerf_tpu_torch.render.r2l_renderer import _packed
 
 N_SAMPLE, L, DEPTH, WIDTH = 4, 10, 6, 32
 NEAR, FAR, H, W, FOCAL = 2.0, 6.0, 8, 8, 9.0
@@ -18,6 +22,10 @@ NEAR, FAR, H, W, FOCAL = 2.0, 6.0, 8, 8, 9.0
 # |p| rad; a one-ulp difference in a sample point moves a top-octave feature
 # by ~1e-4, which the net carries to the output at about the same size.
 TOL = 1e-4
+# int8: the JAX package's tolerance for its int8 kernel against its twin
+# (tests/test_ops.py:259); a one-ulp difference before a quantizer moves an
+# activation by one int8 level
+TOL_INT8 = 1e-2
 
 
 def _models(plucker, rng):
@@ -76,18 +84,102 @@ def test_entry_points_raise_without_device_when_cuda_is_absent(rng):
 
 
 def test_int8_and_unknown_quant_raise(rng):
+    # int8 needs the fused profile on every device, as the JAX package's
+    # int8 branch does (r2l_renderer.py:77-79)
     _, _, tm = _models(False, rng)
     o = np.zeros((4, 3), np.float32)
     c2w = pose_spherical(0.0, -30.0, 4.0)[:3, :4]
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(ValueError, match="int8"):
         r2l_forward_rays(tm, o, o, NEAR, FAR, N_SAMPLE, L, quant="int8",
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        r2l_render_image(tm, c2w, H, W, FOCAL, NEAR, FAR, N_SAMPLE, L,
+                         allow_fused=False, device="cpu")
+    _, _, pm = _models(True, rng)
+    with pytest.raises(ValueError, match="int8"):
+        r2l_render_image(pm, c2w, H, W, FOCAL, NEAR, FAR, N_SAMPLE, L, plucker=True,
                          quant="int8", device="cpu")
+    lin = R2LNet(3 * N_SAMPLE * (2 * L + 1), DEPTH, WIDTH, linear_tail=True)
+    with pytest.raises(ValueError, match="int8"):
+        r2l_forward_rays(lin, o, o, NEAR, FAR, N_SAMPLE, L, quant="int8", device="cpu")
     with pytest.raises(ValueError, match="quant"):
         r2l_forward_rays(tm, o, o, NEAR, FAR, N_SAMPLE, L, quant="fp8",
                          device="cpu")
+    with pytest.raises(ValueError, match="quant"):
+        r2l_render_image(tm, c2w, H, W, FOCAL, NEAR, FAR, N_SAMPLE, L, quant="fp8",
+                         device="cpu")
+
+
+@pytest.mark.parametrize("scales", ["self", "given"])
+def test_int8_render_image_matches_jax(scales, rng):
+    # the JAX package's int8 path, composed as its r2l_render_image composes
+    # it on the TPU: get_rays -> calibrate_r2l_int8 on the first 1024 rays ->
+    # r2l_forward_int8, here in interpret mode (its CPU branch raises)
+    jm, params, tm = _models(False, rng)
+    c2w = pose_spherical(45.0, -30.0, 4.0)[:3, :4]
+    ro, rd = jax_get_rays(H, W, FOCAL, jnp.asarray(c2w))
+    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+    act = jint8.calibrate_r2l_int8(params, ro[:1024], rd[:1024], NEAR, FAR, N_SAMPLE, L)
+    want = np.asarray(jint8.r2l_forward_int8(
+        params, ro, rd, NEAR, FAR, N_SAMPLE, L, tile_b=H * W, act_scales=act,
+        interpret=True)).reshape(H, W, 3)
+    given = (calibrate_serving_scales(tm, np.asarray(ro), np.asarray(rd), NEAR, FAR,
+                                      N_SAMPLE, L, device="cpu")
+             if scales == "given" else None)
+    launches = r2l_forward_int8.launches
+    got = r2l_render_image(tm, c2w, H, W, FOCAL, NEAR, FAR, N_SAMPLE, L, quant="int8",
+                           device="cpu", act_scales=given)
+    assert r2l_forward_int8.launches == launches   # the CPU runs the plain version
+    assert got.shape == (H, W, 3) and got.device.type == "cpu"
+    # measured: max 1.4e-3, mean 3.0e-5
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL_INT8)
+    assert np.abs(got.numpy() - want).mean() <= 1e-3
+
+
+def test_calibrate_serving_scales_matches_jax(rng):
+    jm, params, tm = _models(False, rng)
+    o = rng.normal(size=(300, 3)).astype(np.float32)
+    d = rng.normal(size=(300, 3)).astype(np.float32)
+    want = np.asarray(jren.calibrate_serving_scales(
+        jm, params, jnp.asarray(o), jnp.asarray(d), NEAR, FAR, N_SAMPLE, L, n_cal=200))
+    got = calibrate_serving_scales(tm, o, d, NEAR, FAR, N_SAMPLE, L, n_cal=200,
+                                   device="cpu")
+    assert got.shape == ((DEPTH - 2) // 2, 2) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+def test_int8_forward_rays_serves_the_given_scales(rng):
+    _, _, tm = _models(False, rng)
+    o = rng.normal(size=(37, 3)).astype(np.float32)
+    d = rng.normal(size=(37, 3)).astype(np.float32)
+    act = calibrate_serving_scales(tm, o[:16], d[:16], NEAR, FAR, N_SAMPLE, L,
+                                   device="cpu")
+    got = r2l_forward_rays(tm, o, d, NEAR, FAR, N_SAMPLE, L, quant="int8",
+                           act_scales=act.numpy(), device="cpu")
+    want = r2l_forward_int8(pack_r2l_weights_int8(tm.state_dict(), N_SAMPLE, L),
+                            torch.from_numpy(o), torch.from_numpy(d), NEAR, FAR,
+                            N_SAMPLE, L, act_scales=act)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    # without scales, the call calibrates on its own first 1024 rays
+    self_cal = r2l_forward_rays(tm, o, d, NEAR, FAR, N_SAMPLE, L, quant="int8",
+                                device="cpu")
+    want = r2l_forward_int8(pack_r2l_weights_int8(tm.state_dict(), N_SAMPLE, L),
+                            torch.from_numpy(o), torch.from_numpy(d), NEAR, FAR,
+                            N_SAMPLE, L, act_scales=calibrate_serving_scales(
+                                tm, o, d, NEAR, FAR, N_SAMPLE, L, device="cpu"))
+    torch.testing.assert_close(self_cal, want, atol=0, rtol=0)
+
+
+def test_a_fused_optimizer_step_repacks_the_int8_weights(rng):
+    _, _, tm = _models(False, rng)
+    opt = torch.optim.Adam(tm.parameters(), lr=1e-3, fused=True)
+    before = _packed(tm, N_SAMPLE, L, "int8")
+    assert _packed(tm, N_SAMPLE, L, "int8") is before     # cached while unchanged
+    assert before["body_qw"].dtype == torch.int8
+    assert _packed(tm, N_SAMPLE, L) is not before          # the bf16 pack is apart
+    for p in tm.parameters():
+        p.grad = torch.from_numpy(rng.normal(size=p.shape).astype(np.float32))
+    opt.step()
+    after = _packed(tm, N_SAMPLE, L, "int8")
+    assert after is not before
+    assert not torch.equal(after["body_qw"], before["body_qw"])
 
 
 def test_other_model_types_raise():
