@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where a fused R2L kernel's time goes, on one CUDA card.
+"""Where a fused kernel's time goes, on one CUDA card.
 
-    python3 chip_breakdown.py [--seed N] [--kernel serve|serve_int8|train_bwd]
+    python3 chip_breakdown.py [--seed N] [--kernel serve|serve_int8|train_bwd|teacher]
 
 Builds the kernel as shipped and variants of it made by replacing a few
 statements each, all with nvcc in parallel into build/kernels/breakdown/,
@@ -36,6 +36,16 @@ training step's), need_dx off:
   no_atomics       the weight-gradient products without their atomics (a
                    store that never fires keeps them alive)
   no_weight_grads  neither the weight-gradient products nor their atomics
+
+teacher: the teacher's field eval of csrc/nerf_forward.cu (W256 D8, L 10/4)
+on a fine-pass chunk, 32,768 rays of one 400x400 frame at 192 sorted depths:
+  shipped      the kernel as the port runs it
+  no_loads     no weight copies: the products, epilogues and barriers alone
+  no_products  no mma.sync or ldmatrix: the weight stream, embed, epilogues
+               and barriers
+  no_trig      the embed without fast_sin (y + phase passes through)
+  no_views     no view branch: neither the per-ray direction products nor
+               the view layer's product and epilogue (rgb is left unset)
 
 Prints one line per variant and, last, a JSON object with the times, the
 bound and the card's name and power limit. A diagnostic: the variants'
@@ -81,6 +91,11 @@ _CVT_LEVELS = """  unsigned r;
 _FIRST_LEVELS = """  const int a = (int)fminf(fmaxf(rintf(x), -127.0f), 127.0f);
   const int b = (int)fminf(fmaxf(rintf(y), -127.0f), 127.0f);
   *reinterpret_cast<unsigned short*>(p) = (unsigned short)((a & 0xff) | ((b & 0xff) << 8));"""
+_T_LOAD = "cp_async16(dst + r * LDS + piece * 8, src + (size_t)r * sg.ldw + piece * 8);"
+_T_PRODUCTS = "    if (n0 < sg.n) {\n      const __nv_bfloat16* Xa = sg.a ? A : X;"
+_T_TRIG = "v = fast_sin(__fadd_rn(y, phase), 7);"
+_T_VIEWS_SEG = "  seg(views_h_w, W, W, half, 1, depth + 1);\n"
+_T_VIEWS_RAYS = "for (int idx = tid; idx < nr * p.half; idx += NTHREADS) {"
 # kernel: (file edited, file built, {variant: [(old, new), ...]}); the
 # shipped variant has no edits
 KERNELS = {
@@ -108,6 +123,14 @@ KERNELS = {
                                  "gW[(size_t)row * ldg + col] = acc[i][j][2 * hf + 1];")],
         "no_weight_grads": [(_DW, _DW.replace("  for (int m0", "  if (M > 0) return;\n"
                                                             "  for (int m0"))],
+    }),
+    "teacher": ("nerf_forward.cu", "nerf_forward.cu", {
+        "shipped": [],
+        "no_loads": [(_T_LOAD, "")],
+        "no_products": [(_T_PRODUCTS, _T_PRODUCTS.replace("(n0 < sg.n)", "(false)"))],
+        "no_trig": [(_T_TRIG, "v = __fadd_rn(y, phase);")],
+        "no_views": [(_T_VIEWS_SEG, ""),
+                     (_T_VIEWS_RAYS, _T_VIEWS_RAYS.replace("nr * p.half", "0"))],
     }),
 }
 
@@ -259,8 +282,46 @@ def _train_bwd_runner(torch, dev, seed):
     return n_rays, bound_ms, cs.TRAIN_TOL["grad"], make_run, error
 
 
+def _teacher_runner(torch, dev, seed):
+    from efficient_nerf_tpu_torch.core.poses import pose_spherical
+    from efficient_nerf_tpu_torch.core.rays import get_rays
+    from efficient_nerf_tpu_torch.ops import nerf_forward as nf
+
+    model = cs.teacher_model(seed, torch, dev)
+    packed = nf.pack_nerf_weights(model.state_dict(), dtype=torch.bfloat16)
+    n, S = cs.T_CHUNK, cs.T_SAMPLES + cs.T_IMPORTANCE
+    ro, rd = get_rays(cs.FRAME_H, cs.FRAME_W, cs.T_FOCAL,
+                      pose_spherical(-30.0, -30.0, 4.0)[:3, :4], device=dev)
+    ro, rd = ro.reshape(-1, 3)[:n], rd.reshape(-1, 3)[:n]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.sort(cs.NEAR + (cs.FAR - cs.NEAR) * torch.rand(
+        (n, S), generator=gen, device=dev), dim=-1).values
+    pts = (ro[:, None] + rd[:, None] * z[..., None]).contiguous()
+    vd = (rd / rd.norm(dim=-1, keepdim=True)).contiguous()
+    dirs = nf.embed_dirs(vd, cs.T_LV)
+    want = nf.nerf_forward_fused_ref(packed, pts, vd, cs.T_L, cs.T_LV)
+    out = torch.empty_like(want)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def make_run(lib):
+        fn = lib.nerf_forward_launch
+        restype, argtypes = nf._SIGNATURES["nerf_forward_launch"]
+        fn.restype, fn.argtypes = restype, list(argtypes)
+        return lambda: fn(pts.data_ptr(), 3, 1, dirs.data_ptr(),
+                          *(packed[k].data_ptr() for k in nf._OPERANDS),
+                          packed["out_b"].data_ptr(), out.data_ptr(), 4, 1, n * S, S,
+                          packed["in_ch"], packed["in_pad"], packed["in_ch_views"],
+                          packed["width"], packed["depth"], packed["skip"], stream)
+
+    def error():
+        return cs.rel_err(out, want)
+
+    bound_ms = nf.nerf_forward_flops(packed, n * S, n) / cs.H100_BF16_FLOPS * 1e3
+    return n * S, bound_ms, cs.TEACHER_TOL, make_run, error
+
+
 RUNNERS = {"serve": _serve_runner, "serve_int8": _serve_int8_runner,
-           "train_bwd": _train_bwd_runner}
+           "train_bwd": _train_bwd_runner, "teacher": _teacher_runner}
 
 
 def main() -> None:

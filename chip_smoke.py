@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's R2L serving and training paths on one CUDA card
-and holds their kernels against their plain versions.
+"""Drives the PyTorch port's R2L serving and training paths and the NeRF
+teacher's rendering and pseudo-data paths on one CUDA card, and holds their
+kernels against their plain versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -45,18 +46,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 step time split into its parts, and each training kernel's
                 time beside its bound, its plain version and the unfused
                 cuBLAS autograd path.
+  teacher_kernel  the teacher's field-eval kernel at W256 D8, L 10/4 (the lego
+                config's NeRFMLP) on points of frame rays at 512 rays x 64,
+                256 x 192 and a ragged 37 x 64 and 37 x 192 (one case
+                channel-major), against nerf_forward_fused_ref as max |k - p|
+                / max |p| for sigma and for rgb, beside the noise of the plain
+                version on the CPU against on the card; the inverse-CDF
+                kernel on 32,768 rays of a coarse pass's own weights with
+                degenerate rows (all-zero weights, a single spike, a CDF
+                total that rounds above 1) against sample_pdf_det_fused_ref,
+                bit for bit.
+  teacher       render_image(..., cfg.eval_mode()) of the lego config (64 +
+                128 samples, white background, near 2, far 6, chunk 32,768)
+                for 3 pose_spherical frames of 400x400 as a user calls it,
+                the launch counters set to 0 just before and read just after
+                (2 field-eval and 1 sampler launch per chunk); frame checks,
+                the frame's mean acc and its share of rays with acc in
+                (0.01, 0.99); the frame against the same frame rendered on
+                the card through the plain versions; frame time, and each
+                kernel's time at the coarse and the fine chunk beside its
+                bound, its plain version and (field eval) the unfused
+                nerf_embed -> bf16 NeRFMLP cuBLAS path.
+  pseudo        StreamingPseudoGenerator over 6 frames through its one-frame
+                pipeline (ms a frame beside render_image alone), and
+                export_pseudo_shards for 4 poses into a temporary directory:
+                156 shards of [4096, 9] whose rows are rows of the 4 frames.
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Weights are random, made from --seed, with
-each block's second linear scaled by 0.1 so that the 88-layer output is not
-saturated by the sigmoid. Imports nothing of JAX.
+{"ok": true, "device": {...}}. Weights are random, made from --seed: the
+student's with each block's second linear scaled by 0.1 so that the 88-layer
+output is not saturated by the sigmoid; the teacher's lecun-normal kernels
+(normal, std 1/sqrt(fan_in)) and normal biases of std 0.01, a bf16 NeRFMLP
+(no teacher checkpoint is in the repository). Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
 import copy
 import json
+import math
 import subprocess
+import tempfile
 import time
 
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak, H100 SXM data sheet
@@ -118,6 +148,35 @@ TRAIN_TOL = {"hs": 2e-2, "grad": 1e-2, "dx": 4e-2}
 # rounding moves outputs by 1e-1 and more.
 INT8_TOL = {"static": 8e-3, "dynamic": 8e-3}
 INT8_CAL = 1024   # calibration rays, as bench.py calibrates
+
+
+# Teacher at the lego config (efficient_nerf_tpu/config/scenes/lego.txt):
+# NeRFMLP D8 W256, skip after layer 4, viewdirs, multires 10 / 4, 64 coarse
+# + 128 fine samples, white background, near 2, far 6, half_res 400x400 with
+# the lego camera's field of view (camera_angle_x of its transforms files).
+T_WIDTH, T_DEPTH, T_L, T_LV = 256, 8, 10, 4
+T_SAMPLES, T_IMPORTANCE, T_CHUNK = 64, 128, 32768
+LEGO_CAMERA_ANGLE_X = 0.6911112070083618
+T_FOCAL = 0.5 * FRAME_W / math.tan(0.5 * LEGO_CAMERA_ANGLE_X)
+PSEUDO_FRAMES = 6
+PSEUDO_POSES = 4
+# Field-eval kernel vs its plain version, as max |kernel - plain| over max
+# |plain| of sigma and of rgb: the same bf16 operands and embed, but the
+# tensor cores sum in another order and less exactly than an f32 matmul, so
+# an f32 activation can land on the other side of a bf16 rounding and carry
+# through 8 layers. The plain version alone, on the CPU and on the card,
+# agrees to 2e-7 (its f32 sums hardly ever flip a rounding: the noise line
+# below); the first card run measured the kernel at up to 5.4e-3 over these
+# shapes. 2e-2 is 3.7x that; a wrong layout or index gives errors of order 1.
+TEACHER_TOL = 2e-2
+# The rendered frame against the same frame through the plain versions,
+# per ray (absolute: rgb and acc in [0, 1], depth in [0, 6]). The last
+# sample of each pass stands for an interval of length 1e10, so a ray whose
+# last sigma is within the kernel's noise of 0 turns opaque or clear as the
+# sign flips: the first card run found one such ray in 32,768. So at most
+# FRAME_SHARE of a frame's rays may differ beyond FRAME_TOL.
+FRAME_TOL = {"rgb": 2e-2, "acc": 2e-2, "depth": 1e-1}
+FRAME_SHARE = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -852,6 +911,412 @@ def phase_train(sm: Smoke) -> None:
         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": lib_bwd}
 
 
+def teacher_model(seed: int, torch, dev):
+    """A random bf16 NeRFMLP D8 W256 on the card: lecun-normal kernels
+    (std 1/sqrt(fan_in)) and normal biases of std 0.01."""
+    import numpy as np
+
+    from efficient_nerf_tpu_torch.models import NeRFMLP
+
+    rng = np.random.default_rng(seed)
+    model = NeRFMLP(depth=T_DEPTH, width=T_WIDTH, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for name, v in model.named_parameters():
+            std = 0.01 if name.endswith("bias") else v.shape[-1] ** -0.5
+            v.copy_(torch.from_numpy(
+                rng.normal(scale=std, size=tuple(v.shape)).astype(np.float32)))
+    return model.to(dev).eval()
+
+
+def teacher_config():
+    from efficient_nerf_tpu_torch.render import RenderConfig
+
+    return RenderConfig(n_samples=T_SAMPLES, n_importance=T_IMPORTANCE,
+                        white_bkgd=True, near=NEAR, far=FAR, multires=T_L,
+                        multires_views=T_LV, chunk=T_CHUNK)
+
+
+def _teacher_rays(sm: Smoke, pose):
+    from efficient_nerf_tpu_torch.core.rays import get_rays
+
+    o, d = get_rays(FRAME_H, FRAME_W, T_FOCAL, pose[:3, :4], device=sm.dev)
+    o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+    return o, d, (d / d.norm(dim=-1, keepdim=True)).contiguous()
+
+
+def _field_errors(got, want):
+    """max |got - want| / max |want| of sigma (channel 3) and of rgb."""
+    return {"sigma": rel_err(got[..., 3], want[..., 3]),
+            "rgb": rel_err(got[..., :3], want[..., :3]),
+            "abs": (got - want).abs().max().item()}
+
+
+def phase_teacher_kernel(sm: Smoke) -> None:
+    from efficient_nerf_tpu_torch.core.sampling import linear_zvals
+    from efficient_nerf_tpu_torch.core.volume import raw2outputs
+    from efficient_nerf_tpu_torch.ops.nerf_forward import (
+        nerf_forward_fused, nerf_forward_fused_ref, pack_nerf_weights)
+    from efficient_nerf_tpu_torch.ops.sample_pdf import (
+        sample_pdf_det_fused, sample_pdf_det_fused_ref)
+
+    torch, dev, gen = sm.torch, sm.dev, sm.gen
+    sm.teacher = teacher_model(sm.seed, torch, dev)
+    packed = pack_nerf_weights(sm.teacher.state_dict(), dtype=torch.bfloat16)
+    o, d, vd = _teacher_rays(sm, sm.poses[0])
+
+    def points(n_rays, S):
+        """Points of n_rays random frame rays at S sorted depths in [near,
+        far] (the fine pass's depths are sorted, not even)."""
+        i = torch.randint(0, o.shape[0], (n_rays,), generator=gen, device=dev)
+        z = torch.sort(NEAR + (FAR - NEAR) * torch.rand(
+            (n_rays, S), generator=gen, device=dev), dim=-1).values
+        return (o[i, None] + d[i, None] * z[..., None]).contiguous(), vd[i].contiguous()
+
+    worst = {"sigma": 0.0, "rgb": 0.0, "abs": 0.0}
+    for n_rays, S, cm in ((512, 64, False), (256, 192, False), (37, 64, True),
+                          (37, 192, False)):
+        pts, dirs = points(n_rays, S)
+        x = pts.permute(2, 0, 1).contiguous() if cm else pts
+        got = nerf_forward_fused(packed, x, dirs, T_L, T_LV, cm=cm)
+        want = nerf_forward_fused_ref(packed, x, dirs, T_L, T_LV, cm=cm)
+        torch.cuda.synchronize()
+        if cm:
+            got, want = got.permute(1, 2, 0), want.permute(1, 2, 0)
+        if got.shape != (n_rays, S, 4) or not torch.isfinite(got).all():
+            fail("field-eval kernel output has the wrong shape or is not finite")
+        e = _field_errors(got, want)
+        print(f"teacher_kernel: nerf_forward_fused W{T_WIDTH} D{T_DEPTH} {n_rays} x "
+              f"{S}{' (cm)' if cm else ''}: sigma {e['sigma']:.3g}, rgb {e['rgb']:.3g} "
+              f"of max |plain| (tol {TEACHER_TOL:g}); max abs {e['abs']:.3g}", flush=True)
+        worst = {k: max(worst[k], v) for k, v in e.items()}
+    # the noise that summation order alone makes: the plain version on the
+    # host CPU against on the card
+    pts, dirs = points(64, 64)
+    cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in packed.items()}
+    want = nerf_forward_fused_ref(packed, pts, dirs, T_L, T_LV)
+    want_cpu = nerf_forward_fused_ref(cpu, pts.cpu(), dirs.cpu(), T_L, T_LV)
+    got = nerf_forward_fused(packed, pts, dirs, T_L, T_LV)
+    noise, k_e = _field_errors(want.cpu(), want_cpu), _field_errors(got, want)
+    print(f"teacher_kernel: summation-order noise, plain version on the CPU vs on "
+          f"the card, 64 x 64: sigma {noise['sigma']:.3g}, rgb {noise['rgb']:.3g} "
+          f"(abs {noise['abs']:.3g}); kernel vs plain on the same points: sigma "
+          f"{k_e['sigma']:.3g}, rgb {k_e['rgb']:.3g}", flush=True)
+    if not max(worst["sigma"], worst["rgb"]) <= TEACHER_TOL:
+        fail(f"field-eval kernel differs from its plain version by {worst}")
+
+    # the sampler on a coarse pass's own weights at the chunk's 32,768 rays
+    n = T_CHUNK
+    z = linear_zvals(NEAR, FAR, T_SAMPLES, device=dev).expand(n, T_SAMPLES)
+    ro, rdir, rvd = o[:n], d[:n], vd[:n]
+    raw = nerf_forward_fused(packed, (ro[:, None] + rdir[:, None] * z[..., None]).contiguous(),
+                             rvd, T_L, T_LV)
+    weights = raw2outputs(raw, z, rdir, white_bkgd=True).weights
+    bins = (0.5 * (z[:, 1:] + z[:, :-1])).contiguous()
+    w = weights[:, 1:-1].contiguous()
+    w[0] = 0.0                      # all-zero weights
+    w[1] = 0.0
+    w[1, 17] = 3.0                  # a single spike
+
+    def cdf_total(rows):
+        """Each row's CDF total, summed as both versions sum it."""
+        rows = rows + 1e-5
+        total = torch.zeros_like(rows[:, 0])
+        for i in range(rows.shape[1]):
+            total = total + rows[:, i]
+        cdf = torch.zeros_like(total)
+        for i in range(rows.shape[1]):
+            cdf = cdf + rows[:, i] / total
+        return cdf
+
+    # a row whose CDF total rounds above 1: the first of uniform random rows
+    cand = torch.rand((256, w.shape[1]), generator=gen, device=dev)
+    above = (cdf_total(cand) > 1).nonzero()
+    if above.numel() == 0:
+        fail("found no weight row whose CDF total rounds above 1")
+    w[2] = cand[above[0, 0]]
+    n_above = int((cdf_total(w) > 1).sum().item())
+    got = sample_pdf_det_fused(bins, w, T_IMPORTANCE)
+    want = sample_pdf_det_fused_ref(bins, w, T_IMPORTANCE)
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum().item())
+    pdf_err = (got - want).abs().max().item()
+    sorted_ok = bool((got[:, 1:] >= got[:, :-1]).all().item())
+    print(f"teacher_kernel: sample_pdf_det_fused on {n} rays of coarse weights "
+          f"(C {bins.shape[1]}, n {T_IMPORTANCE}; row 0 all zero, row 1 one spike, "
+          f"{n_above} rows with a CDF total above 1, row 2 among them): "
+          f"{n_diff} values differ from the plain version, max {pdf_err:.3g} "
+          f"(tol 0: bit for bit); sorted {sorted_ok}", flush=True)
+    if n_diff or not sorted_ok:
+        fail("inverse-CDF kernel differs from its plain version")
+    sm.teacher_packed = packed
+    sm.teacher_err = worst["abs"]
+    sm.pdf_err = pdf_err
+
+
+def _render_plain(sm: Smoke, model, c2w, cfg):
+    """render_image with the fused-kernel calls replaced by their plain
+    versions (on the card), 8,192 rays a chunk."""
+    import dataclasses
+
+    from efficient_nerf_tpu_torch.ops.nerf_forward import nerf_forward_fused_ref
+    from efficient_nerf_tpu_torch.ops.sample_pdf import sample_pdf_det_fused_ref
+    from efficient_nerf_tpu_torch.render import renderer
+
+    saved = renderer.nerf_forward_fused, renderer.sample_pdf_det_fused
+    renderer.nerf_forward_fused = nerf_forward_fused_ref
+    renderer.sample_pdf_det_fused = sample_pdf_det_fused_ref
+    try:
+        return renderer.render_image(model, None, FRAME_H, FRAME_W, T_FOCAL, c2w,
+                                     dataclasses.replace(cfg, chunk=8192), device=sm.dev)
+    finally:
+        renderer.nerf_forward_fused, renderer.sample_pdf_det_fused = saved
+
+
+def phase_teacher(sm: Smoke) -> None:
+    import numpy as np
+
+    from efficient_nerf_tpu_torch.core.encoding import nerf_embed
+    from efficient_nerf_tpu_torch.core.sampling import linear_zvals, merge_sorted
+    from efficient_nerf_tpu_torch.core.volume import raw2outputs
+    from efficient_nerf_tpu_torch.ops.nerf_forward import (
+        nerf_forward_flops, nerf_forward_fused, nerf_forward_fused_ref)
+    from efficient_nerf_tpu_torch.ops.sample_pdf import (
+        sample_pdf_det_fused, sample_pdf_det_fused_ref)
+    from efficient_nerf_tpu_torch.ops.trig import fast_sincos_cuda
+    from efficient_nerf_tpu_torch.render import render_image
+
+    torch, dev = sm.torch, sm.dev
+    model, packed = sm.teacher, sm.teacher_packed
+    cfg = teacher_config().eval_mode()
+    c2ws = [np.asarray(p[:3, :4]) for p in sm.poses]
+    render_image(model, None, FRAME_H, FRAME_W, T_FOCAL, c2ws[0], cfg)   # warm-up
+    torch.cuda.synchronize()
+    nerf_forward_fused.launches = 0
+    sample_pdf_det_fused.launches = 0
+    fast_sincos_cuda.launches = 0
+    # as a user calls it: numpy poses, the default device (CUDA)
+    frames = [render_image(model, None, FRAME_H, FRAME_W, T_FOCAL, c2w, cfg)
+              for c2w in c2ws]
+    torch.cuda.synchronize()
+    launches = (nerf_forward_fused.launches, sample_pdf_det_fused.launches)
+    n_rays = FRAME_H * FRAME_W
+    chunks = -(-n_rays // T_CHUNK)
+    print(f"teacher: 3 frames of {FRAME_H}x{FRAME_W} ({chunks} chunks of up to "
+          f"{T_CHUNK} rays each): nerf_forward_fused launches {launches[0]}, "
+          f"sample_pdf_det_fused launches {launches[1]}", flush=True)
+    if launches != (2 * chunks * len(frames), chunks * len(frames)):
+        fail(f"expected {2 * chunks} field-eval and {chunks} sampler launches a "
+             f"frame, counted {launches} over {len(frames)} frames")
+    for f in frames:
+        if f.rgb.shape != (FRAME_H, FRAME_W, 3) or not torch.isfinite(f.rgb).all() \
+                or f.rgb.min() < 0 or f.rgb.max() > 1 + 1e-6 \
+                or not torch.isfinite(f.depth).all() or not torch.isfinite(f.acc).all():
+            fail("teacher frame has the wrong shape, values that are not finite "
+                 "or rgb outside [0, 1]")
+    acc = frames[0].acc
+    acc_mean = acc.mean().item()
+    acc_mid = ((acc > 0.01) & (acc < 0.99)).float().mean().item()
+    print(f"teacher: frame 0 mean acc {acc_mean:.4f}, share of rays with acc in "
+          f"(0.01, 0.99) {acc_mid:.4f}, rgb in [{frames[0].rgb.min().item():.4f}, "
+          f"{frames[0].rgb.max().item():.4f}]", flush=True)
+    if not 0.01 < acc_mid:
+        fail("the teacher frame is degenerate: almost no ray is partly opaque")
+
+    plain = _render_plain(sm, model, c2ws[0], cfg)
+    torch.cuda.synchronize()
+    diff = {k: (getattr(frames[0], k) - getattr(plain, k)).abs().reshape(n_rays, -1)
+            .amax(-1) for k in FRAME_TOL}
+    beyond = torch.zeros(n_rays, dtype=torch.bool, device=dev)
+    for k in FRAME_TOL:
+        beyond |= diff[k] > FRAME_TOL[k]
+    frame_share = beyond.float().mean().item()
+    frame_err = {k: diff[k].max().item() for k in FRAME_TOL}
+    within = {k: diff[k][~beyond].max().item() for k in FRAME_TOL}
+    print(f"teacher: frame 0 against the same frame through the plain versions: "
+          + ", ".join(f"{k} max {frame_err[k]:.3g} mean {diff[k].mean().item():.3g}, "
+                      f"{within[k]:.3g} over the rays within tol {FRAME_TOL[k]:g}"
+                      for k in FRAME_TOL)
+          + f"; {int(beyond.sum().item())} rays beyond (share {frame_share:.2e}, at most "
+          f"{FRAME_SHARE:g})", flush=True)
+    if frame_share > FRAME_SHARE:
+        fail(f"teacher frame differs from the plain versions' frame in a share "
+             f"{frame_share:.2e} of its rays")
+    del plain, diff
+
+    frame_ms = cuda_ms(torch, lambda: render_image(
+        model, None, FRAME_H, FRAME_W, T_FOCAL, c2ws[1], cfg), 3, warmup=1)
+
+    # ---- each kernel at the main path's chunk: the first 32,768 rays of
+    # frame 1, coarse and fine, as render_rays builds them
+    o, d, vd = _teacher_rays(sm, sm.poses[1])
+    n = T_CHUNK
+    o, d, vd = o[:n], d[:n], vd[:n]
+    z_c = linear_zvals(NEAR, FAR, T_SAMPLES, device=dev).expand(n, T_SAMPLES)
+    pts_c = (o[:, None] + d[:, None] * z_c[..., None]).contiguous()
+    raw_c = nerf_forward_fused(packed, pts_c, vd, T_L, T_LV)
+    w = raw2outputs(raw_c, z_c, d, white_bkgd=True).weights[:, 1:-1].contiguous()
+    bins = (0.5 * (z_c[:, 1:] + z_c[:, :-1])).contiguous()
+    z_f = merge_sorted(z_c, sample_pdf_det_fused(bins, w, T_IMPORTANCE))
+    pts_f = (o[:, None] + d[:, None] * z_f[..., None]).contiguous()
+    S_f = T_SAMPLES + T_IMPORTANCE
+
+    # kernel 5 against its plain version on the same points, at the main
+    # path's own chunk shapes (16,384 and 49,152 tiles)
+    chunk_err = {"sigma": 0.0, "rgb": 0.0, "abs": 0.0}
+    for name, pts in (("coarse", pts_c), ("fine", pts_f)):
+        e = _field_errors(nerf_forward_fused(packed, pts, vd, T_L, T_LV),
+                          nerf_forward_fused_ref(packed, pts, vd, T_L, T_LV))
+        torch.cuda.empty_cache()
+        print(f"teacher: nerf_forward_fused {name} chunk {n} x {pts.shape[1]} against "
+              f"its plain version: sigma {e['sigma']:.3g}, rgb {e['rgb']:.3g} of max "
+              f"|plain| (tol {TEACHER_TOL:g}); max abs {e['abs']:.3g}", flush=True)
+        chunk_err = {k: max(chunk_err[k], v) for k, v in e.items()}
+    if not max(chunk_err["sigma"], chunk_err["rgb"]) <= TEACHER_TOL:
+        fail(f"field-eval kernel differs from its plain version at the chunk's "
+             f"shape by {chunk_err}")
+
+    def lib_path(pts):
+        """The unfused field eval: nerf_embed -> bf16 NeRFMLP, each linear a
+        cuBLAS bf16 GEMM (the library yardstick; the port never calls it)."""
+        with torch.no_grad():
+            emb = nerf_embed(pts, T_L, fast=True)
+            de = nerf_embed(vd, T_LV, fast=True)[:, None].expand(pts.shape[:-1] + (27,))
+            return model(torch.cat([emb, de], dim=-1))
+
+    times = {}
+    for name, pts in (("coarse", pts_c), ("fine", pts_f)):
+        times[name] = {
+            "ms": cuda_ms(torch, lambda: nerf_forward_fused(packed, pts, vd, T_L, T_LV), 5),
+            "plain_ms": cuda_ms(torch, lambda: nerf_forward_fused_ref(
+                packed, pts, vd, T_L, T_LV), 1, warmup=1),
+            "library_ms": cuda_ms(torch, lambda: lib_path(pts), 3, warmup=1),
+        }
+        torch.cuda.empty_cache()
+    lib_err = (lib_path(pts_c) - nerf_forward_fused_ref(packed, pts_c, vd, T_L, T_LV)
+               ).abs().max().item()
+    pdf_ms = cuda_ms(torch, lambda: sample_pdf_det_fused(bins, w, T_IMPORTANCE), 20)
+    pdf_plain_ms = cuda_ms(torch, lambda: sample_pdf_det_fused_ref(bins, w, T_IMPORTANCE),
+                           2, warmup=1)
+
+    w_bytes = sum(packed[k].numel() * packed[k].element_size() for k in packed
+                  if torch.is_tensor(packed[k]))
+    flops = {k: nerf_forward_flops(packed, n * S, n) for k, S in
+             (("coarse", T_SAMPLES), ("fine", S_f))}
+    nbytes = {k: n * S * (12 + 16) + n * 12 + w_bytes for k, S in
+              (("coarse", T_SAMPLES), ("fine", S_f))}
+    chunk_bound = bound(flops["coarse"] + flops["fine"],
+                        nbytes["coarse"] + nbytes["fine"])
+    frame_flops = nerf_forward_flops(packed, n_rays * (T_SAMPLES + S_f), 2 * n_rays)
+    frame_bound = bound(frame_flops, n_rays * (T_SAMPLES + S_f) * 28 + 2 * n_rays * 12)
+    pdf_bytes = n * (bins.shape[1] + w.shape[1] + T_IMPORTANCE) * 4 + T_IMPORTANCE * 4
+    pdf_bound = bound(0, pdf_bytes)
+    for k in ("coarse", "fine"):
+        b = bound(flops[k], nbytes[k])
+        t = times[k]
+        print(f"teacher: nerf_forward_fused {k} chunk {n} x "
+              f"{T_SAMPLES if k == 'coarse' else S_f}: kernel {t['ms']:.3f} ms, bound "
+              f"{b[0]:.3f} ms ({flops[k] / 1e12:.3f} TFLOP, {b[1]}) -> "
+              f"{b[0] / t['ms'] * 100:.1f}% of the bound; plain version "
+              f"{t['plain_ms']:.3f} ms (not a yardstick); unfused nerf_embed -> bf16 "
+              f"NeRFMLP cuBLAS path (library_ms) {t['library_ms']:.3f} ms", flush=True)
+    print(f"teacher: render_image {frame_ms:.3f} ms/frame ({n_rays / frame_ms * 1e3 / 1e6:.3f} "
+          f"M rays/s); the frame's field evals bound {frame_bound[0]:.3f} ms "
+          f"({frame_flops / 1e12:.3f} TFLOP, {frame_bound[1]}); sample_pdf_det_fused "
+          f"{pdf_ms:.4f} ms at {n} rays, bound {pdf_bound[0]:.4f} ms ({pdf_bound[1]}), "
+          f"plain version {pdf_plain_ms:.3f} ms; the library path is {lib_err:.3g} from "
+          f"the plain version on the coarse chunk", flush=True)
+    sm.teacher_frame_ms = frame_ms
+    sm.entries["nerf_forward_fused"] = {
+        "name": "nerf_forward_fused", "route": "cuda",
+        "source": "efficient_nerf_tpu_torch/csrc/nerf_forward.cu",
+        "replaces": "efficient_nerf_tpu/ops/pallas/nerf_forward.py:410",
+        "launches": launches[0], "max_abs_err": max(sm.teacher_err, chunk_err["abs"]),
+        # one coarse and one fine launch of a 32,768-ray chunk
+        "ms": times["coarse"]["ms"] + times["fine"]["ms"],
+        "plain_ms": times["coarse"]["plain_ms"] + times["fine"]["plain_ms"],
+        "bound_ms": chunk_bound[0], "bound_by": chunk_bound[1],
+        "library_ms": times["coarse"]["library_ms"] + times["fine"]["library_ms"]}
+    sm.entries["sample_pdf_det_fused"] = {
+        "name": "sample_pdf_det_fused", "route": "cuda",
+        "source": "efficient_nerf_tpu_torch/csrc/sample_pdf.cu",
+        "replaces": "efficient_nerf_tpu/ops/pallas/sample_pdf.py:138",
+        "launches": launches[1], "max_abs_err": sm.pdf_err,
+        "ms": pdf_ms, "plain_ms": pdf_plain_ms, "bound_ms": pdf_bound[0],
+        "bound_by": pdf_bound[1], "library_ms": None}
+
+
+def phase_pseudo(sm: Smoke) -> None:
+    import os
+
+    import numpy as np
+
+    from efficient_nerf_tpu_torch.core.poses import random_spherical_pose
+    from efficient_nerf_tpu_torch.data import (SHARD_ROWS, StreamingPseudoGenerator,
+                                               export_pseudo_shards,
+                                               make_pseudo_frame_renderer)
+    from efficient_nerf_tpu_torch.ops.nerf_forward import nerf_forward_fused
+    from efficient_nerf_tpu_torch.ops.sample_pdf import sample_pdf_det_fused
+
+    torch, model = sm.torch, sm.teacher
+    cfg = teacher_config()
+    gen = StreamingPseudoGenerator(
+        model, None, cfg, FRAME_H, FRAME_W, T_FOCAL, batch_rays=4096,
+        buffer_rays=1_000_000, warmup_frames=1, frames_per_batch=1.0,
+        rng=np.random.default_rng(sm.seed))
+    next(gen)                               # one frame through the pipeline
+    torch.cuda.synchronize()
+    nerf_forward_fused.launches = 0
+    sample_pdf_det_fused.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(PSEUDO_FRAMES):
+        o, d, t = next(gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / PSEUDO_FRAMES
+    launches = (nerf_forward_fused.launches, sample_pdf_det_fused.launches)
+    if o.shape != (4096, 3) or t.shape != (4096, 3) or not np.isfinite(t).all() \
+            or gen.buffer.size == 0:
+        fail("StreamingPseudoGenerator gave a malformed batch")
+    print(f"pseudo: StreamingPseudoGenerator {ms:.3f} ms/frame over {PSEUDO_FRAMES} "
+          f"frames (one new frame a batch, one-frame pipeline), against "
+          f"render_image alone {sm.teacher_frame_ms:.3f} ms/frame; "
+          f"nerf_forward_fused launches {launches[0]}, sample_pdf_det_fused launches "
+          f"{launches[1]}; buffer {gen.buffer.size} rows", flush=True)
+    chunks = -(-FRAME_H * FRAME_W // T_CHUNK)
+    if launches != (PSEUDO_FRAMES * 2 * chunks, PSEUDO_FRAMES * chunks):
+        fail(f"pseudo frames launched the field eval and the sampler {launches} times")
+    del gen
+
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        last = export_pseudo_shards(model, None, cfg, FRAME_H, FRAME_W, T_FOCAL, out,
+                                    PSEUDO_POSES, seed=sm.seed)
+        export_s = time.perf_counter() - t0
+        files = sorted(os.listdir(out))
+        shards = [np.load(os.path.join(out, f)) for f in files]
+    n_rows = PSEUDO_POSES * FRAME_H * FRAME_W
+    if last != n_rows // SHARD_ROWS or len(shards) != n_rows // SHARD_ROWS \
+            or any(s.shape != (SHARD_ROWS, 9) for s in shards):
+        fail(f"export_pseudo_shards wrote {len(shards)} files (last index {last})")
+    # the frames' own rows, rendered again from the same poses and focal
+    # scales (the exporter's generator, seeded alike)
+    rng = np.random.default_rng(sm.seed)
+    render = make_pseudo_frame_renderer(model, None, cfg, FRAME_H, FRAME_W, T_FOCAL)
+    frame_rows = set()
+    for _ in range(PSEUDO_POSES):
+        pose = random_spherical_pose(rng)
+        rows = render(pose[:3, :4], 1.0 + rng.random()).cpu().numpy()
+        frame_rows.update(map(bytes, rows))
+    shard_rows = np.concatenate(shards)
+    in_frames = sum(bytes(r) in frame_rows for r in shard_rows)
+    distinct = len(set(map(bytes, shard_rows)))
+    print(f"pseudo: export_pseudo_shards for {PSEUDO_POSES} poses in {export_s:.2f} s: "
+          f"{len(shards)} shards of [{SHARD_ROWS}, 9]; {in_frames} of "
+          f"{shard_rows.shape[0]} rows are rows of the frames, {distinct} distinct",
+          flush=True)
+    if in_frames != shard_rows.shape[0] or distinct != shard_rows.shape[0]:
+        fail("the shards' rows are not a permutation of the frames' rows")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -859,17 +1324,19 @@ def main() -> None:
 
     sm = Smoke(args)
     for phase in (phase_build, phase_trig, phase_kernel, phase_main,
-                  phase_kernel_int8, phase_main_int8, phase_train_kernel, phase_train):
+                  phase_kernel_int8, phase_main_int8, phase_train_kernel, phase_train,
+                  phase_teacher_kernel, phase_teacher, phase_pseudo):
         t0 = time.perf_counter()
         phase(sm)
         print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
     # the helper runs inside every launch of the kernels that embed
     sm.entries["fast_sincos"]["launches"] = sum(
         sm.entries[k]["launches"] for k in ("r2l_forward_fused", "r2l_forward_int8",
-                                            "r2l_train_fwd", "r2l_train_bwd"))
+                                            "r2l_train_fwd", "r2l_train_bwd",
+                                            "nerf_forward_fused"))
     print(json.dumps({"kernels": [sm.entries[k] for k in (
         "r2l_forward_fused", "fast_sincos", "r2l_forward_int8", "r2l_train_fwd",
-        "r2l_train_bwd")]}))
+        "r2l_train_bwd", "nerf_forward_fused", "sample_pdf_det_fused")]}))
     print(sm.gpu)  # the card, as nvidia-smi names it and its power limit
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": sm.torch.cuda.get_device_name(0),

@@ -1,5 +1,8 @@
-from .rays import get_rays, plucker_rays
-from .sampling import linear_zvals, stratify_zvals
-from .encoding import ray_embed, ray_embed_dim
+from .rays import (apply_trans_origin, get_rays, ndc_rays, plucker_rays,
+                   translate_origin_fixed, translate_origin_to_sphere)
+from .sampling import (linear_zvals, merge_sorted, sample_pdf, sorted_uniform,
+                       stratified_sample, stratify_zvals)
+from .encoding import nerf_embed, nerf_embed_dim, ray_embed, ray_embed_dim
 from .ray_sampler import sample_image_points, sample_ray_points
+from .volume import RenderOutputs, exclusive_cumprod, raw2outputs, raw2outputs_cm
 from . import poses

@@ -1,4 +1,6 @@
 from .r2l import R2LNet, ResBlock, get_activation
+from .nerf import NeRFMLP
 from . import weights
-from .weights import (r2l_params_from_state_dict, r2l_state_dict_from_jax,
-                      r2l_state_dict_from_params)
+from .weights import (nerf_params_from_state_dict, nerf_state_dict_from_jax,
+                      nerf_state_dict_from_params, r2l_params_from_state_dict,
+                      r2l_state_dict_from_jax, r2l_state_dict_from_params)

@@ -2,10 +2,13 @@
 
 A copy of the numpy converters of `efficient_nerf_tpu.models.torch_import`
 (which this package must not import) plus the torch side. Keys follow the
-reference `NeRF_v3_2` student: `head.0`, `body.{b}.body.{2j}` (linears at
-even indices of a Sequential, activations between) and `tail.0` (or `tail`
-with `linear_tail`). torch `nn.Linear.weight` is [out, in]; flax
-`Dense.kernel` is [in, out]; the JAX body stacks its blocks along axis 0.
+reference models. The `NeRF_v3_2` student: `head.0`, `body.{b}.body.{2j}`
+(linears at even indices of a Sequential, activations between) and `tail.0`
+(or `tail` with `linear_tail`). The `NeRF` teacher: `pts_linears.{i}`,
+`feature_linear`, `views_linears.0`, `rgb_linear` and `alpha_linear` (or
+`output_linear` without viewdirs). torch `nn.Linear.weight` is [out, in];
+flax `Dense.kernel` is [in, out]; the JAX student body stacks its blocks
+along axis 0.
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ import numpy as np
 import torch
 
 __all__ = ["r2l_params_from_state_dict", "r2l_state_dict_from_params",
-           "r2l_state_dict_from_jax"]
+           "r2l_state_dict_from_jax", "nerf_params_from_state_dict",
+           "nerf_state_dict_from_params", "nerf_state_dict_from_jax"]
 
 
 def _strip_module_prefix(sd: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -89,4 +93,47 @@ def r2l_state_dict_from_jax(params_np, n_learnable: int = 2,
     """The JAX R2LNet param tree (leaves as numpy arrays) -> a state_dict of
     f32 CPU tensors that `efficient_nerf_tpu_torch.models.R2LNet` loads."""
     sd = r2l_state_dict_from_params(params_np, n_learnable, linear_tail)
+    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+
+
+def nerf_params_from_state_dict(state_dict, depth: int = 8,
+                                use_viewdirs: bool = True) -> Dict[str, Any]:
+    """Reference `NeRF` state_dict -> the JAX NeRFMLP param tree, as numpy
+    arrays."""
+    sd = _strip_module_prefix(state_dict)
+    params = {f"pts_{i}": _dense(sd, f"pts_linears.{i}") for i in range(depth)}
+    if use_viewdirs:
+        params["feature"] = _dense(sd, "feature_linear")
+        params["views_0"] = _dense(sd, "views_linears.0")
+        params["rgb"] = _dense(sd, "rgb_linear")
+        params["alpha"] = _dense(sd, "alpha_linear")
+    else:
+        params["output"] = _dense(sd, "output_linear")
+    return params
+
+
+def nerf_state_dict_from_params(params, depth: int = 8,
+                                use_viewdirs: bool = True) -> Dict[str, np.ndarray]:
+    """The JAX NeRFMLP param tree -> reference state_dict, as numpy arrays."""
+    sd = {}
+    for i in range(depth):
+        w, b = _undense(params[f"pts_{i}"])
+        sd[f"pts_linears.{i}.weight"], sd[f"pts_linears.{i}.bias"] = w, b
+    if use_viewdirs:
+        for ours, theirs in [("feature", "feature_linear"),
+                             ("views_0", "views_linears.0"),
+                             ("rgb", "rgb_linear"), ("alpha", "alpha_linear")]:
+            w, b = _undense(params[ours])
+            sd[f"{theirs}.weight"], sd[f"{theirs}.bias"] = w, b
+    else:
+        w, b = _undense(params["output"])
+        sd["output_linear.weight"], sd["output_linear.bias"] = w, b
+    return sd
+
+
+def nerf_state_dict_from_jax(params_np, depth: int = 8,
+                             use_viewdirs: bool = True) -> Dict[str, torch.Tensor]:
+    """The JAX NeRFMLP param tree (leaves as numpy arrays) -> a state_dict of
+    f32 CPU tensors that `efficient_nerf_tpu_torch.models.NeRFMLP` loads."""
+    sd = nerf_state_dict_from_params(params_np, depth, use_viewdirs)
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}

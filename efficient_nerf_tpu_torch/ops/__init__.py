@@ -8,6 +8,11 @@
     `calibrate_r2l_int8`.
   * `r2l_train_fwd` / `r2l_train_bwd` (r2l_train.py, csrc/r2l_train.cu):
     the fused training forward and backward, behind `r2l_train_apply`.
+  * `nerf_forward_fused` (nerf_forward.py, csrc/nerf_forward.cu): the
+    teacher's field eval, sample points and view directions in, raw out,
+    beside `pack_nerf_weights`.
+  * `sample_pdf_det_fused` (sample_pdf.py, csrc/sample_pdf.cu): the
+    teacher's deterministic inverse-CDF sampler.
   * `fast_sin` / `fast_cos` / `fast_sincos` (trig.py, csrc/trig.cuh): the
     polynomial trig the kernels call as device helpers.
 
@@ -23,6 +28,8 @@ from .r2l_int8 import (calibrate_r2l_int8, pack_r2l_weights_int8, r2l_forward_in
                        r2l_forward_int8_ref)
 from .r2l_train import (pack_r2l_train_weights, r2l_train_apply, r2l_train_bwd,
                         r2l_train_bwd_ref, r2l_train_fwd, r2l_train_fwd_ref)
+from .nerf_forward import nerf_forward_fused, nerf_forward_fused_ref, pack_nerf_weights
+from .sample_pdf import sample_pdf_det_fused, sample_pdf_det_fused_ref
 from .trig import fast_cos, fast_sin, fast_sincos, fast_sincos_cuda
 
 __all__ = ["fused_r2l_available", "fused_r2l_train_available",
@@ -31,6 +38,8 @@ __all__ = ["fused_r2l_available", "fused_r2l_train_available",
            "r2l_forward_int8_ref",
            "pack_r2l_train_weights", "r2l_train_apply", "r2l_train_fwd",
            "r2l_train_fwd_ref", "r2l_train_bwd", "r2l_train_bwd_ref",
+           "pack_nerf_weights", "nerf_forward_fused", "nerf_forward_fused_ref",
+           "sample_pdf_det_fused", "sample_pdf_det_fused_ref",
            "fast_sin", "fast_cos", "fast_sincos", "fast_sincos_cuda"]
 
 

@@ -21,7 +21,6 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.optim.optimizer import register_optimizer_step_post_hook
 
 from ..core.encoding import ray_embed
 from ..core.ray_sampler import sample_image_points, sample_ray_points
@@ -31,6 +30,7 @@ from ..models.r2l import R2LNet
 from ..ops import (calibrate_r2l_int8, fused_r2l_available, pack_r2l_weights,
                    pack_r2l_weights_int8, r2l_forward_fused, r2l_forward_int8)
 from ..ops.r2l_forward import MAX_WIDTH, WIDTH_ALIGN
+from ._pack_cache import param_version_key
 
 __all__ = ["r2l_forward_rays", "r2l_render_image", "make_r2l_forward",
            "calibrate_serving_scales"]
@@ -71,31 +71,13 @@ def _fused_eligible(model: R2LNet, plucker: bool, perturb: bool,
     return _profile_eligible(model, plucker, perturb) and fused_r2l_available(dev)
 
 
-_optimizer_steps = 0
-
-
-def _count_optimizer_step(optimizer, args, kwargs) -> None:
-    global _optimizer_steps
-    _optimizer_steps += 1
-
-
-# a fused optimizer (Adam(fused=True)) writes the parameters without bumping
-# their version counters, so the pack's key also counts every optimizer step
-# taken in the process
-register_optimizer_step_post_hook(_count_optimizer_step)
-
-
 def _packed(model: R2LNet, n_sample: int, L: int,
             quant: str = "") -> Dict[str, object]:
     """The model's operands for the bf16 (quant "") or the int8 kernel,
-    packed once and reused while no parameter changes: the key holds each
-    parameter's storage and version counter, which in-place updates through
-    autograd-visible ops (load_state_dict, a foreach optimizer) bump, and the
-    count of optimizer steps, which also covers the fused optimizers that do
-    not. The int8 pack quantizes the body once per parameter version, not
+    packed once and reused while no parameter changes (`param_version_key`).
+    The int8 pack quantizes the body once per parameter version, not
     once per frame."""
-    key: Tuple = (n_sample, L, _optimizer_steps) + tuple(
-        (p.data_ptr(), p._version) for p in model.parameters())
+    key: Tuple = (n_sample, L) + param_version_key(model)
     attr = "_int8_pack" if quant else "_fused_pack"
     cached = getattr(model, attr, None)
     if cached is None or cached[0] != key:

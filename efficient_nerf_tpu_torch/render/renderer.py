@@ -1,0 +1,280 @@
+"""The teacher's volumetric renderer (coarse + hierarchical fine pass), after
+`efficient_nerf_tpu.render.renderer`.
+
+Rays are (o, d) pairs with near/far from the config (or per call); viewdirs
+are the normalized rays_d taken BEFORE the NDC projection. Random draws come
+from a `torch.Generator` or through the hooks `t_rand=`, `u=` and `noise=`
+(the coarse pass's sigma noise), as the JAX package's golden tests feed them.
+
+Dispatch follows the JAX package's eligibility: the teacher profile (viewdir
+branch, one input skip, embed widths that match the config) with
+`cfg.fused_teacher` (on in `eval_mode()` unless exact embeds are asked for)
+evaluates the field with `ops.nerf_forward_fused`, and, for deterministic
+levels (no `u`, no perturb), draws the fine depths with
+`ops.sample_pdf_det_fused`. The device then picks: a CUDA tensor launches
+the kernel, a CPU tensor runs its plain version. A deliberate divergence:
+the JAX package takes its XLA path off the TPU, where its Pallas kernels are
+unavailable; here the CPU runs the kernels' plain versions, so that the
+tests hold the eval path that runs on the card against the JAX package's
+fused path (its Pallas kernels in interpret mode). Everything else (the
+training profile, `u`, perturbed sampling, other models) takes the unfused
+path: `nerf_embed` -> `NeRFMLP` -> `raw2outputs`, `core.sampling.sample_pdf`.
+
+The card's kernel runs bf16 weights: a teacher on the fused path there needs
+`dtype=torch.bfloat16`. The int8 teacher (`teacher_quant="int8"`) and the
+whole-ray kernel (`frame_fused`) are not ported and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..core.encoding import nerf_embed
+from ..core.rays import get_rays, ndc_rays
+from ..core.sampling import linear_zvals, merge_sorted, sample_pdf, stratify_zvals
+from ..core.volume import raw2outputs
+from ..device import DeviceLike, resolve_device
+from ..ops import nerf_forward_fused, pack_nerf_weights, sample_pdf_det_fused
+from ._pack_cache import param_version_key
+
+__all__ = ["RenderConfig", "RenderResult", "render_rays", "render_image",
+           "make_ray_renderer"]
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Rendering options, the JAX package's fields and defaults."""
+
+    n_samples: int = 64
+    n_importance: int = 128
+    perturb: bool = True          # stratified jitter of coarse depths
+    lindisp: bool = False
+    white_bkgd: bool = False
+    raw_noise_std: float = 0.0
+    use_viewdirs: bool = True
+    multires: int = 10            # positional-encoding L for points
+    multires_views: int = 4       # positional-encoding L for view dirs
+    ndc: bool = False
+    near: float = 2.0
+    far: float = 6.0
+    chunk: int = 32768            # rays per render_rays call in render_image
+    # the fused field eval (inference only); eval_mode() turns it on
+    fused_teacher: bool = False
+    # double-angle-recurrence encoding on the unfused path
+    fast_embed: bool = True
+    # '' | 'int8': the W8A8 teacher, not ported (raises)
+    teacher_quant: str = ""
+    # the whole-ray teacher kernel, not ported (raises); its two tiling
+    # options below are kept for the JAX package's field set, and nothing
+    # reads them until that kernel is ported
+    frame_fused: bool = False
+    frame_tile_r: int = 256
+    frame_eval_chunks: int = 4
+
+    def eval_mode(self) -> "RenderConfig":
+        """Test-time variant: no jitter, no sigma noise, and the fused field
+        eval unless the config pins exact embeds (fast_embed=False)."""
+        return dataclasses.replace(
+            self, perturb=False, raw_noise_std=0.0,
+            fused_teacher=self.fused_teacher or self.fast_embed)
+
+
+class RenderResult(NamedTuple):
+    rgb: torch.Tensor
+    disp: torch.Tensor
+    acc: torch.Tensor
+    depth: torch.Tensor
+    # coarse-pass outputs (meaningful when n_importance > 0)
+    rgb0: torch.Tensor
+    disp0: torch.Tensor
+    acc0: torch.Tensor
+    z_std: torch.Tensor
+
+
+def _check_modes(cfg: RenderConfig) -> None:
+    if cfg.teacher_quant == "int8":
+        raise NotImplementedError(
+            "teacher_quant='int8' needs the W8A8 teacher kernel "
+            "(efficient_nerf_tpu/ops/pallas/nerf_int8.py::nerf_forward_int8, "
+            "kernel 7), which is not ported yet")
+    if cfg.teacher_quant:
+        raise ValueError(f"unknown teacher_quant {cfg.teacher_quant!r}")
+    if cfg.frame_fused:
+        raise NotImplementedError(
+            "frame_fused=True needs the whole-ray teacher kernel "
+            "(efficient_nerf_tpu/ops/pallas/nerf_frame.py::"
+            "nerf_render_rays_fused, kernel 8), which is not ported yet")
+
+
+def _teacher_profile_ok(model, cfg: RenderConfig) -> bool:
+    """The teacher kernel covers the reference profile: viewdir branch, one
+    input skip before a following pts layer, embed widths matching the
+    config."""
+    skips = tuple(getattr(model, "skips", ()))
+    return (cfg.use_viewdirs
+            and getattr(model, "use_viewdirs", False)
+            and len(skips) == 1
+            and 0 <= skips[0] < model.depth - 1
+            and model.input_ch == 3 * (2 * cfg.multires + 1)
+            and model.input_ch_views == 3 * (2 * cfg.multires_views + 1))
+
+
+def _nerf_profile_ok(model, cfg: RenderConfig) -> bool:
+    return cfg.fused_teacher and _teacher_profile_ok(model, cfg)
+
+
+def _packed(model) -> dict:
+    """The model's kernel operands in its compute dtype, packed once and
+    reused while no parameter changes (`param_version_key`)."""
+    key = (model.skips[0], model.dtype) + param_version_key(model)
+    cached = getattr(model, "_nerf_pack", None)
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            cached = (key, pack_nerf_weights(model.state_dict(), skip=model.skips[0],
+                                             dtype=model.dtype))
+        model._nerf_pack = cached
+    return cached[1]
+
+
+def _query(model, pts, viewdirs, cfg: RenderConfig) -> torch.Tensor:
+    """The unfused field eval: embed the points (+ dirs), run the MLP.
+    pts [N, S, 3]; viewdirs [N, 3] or None -> raw [N, S, 4]."""
+    emb = nerf_embed(pts, cfg.multires, fast=cfg.fast_embed)
+    if cfg.use_viewdirs:
+        dirs = nerf_embed(viewdirs, cfg.multires_views, fast=cfg.fast_embed)
+        dirs = dirs[..., None, :].expand(pts.shape[:-1] + (dirs.shape[-1],))
+        emb = torch.cat([emb, dirs], dim=-1)
+    return model(emb)
+
+
+def _field(model, rays_o, rays_d, z_vals, viewdirs, cfg: RenderConfig,
+           fused: bool) -> torch.Tensor:
+    """raw [N, S, 4] at the depths z_vals [N, S] along the rays."""
+    pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
+    if not fused:
+        return _query(model, pts, viewdirs, cfg)
+    if pts.is_cuda and model.dtype != torch.bfloat16:
+        raise ValueError(
+            "the teacher's fused field eval runs bf16 weights on the card: make "
+            "the model with dtype=torch.bfloat16, or render with "
+            "fused_teacher=False and fast_embed=False")
+    return nerf_forward_fused(_packed(model), pts.contiguous(),
+                              viewdirs.contiguous(), cfg.multires,
+                              cfg.multires_views)
+
+
+def render_rays(model, model_fine, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                viewdirs: Optional[torch.Tensor], cfg: RenderConfig, near=None,
+                far=None, t_rand=None, u=None, noise=None,
+                generator: Optional[torch.Generator] = None) -> RenderResult:
+    """Render rays [N, 3] through the coarse and fine fields, on the rays'
+    device (the models must be there too).
+
+    model_fine=None renders the fine pass with `model`. near/far override
+    the config (scalars or per-ray [N, 1]). t_rand [N, n_samples], u [N,
+    n_importance] and noise [N, n_samples] are the determinism hooks; noise
+    is the coarse pass's sigma noise, as in the JAX package (the fine pass
+    draws its own from `generator` when raw_noise_std > 0).
+    """
+    _check_modes(cfg)
+    n_rays = rays_o.shape[0]
+    dev = rays_o.device
+    near = cfg.near if near is None else near
+    far = cfg.far if far is None else far
+    model_f = model_fine if model_fine is not None else model
+
+    z_vals = linear_zvals(near, far, cfg.n_samples, cfg.lindisp, device=dev)
+    z_vals = z_vals.expand(n_rays, cfg.n_samples)
+    if cfg.perturb:
+        z_vals = stratify_zvals(z_vals, t_rand, generator)
+
+    fused = _nerf_profile_ok(model, cfg)
+    raw = _field(model, rays_o, rays_d, z_vals, viewdirs, cfg, fused)
+    coarse = raw2outputs(raw, z_vals, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
+                         noise=noise, generator=generator)
+
+    if cfg.n_importance <= 0:
+        zeros = torch.zeros((n_rays,), dtype=rays_o.dtype, device=dev)
+        return RenderResult(coarse.rgb, coarse.disp, coarse.acc, coarse.depth,
+                            coarse.rgb, coarse.disp, coarse.acc, zeros)
+
+    z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    w_mid = coarse.weights[..., 1:-1]
+    if fused and u is None and not cfg.perturb:
+        z_samples = sample_pdf_det_fused(z_mid.contiguous(), w_mid.contiguous(),
+                                         cfg.n_importance)
+    else:
+        z_samples = sample_pdf(z_mid, w_mid, cfg.n_importance,
+                               det=not cfg.perturb, u=u, sorted_u=True,
+                               generator=generator)
+    z_samples = z_samples.detach()
+    if u is None:
+        # both sorted per ray: the bitonic merge, as the JAX package
+        z_all = merge_sorted(z_vals, z_samples)
+    else:
+        # the hook's levels come in any order
+        z_all = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1).values
+
+    fused_f = _nerf_profile_ok(model_f, cfg)
+    raw = _field(model_f, rays_o, rays_d, z_all, viewdirs, cfg, fused_f)
+    fine = raw2outputs(raw, z_all, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
+                       generator=generator)
+    z_std = torch.std(z_samples, dim=-1, correction=0)  # jnp.std's ddof 0
+    return RenderResult(fine.rgb, fine.disp, fine.acc, fine.depth,
+                        coarse.rgb, coarse.disp, coarse.acc, z_std)
+
+
+def _prep_full_image_rays(H: int, W: int, focal: float, c2w, cfg: RenderConfig,
+                          dev: torch.device):
+    rays_o, rays_d = get_rays(H, W, focal, c2w, device=dev)
+    rays_o = rays_o.reshape(-1, 3)
+    rays_d = rays_d.reshape(-1, 3)
+    viewdirs = None
+    if cfg.use_viewdirs:
+        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    if cfg.ndc:
+        rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
+    return rays_o, rays_d, viewdirs
+
+
+def render_chunks(model, model_fine, rays_o, rays_d, viewdirs, cfg: RenderConfig,
+                  generator: Optional[torch.Generator] = None) -> RenderResult:
+    """render_rays over cfg.chunk rays at a time (the last chunk ragged:
+    rays are independent), without autograd; outputs concatenated."""
+    n = rays_o.shape[0]
+    chunk = min(cfg.chunk, n)
+    parts = []
+    with torch.no_grad():
+        for s in range(0, n, chunk):
+            vd = viewdirs[s:s + chunk] if viewdirs is not None else None
+            parts.append(render_rays(model, model_fine, rays_o[s:s + chunk],
+                                     rays_d[s:s + chunk], vd, cfg,
+                                     generator=generator))
+    return RenderResult(*[torch.cat(xs) for xs in zip(*parts)])
+
+
+def make_ray_renderer(model, cfg: RenderConfig):
+    """Chunk renderer closure: (model_fine, rays_o, rays_d, viewdirs,
+    generator=None) -> RenderResult. PyTorch runs eagerly, so there is
+    nothing to compile."""
+
+    def fn(model_fine, rays_o, rays_d, viewdirs, generator=None):
+        return render_rays(model, model_fine, rays_o, rays_d, viewdirs, cfg,
+                           generator=generator)
+
+    return fn
+
+
+def render_image(model, model_fine, H: int, W: int, focal: float, c2w,
+                 cfg: RenderConfig, generator: Optional[torch.Generator] = None,
+                 device: DeviceLike = None) -> RenderResult:
+    """Render a full H x W image on `device` (default CUDA) in chunks of
+    cfg.chunk rays; outputs are [H, W, ...]. c2w: numpy or tensor, [3, 4]
+    or [4, 4]."""
+    dev = resolve_device(device)
+    rays_o, rays_d, viewdirs = _prep_full_image_rays(H, W, focal, c2w, cfg, dev)
+    res = render_chunks(model, model_fine, rays_o, rays_d,
+                        viewdirs if cfg.use_viewdirs else None, cfg, generator)
+    return RenderResult(*[x.reshape((H, W) + x.shape[1:]) for x in res])
