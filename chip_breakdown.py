@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a fused kernel's time goes, on one CUDA card.
 
-    python3 chip_breakdown.py [--seed N] [--kernel serve|serve_int8|train_bwd|teacher]
+    python3 chip_breakdown.py [--seed N]
+        [--kernel serve|serve_int8|train_bwd|teacher|teacher_int8]
 
 Builds the kernel as shipped and variants of it made by replacing a few
 statements each, all with nvcc in parallel into build/kernels/breakdown/,
@@ -38,7 +39,8 @@ training step's), need_dx off:
   no_weight_grads  neither the weight-gradient products nor their atomics
 
 teacher: the teacher's field eval of csrc/nerf_forward.cu (W256 D8, L 10/4)
-on a fine-pass chunk, 32,768 rays of one 400x400 frame at 192 sorted depths:
+on a fine-pass chunk, 32,768 rays of one 400x400 frame at 192 sorted depths,
+its variants edited in the tile code it includes (csrc/nerf_field.cuh):
   shipped      the kernel as the port runs it
   no_loads     no weight copies: the products, epilogues and barriers alone
   no_products  no mma.sync or ldmatrix: the weight stream, embed, epilogues
@@ -46,6 +48,15 @@ on a fine-pass chunk, 32,768 rays of one 400x400 frame at 192 sorted depths:
   no_trig      the embed without fast_sin (y + phase passes through)
   no_views     no view branch: neither the per-ray direction products nor
                the view layer's product and epilogue (rgb is left unset)
+
+teacher_int8: the int8 field eval of csrc/nerf_int8.cu on the same fine
+chunk, static scales from calibrate_nerf_int8 on its first 1024 points:
+  shipped      the kernel as the port runs it
+  no_loads     no int8 weight copies (the bf16 ones stay): the products,
+               epilogues and barriers
+  no_products  no int8 mma.sync or ldmatrix (the bf16 products stay)
+  no_epilogues no int8 epilogues (dequantize, bias, relu, requantize, the
+               alpha and feature heads' epilogues); the view layer's stays
 
 Prints one line per variant and, last, a JSON object with the times, the
 bound and the card's name and power limit. A diagnostic: the variants'
@@ -91,60 +102,73 @@ _CVT_LEVELS = """  unsigned r;
 _FIRST_LEVELS = """  const int a = (int)fminf(fmaxf(rintf(x), -127.0f), 127.0f);
   const int b = (int)fminf(fmaxf(rintf(y), -127.0f), 127.0f);
   *reinterpret_cast<unsigned short*>(p) = (unsigned short)((a & 0xff) | ((b & 0xff) << 8));"""
-_T_LOAD = "cp_async16(dst + r * LDS + piece * 8, src + (size_t)r * sg.ldw + piece * 8);"
-_T_PRODUCTS = "    if (n0 < sg.n) {\n      const __nv_bfloat16* Xa = sg.a ? A : X;"
+_T_LOAD = "cp_async16(dst + r * LDS_B + piece * 16, src + (size_t)r * sg.ldw + piece * 16);"
+_T_PRODUCTS = "    if (n0 < sg.n) {\n      const unsigned char* st = t.ring"
 _T_TRIG = "v = fast_sin(__fadd_rn(y, phase), 7);"
-_T_VIEWS_SEG = "  seg(views_h_w, W, W, half, 1, depth + 1);\n"
-_T_VIEWS_RAYS = "for (int idx = tid; idx < nr * p.half; idx += NTHREADS) {"
-# kernel: (file edited, file built, {variant: [(old, new), ...]}); the
+_T_VIEWS_SEG = "  seg(views_h_w, 2 * W, W / 2, 1, depth + 1);\n"
+_T_VIEWS_RAYS = "for (int idx = threadIdx.x; idx < nr * f.half; idx += NTHREADS) {"
+_T8_PRODUCTS = "for (int kk = 0; kk < CHUNK_B; kk += 32) {"
+_T8_EPI = "    const int L = sg.layer;\n    if (L == 0) {"
+_FIELD = "nerf_field.cuh"
+# kernel: (file built, {variant: [(file edited, old, new), ...]}); the
 # shipped variant has no edits
 KERNELS = {
-    "serve": ("r2l_mma.cuh", "r2l_forward.cu", {
+    "serve": ("r2l_forward.cu", {
         "shipped": [],
-        "no_loads": [(_LOAD, "")],
-        "no_products": [(_PRODUCTS, _PRODUCTS.replace("(owns)", "(false)"))],
+        "no_loads": [("r2l_mma.cuh", _LOAD, "")],
+        "no_products": [("r2l_mma.cuh", _PRODUCTS, _PRODUCTS.replace("(owns)", "(false)"))],
     }),
-    "serve_int8": ("r2l_int8.cu", "r2l_int8.cu", {
+    "serve_int8": ("r2l_int8.cu", {
         "shipped": [],
-        "no_loads": [(_LOAD8, "")],
-        "no_products": [(_PRODUCTS8, _PRODUCTS8.replace("(owns)", "(false)"))],
-        "no_epilogues": [(_EPI_EVEN, _EPI_EVEN.replace("(owns)", "(false)")),
-                         (_EPI_ODD, _EPI_ODD.replace("(owns)", "(false)")),
-                         (_EPI_QH, "")],
-        "first_conversions": [(_CVT_SUM, "  return (float)v;"),
-                              (_CVT_LEVELS, _FIRST_LEVELS)],
-        "ring_64x4": [("constexpr int KC8 = 128; ", "constexpr int KC8 = 64;  "),
-                      ("constexpr int S8 = 2;", "constexpr int S8 = 4;")],
+        "no_loads": [("r2l_int8.cu", _LOAD8, "")],
+        "no_products": [("r2l_int8.cu", _PRODUCTS8, _PRODUCTS8.replace("(owns)", "(false)"))],
+        "no_epilogues": [("r2l_int8.cu", _EPI_EVEN, _EPI_EVEN.replace("(owns)", "(false)")),
+                         ("r2l_int8.cu", _EPI_ODD, _EPI_ODD.replace("(owns)", "(false)")),
+                         ("r2l_int8.cu", _EPI_QH, "")],
+        "first_conversions": [("int8_epilogue.cuh", _CVT_SUM, "  return (float)v;"),
+                              ("int8_epilogue.cuh", _CVT_LEVELS, _FIRST_LEVELS)],
+        "ring_64x4": [("r2l_int8.cu", "constexpr int KC8 = 128; ", "constexpr int KC8 = 64;  "),
+                      ("r2l_int8.cu", "constexpr int S8 = 2;", "constexpr int S8 = 4;")],
     }),
-    "train_bwd": ("r2l_train.cu", "r2l_train.cu", {
+    "train_bwd": ("r2l_train.cu", {
         "shipped": [],
-        "float4_atomics": [(_ATOMIC, _FLOAT4)],
-        "no_atomics": [(_ATOMIC, "            if (acc[i][j][2 * hf] == 1.2345e-38f) "
-                                 "gW[(size_t)row * ldg + col] = acc[i][j][2 * hf + 1];")],
-        "no_weight_grads": [(_DW, _DW.replace("  for (int m0", "  if (M > 0) return;\n"
-                                                            "  for (int m0"))],
+        "float4_atomics": [("r2l_train.cu", _ATOMIC, _FLOAT4)],
+        "no_atomics": [("r2l_train.cu", _ATOMIC,
+                        "            if (acc[i][j][2 * hf] == 1.2345e-38f) "
+                        "gW[(size_t)row * ldg + col] = acc[i][j][2 * hf + 1];")],
+        "no_weight_grads": [("r2l_train.cu", _DW, _DW.replace(
+            "  for (int m0", "  if (M > 0) return;\n  for (int m0"))],
     }),
-    "teacher": ("nerf_forward.cu", "nerf_forward.cu", {
+    "teacher": ("nerf_forward.cu", {
         "shipped": [],
-        "no_loads": [(_T_LOAD, "")],
-        "no_products": [(_T_PRODUCTS, _T_PRODUCTS.replace("(n0 < sg.n)", "(false)"))],
-        "no_trig": [(_T_TRIG, "v = __fadd_rn(y, phase);")],
-        "no_views": [(_T_VIEWS_SEG, ""),
-                     (_T_VIEWS_RAYS, _T_VIEWS_RAYS.replace("nr * p.half", "0"))],
+        "no_loads": [(_FIELD, _T_LOAD, "")],
+        "no_products": [(_FIELD, _T_PRODUCTS, _T_PRODUCTS.replace("(n0 < sg.n)", "(false)"))],
+        "no_trig": [(_FIELD, _T_TRIG, "v = __fadd_rn(y, phase);")],
+        "no_views": [(_FIELD, _T_VIEWS_SEG, ""),
+                     (_FIELD, _T_VIEWS_RAYS, _T_VIEWS_RAYS.replace("nr * f.half", "0"))],
+    }),
+    "teacher_int8": ("nerf_int8.cu", {
+        "shipped": [],
+        "no_loads": [(_FIELD, _T_LOAD, "if (!sg.s8) " + _T_LOAD)],
+        "no_products": [(_FIELD, _T8_PRODUCTS, _T8_PRODUCTS.replace("kk < CHUNK_B", "kk < 0"))],
+        "no_epilogues": [("nerf_int8.cu", _T8_EPI,
+                          _T8_EPI.replace("    if (L == 0) {", "    if (L <= D) return;\n"
+                                                              "    if (L == 0) {"))],
     }),
 }
 
 
-def _build(name, edited_name, edited, source, out_dir, nvcc, flags, csrc):
+def _build(name, edited, source, out_dir, nvcc, flags, csrc):
     """The kernel built from a copy of csrc's headers and the source side by
-    side, the edited file among them: a quoted include finds the including
+    side, the edited files among them: a quoted include finds the including
     file's directory first, so every header, also one included by another
     header, resolves to the variant's copy."""
     out_dir = out_dir / name
     out_dir.mkdir(parents=True, exist_ok=True)
     for src in [*csrc.glob("*.cuh"), csrc / source]:
         (out_dir / src.name).write_text(src.read_text())
-    (out_dir / edited_name).write_text(edited)
+    for fname, text in edited.items():
+        (out_dir / fname).write_text(text)
     so = out_dir / f"lib{name}.so"
     r = subprocess.run([nvcc, *flags, "-o", str(so), str(out_dir / source)],
                        capture_output=True, text=True, timeout=600)
@@ -320,8 +344,56 @@ def _teacher_runner(torch, dev, seed):
     return n * S, bound_ms, cs.TEACHER_TOL, make_run, error
 
 
+def _teacher_int8_runner(torch, dev, seed):
+    from efficient_nerf_tpu_torch.core.poses import pose_spherical
+    from efficient_nerf_tpu_torch.core.rays import get_rays
+    from efficient_nerf_tpu_torch.ops import nerf_forward as nf
+    from efficient_nerf_tpu_torch.ops import nerf_int8 as ni
+
+    model = cs.teacher_model(seed, torch, dev)
+    sd = model.state_dict()
+    packed = ni.pack_nerf_weights_int8(sd, skip=4)
+    n, S = cs.T_CHUNK, cs.T_SAMPLES + cs.T_IMPORTANCE
+    ro, rd = get_rays(cs.FRAME_H, cs.FRAME_W, cs.T_FOCAL,
+                      pose_spherical(-30.0, -30.0, 4.0)[:3, :4], device=dev)
+    ro, rd = ro.reshape(-1, 3)[:n], rd.reshape(-1, 3)[:n]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.sort(cs.NEAR + (cs.FAR - cs.NEAR) * torch.rand(
+        (n, S), generator=gen, device=dev), dim=-1).values
+    pts = (ro[:, None] + rd[:, None] * z[..., None]).contiguous()
+    vd = (rd / rd.norm(dim=-1, keepdim=True)).contiguous()
+    act = ni.calibrate_nerf_int8(nf.pack_nerf_weights(sd, 4, torch.float32),
+                                 pts.reshape(-1, 3)[:1024], cs.T_L)
+    k = ni._fold(packed, act)
+    dirs = nf.embed_dirs(vd, cs.T_LV)
+    want = ni.nerf_forward_int8_ref(packed, pts, vd, cs.T_L, cs.T_LV, act_scales=act)
+    out = torch.empty_like(want)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def make_run(lib):
+        fn = lib.nerf_int8_launch
+        restype, argtypes = ni._SIGNATURES["nerf_int8_launch"]
+        fn.restype, fn.argtypes = restype, list(argtypes)
+        ptrs = [packed["pts0_w"], packed["pts0_b"], packed["body_qw"], k["body_dqs"],
+                k["body_b"], k["skip_x_w"], packed["feat_qw"], k["feat_dqs"],
+                packed["feat_b_f32"], k["invs"]] + [packed[x] for x in (
+                    "views_h_w", "views_d_w", "views_b", "rgb_w", "alpha_w", "out_b")]
+        return lambda: fn(pts.data_ptr(), 3, 1, dirs.data_ptr(), *(t.data_ptr() for t in ptrs),
+                          out.data_ptr(), 4, 1, n * S, S, packed["in_ch"], packed["in_pad"],
+                          packed["in_ch_views"], packed["width"], packed["depth"],
+                          packed["skip"], stream)
+
+    def error():
+        return cs.rel_err(out, want)
+
+    ops8, ops16 = ni.nerf_int8_ops(packed, n * S, n)
+    bound_ms = cs.bound(ops16, 0, int8_ops=ops8)[0]
+    return n * S, bound_ms, cs.INT8_TEACHER_TOL, make_run, error
+
+
 RUNNERS = {"serve": _serve_runner, "serve_int8": _serve_int8_runner,
-           "train_bwd": _train_bwd_runner, "teacher": _teacher_runner}
+           "train_bwd": _train_bwd_runner, "teacher": _teacher_runner,
+           "teacher_int8": _teacher_int8_runner}
 
 
 def main() -> None:
@@ -336,22 +408,22 @@ def main() -> None:
         cs.fail("torch.cuda.is_available() is false; this script needs a card")
     from efficient_nerf_tpu_torch.ops import _build as build
 
-    edited_name, source, variants = KERNELS[args.kernel]
-    shipped = (build.CSRC / edited_name).read_text()
+    source, variants = KERNELS[args.kernel]
     sources = {}
     for name, edits in variants.items():
-        text = shipped
-        for old, new in edits:
+        texts = {}
+        for fname, old, new in edits:
+            text = texts.get(fname) or (build.CSRC / fname).read_text()
             if text.count(old) != 1:
-                cs.fail(f"variant {name}: its statement is not once in the source")
-            text = text.replace(old, new)
-        sources[name] = text
+                cs.fail(f"variant {name}: its statement is not once in {fname}")
+            texts[fname] = text.replace(old, new)
+        sources[name] = texts
     out_dir = build.BUILD_DIR / "breakdown" / args.kernel
     out_dir.mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(len(sources)) as ex:
-        futs = {n: ex.submit(_build, n, edited_name, s, source, out_dir,
-                             build._nvcc(), build.NVCC_FLAGS, build.CSRC)
-                for n, s in sources.items()}
+        futs = {n: ex.submit(_build, n, texts, source, out_dir, build._nvcc(),
+                             build.NVCC_FLAGS, build.CSRC)
+                for n, texts in sources.items()}
         built = {n: f.result() for n, f in futs.items()}
 
     dev = torch.device("cuda", 0)

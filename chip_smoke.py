@@ -71,6 +71,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 pipeline (ms a frame beside render_image alone), and
                 export_pseudo_shards for 4 poses into a temporary directory:
                 156 shards of [4096, 9] whose rows are rows of the 4 frames.
+  teacher_int8_kernel  the int8 field-eval kernel against nerf_forward_int8_ref
+                at 512 x 64, 256 x 192, a ragged 37 x 64 (channel-major) and
+                37 x 192, and at the main path's 32,768 x 64 and 32,768 x 192
+                on the teacher phase's points, each with scales calibrated on
+                its first 1024 points: max |k - p| / max |p| of sigma and
+                rgb, the share of points beyond TEACHER_TOL, and the noise of
+                the plain version on the CPU against on the card.
+  teacher_int8  render_image with teacher_quant="int8" for the 3 frames, the
+                launch counters set to 0 just before and read just after (2
+                int8 field-eval, no bf16 field-eval and 1 sampler launch per
+                chunk); the frame against the same frame through the plain
+                versions; the int8 frame against the bf16 frame (the share of
+                rays whose acc flips, and the PSNR over the others);
+                StreamingPseudoGenerator with the int8 config over 3 frames;
+                frame time, and the kernel at the coarse and the fine chunk
+                beside its bound, its plain version and the unfused
+                torch._int_mm path.
+  frame_kernel  the whole-ray kernel against nerf_render_rays_fused_ref on 37
+                random rays and on a 32,768-ray chunk (share of rays beyond
+                FRAME_TOL), its fine depths against sample_pdf_det_fused on
+                the kernel's own coarse weights, bit for bit; its time at the
+                chunk beside its bound and its plain version.
+  teacher_frame render_image with frame_fused=True for the 3 frames (1
+                whole-ray launch and no other teacher kernel per chunk); the
+                frame against the composed kernel path's frame of the
+                teacher phase; frame time beside the composed path's.
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Weights are random, made from --seed: the
@@ -177,6 +203,30 @@ TEACHER_TOL = 2e-2
 # FRAME_SHARE of a frame's rays may differ beyond FRAME_TOL.
 FRAME_TOL = {"rgb": 2e-2, "acc": 2e-2, "depth": 1e-1}
 FRAME_SHARE = 1e-4
+# int8 field-eval kernel vs its plain version, as max |kernel - plain| over
+# max |plain| of sigma and of rgb: the int8 products are exact on both sides
+# and the epilogues round alike, but where a bf16 product's f32 sum (layer
+# 0, the skip rows, the heads) lands an ulp apart, an activation can cross a
+# quantizer's rounding boundary: one int8 level, s_i |w| in the next product,
+# carried through the remaining layers. The plain version alone, on the CPU
+# and on the card, agrees to 2e-7 (the noise line below: its f32 sums hardly
+# ever flip a level; the tensor cores' sums do); the first card run measured
+# the kernel at up to 2.7e-2 (sigma, a fine chunk of 6.29 M points) and
+# 1.4e-2 (rgb), with 6 of those points beyond TEACHER_TOL. 6e-2 is 2.2x that;
+# a wrong layout, scale or rounding gives errors of order 1.
+INT8_TEACHER_TOL = 6e-2
+# The int8 teacher frame against the bf16 one. The JAX package gates it at
+# 30 dB PSNR (tests/test_quality_e2e.py:270), on a trained teacher. The
+# random teacher here has its sigma near 0 everywhere (lecun-normal kernels,
+# biases of std 0.01), so where a pass's last sigma, which stands for a
+# 1e10-long interval, lies within the int8 noise (about 1e-2 on raw) of 0,
+# the ray turns opaque in one frame and clear in the other: the first card
+# run found 0.91% of the rays with their coarse acc moved by more than 0.5,
+# which alone holds the whole frame at 26.8 dB. So the gate is that share,
+# at most INT8_FLIP_SHARE (2.2x that run's), and the 30 dB over the rays
+# whose coarse and fine acc stay.
+INT8_PSNR_MIN = 30.0
+INT8_FLIP_SHARE = 2e-2
 
 
 def fail(msg: str) -> None:
@@ -944,6 +994,16 @@ def _teacher_rays(sm: Smoke, pose):
     return o, d, (d / d.norm(dim=-1, keepdim=True)).contiguous()
 
 
+def _frame_points(sm: Smoke, o, d, vd, n_rays: int, S: int):
+    """Points of n_rays random frame rays at S sorted depths in [near, far]
+    (the fine pass's depths are sorted, not even), and their directions."""
+    torch = sm.torch
+    i = torch.randint(0, o.shape[0], (n_rays,), generator=sm.gen, device=sm.dev)
+    z = torch.sort(NEAR + (FAR - NEAR) * torch.rand(
+        (n_rays, S), generator=sm.gen, device=sm.dev), dim=-1).values
+    return (o[i, None] + d[i, None] * z[..., None]).contiguous(), vd[i].contiguous()
+
+
 def _field_errors(got, want):
     """max |got - want| / max |want| of sigma (channel 3) and of rgb."""
     return {"sigma": rel_err(got[..., 3], want[..., 3]),
@@ -965,12 +1025,7 @@ def phase_teacher_kernel(sm: Smoke) -> None:
     o, d, vd = _teacher_rays(sm, sm.poses[0])
 
     def points(n_rays, S):
-        """Points of n_rays random frame rays at S sorted depths in [near,
-        far] (the fine pass's depths are sorted, not even)."""
-        i = torch.randint(0, o.shape[0], (n_rays,), generator=gen, device=dev)
-        z = torch.sort(NEAR + (FAR - NEAR) * torch.rand(
-            (n_rays, S), generator=gen, device=dev), dim=-1).values
-        return (o[i, None] + d[i, None] * z[..., None]).contiguous(), vd[i].contiguous()
+        return _frame_points(sm, o, d, vd, n_rays, S)
 
     worst = {"sigma": 0.0, "rgb": 0.0, "abs": 0.0}
     for n_rays, S, cm in ((512, 64, False), (256, 192, False), (37, 64, True),
@@ -1053,23 +1108,49 @@ def phase_teacher_kernel(sm: Smoke) -> None:
     sm.pdf_err = pdf_err
 
 
-def _render_plain(sm: Smoke, model, c2w, cfg):
-    """render_image with the fused-kernel calls replaced by their plain
-    versions (on the card), 8,192 rays a chunk."""
+def _render_plain(sm: Smoke, model, c2w, cfg, chunk: int = 8192):
+    """render_image with every kernel call of the renderer replaced by its
+    plain version (on the card), `chunk` rays a chunk."""
     import dataclasses
 
+    from efficient_nerf_tpu_torch.ops import nerf_frame, nerf_int8
     from efficient_nerf_tpu_torch.ops.nerf_forward import nerf_forward_fused_ref
     from efficient_nerf_tpu_torch.ops.sample_pdf import sample_pdf_det_fused_ref
     from efficient_nerf_tpu_torch.render import renderer
 
-    saved = renderer.nerf_forward_fused, renderer.sample_pdf_det_fused
-    renderer.nerf_forward_fused = nerf_forward_fused_ref
-    renderer.sample_pdf_det_fused = sample_pdf_det_fused_ref
+    names = ("nerf_forward_fused", "sample_pdf_det_fused", "nerf_forward_int8",
+             "nerf_render_rays_fused")
+    saved = [getattr(renderer, k) for k in names]
+    for k, ref in zip(names, (nerf_forward_fused_ref, sample_pdf_det_fused_ref,
+                              nerf_int8.nerf_forward_int8_ref,
+                              nerf_frame.nerf_render_rays_fused_ref)):
+        setattr(renderer, k, ref)
     try:
         return renderer.render_image(model, None, FRAME_H, FRAME_W, T_FOCAL, c2w,
-                                     dataclasses.replace(cfg, chunk=8192), device=sm.dev)
+                                     dataclasses.replace(cfg, chunk=chunk), device=sm.dev)
     finally:
-        renderer.nerf_forward_fused, renderer.sample_pdf_det_fused = saved
+        for k, fn in zip(names, saved):
+            setattr(renderer, k, fn)
+
+
+def _frame_diff(sm: Smoke, label: str, got, want) -> float:
+    """Prints how far two renders of a frame lie apart, per ray under
+    FRAME_TOL; returns the share of rays beyond it."""
+    torch = sm.torch
+    n_rays = FRAME_H * FRAME_W
+    diff = {k: (getattr(got, k) - getattr(want, k)).abs().reshape(n_rays, -1).amax(-1)
+            for k in FRAME_TOL}
+    beyond = torch.zeros(n_rays, dtype=torch.bool, device=sm.dev)
+    for k in FRAME_TOL:
+        beyond |= diff[k] > FRAME_TOL[k]
+    share = beyond.float().mean().item()
+    print(f"{label}: "
+          + ", ".join(f"{k} max {diff[k].max().item():.3g} mean {diff[k].mean().item():.3g}, "
+                      f"{diff[k][~beyond].max().item():.3g} over the rays within tol "
+                      f"{FRAME_TOL[k]:g}" for k in FRAME_TOL)
+          + f"; {int(beyond.sum().item())} rays beyond (share {share:.2e}, at most "
+          f"{FRAME_SHARE:g})", flush=True)
+    return share
 
 
 def phase_teacher(sm: Smoke) -> None:
@@ -1124,24 +1205,13 @@ def phase_teacher(sm: Smoke) -> None:
 
     plain = _render_plain(sm, model, c2ws[0], cfg)
     torch.cuda.synchronize()
-    diff = {k: (getattr(frames[0], k) - getattr(plain, k)).abs().reshape(n_rays, -1)
-            .amax(-1) for k in FRAME_TOL}
-    beyond = torch.zeros(n_rays, dtype=torch.bool, device=dev)
-    for k in FRAME_TOL:
-        beyond |= diff[k] > FRAME_TOL[k]
-    frame_share = beyond.float().mean().item()
-    frame_err = {k: diff[k].max().item() for k in FRAME_TOL}
-    within = {k: diff[k][~beyond].max().item() for k in FRAME_TOL}
-    print(f"teacher: frame 0 against the same frame through the plain versions: "
-          + ", ".join(f"{k} max {frame_err[k]:.3g} mean {diff[k].mean().item():.3g}, "
-                      f"{within[k]:.3g} over the rays within tol {FRAME_TOL[k]:g}"
-                      for k in FRAME_TOL)
-          + f"; {int(beyond.sum().item())} rays beyond (share {frame_share:.2e}, at most "
-          f"{FRAME_SHARE:g})", flush=True)
+    frame_share = _frame_diff(sm, "teacher: frame 0 against the same frame through the "
+                              "plain versions", frames[0], plain)
     if frame_share > FRAME_SHARE:
         fail(f"teacher frame differs from the plain versions' frame in a share "
              f"{frame_share:.2e} of its rays")
-    del plain, diff
+    del plain
+    sm.teacher_frame0 = frames[0]
 
     frame_ms = cuda_ms(torch, lambda: render_image(
         model, None, FRAME_H, FRAME_W, T_FOCAL, c2ws[1], cfg), 3, warmup=1)
@@ -1159,6 +1229,7 @@ def phase_teacher(sm: Smoke) -> None:
     z_f = merge_sorted(z_c, sample_pdf_det_fused(bins, w, T_IMPORTANCE))
     pts_f = (o[:, None] + d[:, None] * z_f[..., None]).contiguous()
     S_f = T_SAMPLES + T_IMPORTANCE
+    sm.chunk = {"o": o, "d": d, "vd": vd, "coarse": pts_c, "fine": pts_f}
 
     # kernel 5 against its plain version on the same points, at the main
     # path's own chunk shapes (16,384 and 49,152 tiles)
@@ -1226,6 +1297,7 @@ def phase_teacher(sm: Smoke) -> None:
           f"plain version {pdf_plain_ms:.3f} ms; the library path is {lib_err:.3g} from "
           f"the plain version on the coarse chunk", flush=True)
     sm.teacher_frame_ms = frame_ms
+    sm.teacher_frame_bound = frame_bound[0]
     sm.entries["nerf_forward_fused"] = {
         "name": "nerf_forward_fused", "route": "cuda",
         "source": "efficient_nerf_tpu_torch/csrc/nerf_forward.cu",
@@ -1317,6 +1389,395 @@ def phase_pseudo(sm: Smoke) -> None:
         fail("the shards' rows are not a permutation of the frames' rows")
 
 
+def int8_teacher_library_forward(torch, packed, pts, vd, act):
+    """The int8 field eval unfused, one library call per product: the embed
+    and every quantize and dequantize as torch elementwise ops, the bf16
+    products as cuBLAS GEMMs, each int8 product torch._int_mm (cuBLASLt int8
+    -> int32). The library yardstick; the port never calls it."""
+    from efficient_nerf_tpu_torch.ops.nerf_forward import _linearized_embed, embed_dirs
+    from efficient_nerf_tpu_torch.ops.nerf_int8 import _fold
+
+    bf, i8 = torch.bfloat16, torch.int8
+    N, S = pts.shape[:2]
+    ic, depth, skip = packed["in_ch"], packed["depth"], packed["skip"]
+    k = _fold(packed, act)
+
+    def levels(x):
+        return torch.clamp(torch.round(x), -127, 127).to(i8)
+
+    e = _linearized_embed(pts.reshape(-1, 3), T_L).to(bf)
+    h = torch.relu((e @ packed["pts0_w"][:, :ic].t()).float() + packed["pts0_b"].float())
+    q = levels(h * k["invs"][0])
+    for i in range(1, depth):
+        t = torch._int_mm(q, packed["body_qw"][i - 1].t()).float() * k["body_dqs"][i - 1] \
+            + k["body_b"][i - 1]
+        if i == skip + 1:
+            t = t + (e @ k["skip_x_w"][:, :ic].t()).float()
+        if i < depth - 1:
+            q = levels(torch.relu(t))
+        else:
+            h = torch.relu(t)
+    alpha = (h.to(bf) @ packed["alpha_w"][:, None]).float()
+    feat = (torch._int_mm(levels(h * k["invs"][1]), packed["feat_qw"].t()).float()
+            * k["feat_dqs"] + packed["feat_b_f32"]).to(bf)
+    hv_d = (embed_dirs(vd, T_LV).to(bf) @ packed["views_d_w"].t()).float()
+    hv = torch.relu((feat @ packed["views_h_w"].t()).float() + hv_d.repeat_interleave(S, 0)
+                    + packed["views_b"].float())
+    rgb = (hv.to(bf) @ packed["rgb_w"].t()).float()
+    out_b = packed["out_b"]
+    return torch.cat([rgb + out_b[:3], alpha + out_b[3:]], -1).reshape(N, S, 4)
+
+
+def _int8_field_errors(got, want):
+    """_field_errors and the share of points whose sigma or rgb lies beyond
+    TEACHER_TOL (the bf16 kernel's tolerance) of max |plain|."""
+    e = _field_errors(got, want)
+    far = ((got[..., 3] - want[..., 3]).abs() > TEACHER_TOL * want[..., 3].abs().max()) | \
+        ((got[..., :3] - want[..., :3]).abs().amax(-1) > TEACHER_TOL * want[..., :3].abs().max())
+    e["share"] = far.float().mean().item()
+    return e
+
+
+def phase_teacher_int8_kernel(sm: Smoke) -> None:
+    from efficient_nerf_tpu_torch.ops.nerf_forward import pack_nerf_weights
+    from efficient_nerf_tpu_torch.ops.nerf_int8 import (
+        calibrate_nerf_int8, nerf_forward_int8, nerf_forward_int8_ref, pack_nerf_weights_int8)
+
+    torch = sm.torch
+    sd = sm.teacher.state_dict()
+    packed = pack_nerf_weights_int8(sd, skip=4, dtype=torch.bfloat16)
+    packed32 = pack_nerf_weights(sd, skip=4, dtype=torch.float32)
+    o, d, vd = _teacher_rays(sm, sm.poses[0])
+    cases = [(f"{n} x {S}", *_frame_points(sm, o, d, vd, n, S), cm) for n, S, cm in (
+        (512, 64, False), (256, 192, False), (37, 64, True), (37, 192, False))]
+    c = sm.chunk
+    cases += [(f"the {k} chunk {T_CHUNK} x {c[k].shape[1]}", c[k], c["vd"], False)
+              for k in ("coarse", "fine")]
+    worst = {"sigma": 0.0, "rgb": 0.0, "abs": 0.0, "share": 0.0}
+    for label, pts, dirs, cm in cases:
+        # the renderer's rule: scales from the call's first 1024 points
+        act = calibrate_nerf_int8(packed32, pts.reshape(-1, 3)[:1024], T_L)
+        x = pts.permute(2, 0, 1).contiguous() if cm else pts
+        got = nerf_forward_int8(packed, x, dirs, T_L, T_LV, act_scales=act, cm=cm)
+        want = nerf_forward_int8_ref(packed, x, dirs, T_L, T_LV, act_scales=act, cm=cm)
+        torch.cuda.synchronize()
+        if cm:
+            got, want = got.permute(1, 2, 0), want.permute(1, 2, 0)
+        if got.shape != pts.shape[:2] + (4,) or not torch.isfinite(got).all():
+            fail("int8 field-eval kernel output has the wrong shape or is not finite")
+        e = _int8_field_errors(got, want)
+        del got, want
+        torch.cuda.empty_cache()
+        print(f"teacher_int8_kernel: nerf_forward_int8 W{T_WIDTH} D{T_DEPTH} {label}"
+              f"{' (cm)' if cm else ''}: sigma {e['sigma']:.3g}, rgb {e['rgb']:.3g} of max "
+              f"|plain| (tol {INT8_TEACHER_TOL:g}); max abs {e['abs']:.3g}; share of points "
+              f"beyond {TEACHER_TOL:g} {e['share']:.2e}", flush=True)
+        worst = {k: max(worst[k], v) for k, v in e.items()}
+    # the noise of summation order alone: the plain version on the host CPU
+    # against on the card, with the same scales
+    pts, dirs = _frame_points(sm, o, d, vd, 64, 64)
+    act = calibrate_nerf_int8(packed32, pts.reshape(-1, 3)[:1024], T_L)
+    cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in packed.items()}
+    want = nerf_forward_int8_ref(packed, pts, dirs, T_L, T_LV, act_scales=act)
+    want_cpu = nerf_forward_int8_ref(cpu, pts.cpu(), dirs.cpu(), T_L, T_LV, act_scales=act.cpu())
+    got = nerf_forward_int8(packed, pts, dirs, T_L, T_LV, act_scales=act)
+    noise, k_e = _int8_field_errors(want.cpu(), want_cpu), _int8_field_errors(got, want)
+    print(f"teacher_int8_kernel: summation-order noise, plain version on the CPU vs on the "
+          f"card, 64 x 64: sigma {noise['sigma']:.3g}, rgb {noise['rgb']:.3g} (abs "
+          f"{noise['abs']:.3g}, share beyond {TEACHER_TOL:g} {noise['share']:.2e}); kernel vs "
+          f"plain on the same points: sigma {k_e['sigma']:.3g}, rgb {k_e['rgb']:.3g}",
+          flush=True)
+    if not max(worst["sigma"], worst["rgb"]) <= INT8_TEACHER_TOL:
+        fail(f"int8 field-eval kernel differs from its plain version by {worst}")
+    sm.int8_teacher = {"packed": packed, "packed32": packed32, "err": worst["abs"]}
+
+
+def phase_teacher_int8(sm: Smoke) -> None:
+    import dataclasses
+
+    import numpy as np
+
+    from efficient_nerf_tpu_torch.data import StreamingPseudoGenerator
+    from efficient_nerf_tpu_torch.ops.nerf_forward import nerf_forward_fused
+    from efficient_nerf_tpu_torch.ops.nerf_int8 import (
+        calibrate_nerf_int8, nerf_forward_int8, nerf_forward_int8_ref, nerf_int8_ops)
+    from efficient_nerf_tpu_torch.ops.sample_pdf import sample_pdf_det_fused
+    from efficient_nerf_tpu_torch.ops.trig import fast_sincos_cuda
+    from efficient_nerf_tpu_torch.render import render_image
+
+    torch, model = sm.torch, sm.teacher
+    cfg8 = dataclasses.replace(teacher_config(), teacher_quant="int8")
+    cfg = cfg8.eval_mode()
+    c2ws = [np.asarray(p[:3, :4]) for p in sm.poses]
+    chunks = -(-FRAME_H * FRAME_W // T_CHUNK)
+    counters = (nerf_forward_int8, nerf_forward_fused, sample_pdf_det_fused)
+
+    def counts():
+        return tuple(f.launches for f in counters)
+
+    def reset():
+        for f in counters + (fast_sincos_cuda,):
+            f.launches = 0
+
+    render_image(model, None, FRAME_H, FRAME_W, T_FOCAL, c2ws[0], cfg)   # warm-up
+    torch.cuda.synchronize()
+    reset()
+    # as a user calls it: numpy poses, the default device (CUDA)
+    frames = [render_image(model, None, FRAME_H, FRAME_W, T_FOCAL, c2w, cfg) for c2w in c2ws]
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"teacher_int8: 3 frames of {FRAME_H}x{FRAME_W} with teacher_quant='int8' "
+          f"({chunks} chunks each): nerf_forward_int8 launches {launches[0]}, "
+          f"nerf_forward_fused {launches[1]}, sample_pdf_det_fused {launches[2]}", flush=True)
+    if launches != (2 * chunks * 3, 0, chunks * 3):
+        fail(f"expected 2 int8 field-eval, no bf16 field-eval and 1 sampler launch a "
+             f"chunk, counted {launches} over 3 frames")
+    for f in frames:
+        if f.rgb.shape != (FRAME_H, FRAME_W, 3) or not torch.isfinite(f.rgb).all() \
+                or f.rgb.min() < 0 or f.rgb.max() > 1 + 1e-6 \
+                or not torch.isfinite(f.depth).all() or not torch.isfinite(f.acc).all():
+            fail("int8 teacher frame has the wrong shape, values that are not finite "
+                 "or rgb outside [0, 1]")
+    # the plain versions in the same chunks, so that each call calibrates on
+    # the same points
+    plain = _render_plain(sm, model, c2ws[0], cfg, chunk=T_CHUNK)
+    torch.cuda.synchronize()
+    share = _frame_diff(sm, "teacher_int8: frame 0 against the same frame through the "
+                        "plain versions", frames[0], plain)
+    del plain
+    if share > FRAME_SHARE:
+        fail(f"int8 teacher frame differs from the plain versions' frame in a share "
+             f"{share:.2e} of its rays")
+    # quality: the int8 frame against the bf16 frame of the teacher phase
+    bf = sm.teacher_frame0
+    n_rays = FRAME_H * FRAME_W
+    flip = ((frames[0].acc0 - bf.acc0).abs() > 0.5) | ((frames[0].acc - bf.acc).abs() > 0.5)
+    flip = flip.reshape(n_rays)
+    d2 = ((frames[0].rgb - bf.rgb) ** 2).reshape(n_rays, 3)
+    psnr = -10.0 * math.log10(max(d2.mean().item(), 1e-30))
+    psnr_kept = -10.0 * math.log10(max(d2[~flip].mean().item(), 1e-30))
+    flips = flip.float().mean().item()
+    coarse_flips = ((frames[0].acc0 - bf.acc0).abs() > 0.5).float().mean().item()
+    print(f"teacher_int8: int8 frame 0 against the bf16 frame 0: rgb max "
+          f"{(frames[0].rgb - bf.rgb).abs().max().item():.3g}, PSNR {psnr:.2f} dB; rays whose "
+          f"coarse or fine acc moves by more than 0.5: share {flips:.2e} (coarse alone "
+          f"{coarse_flips:.2e}; at most {INT8_FLIP_SHARE:g}); PSNR over the other rays "
+          f"{psnr_kept:.2f} dB (at least {INT8_PSNR_MIN:g})", flush=True)
+    if not (flips <= INT8_FLIP_SHARE and psnr_kept >= INT8_PSNR_MIN):
+        fail(f"the int8 teacher frame lies {psnr_kept:.2f} dB from the bf16 frame over the "
+             f"rays that keep their acc, and {flips:.2e} of the rays flip")
+    del frames
+
+    # pseudo-data from the int8 teacher: 3 frames through the one-frame pipeline
+    gen = StreamingPseudoGenerator(
+        model, None, cfg8, FRAME_H, FRAME_W, T_FOCAL, batch_rays=4096,
+        buffer_rays=1_000_000, warmup_frames=1, frames_per_batch=1.0,
+        rng=np.random.default_rng(sm.seed))
+    next(gen)
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        o, d, t = next(gen)
+    torch.cuda.synchronize()
+    pseudo_ms = (time.perf_counter() - t0) * 1e3 / 3
+    p_launches = counts()
+    del gen
+    print(f"teacher_int8: StreamingPseudoGenerator with teacher_quant='int8' {pseudo_ms:.3f} "
+          f"ms/frame over 3 frames; launches (int8, bf16 field eval, sampler) {p_launches}",
+          flush=True)
+    if p_launches != (2 * chunks * 3, 0, chunks * 3) or t.shape != (4096, 3) \
+            or not np.isfinite(t).all():
+        fail(f"int8 pseudo frames launched {p_launches} or gave a malformed batch")
+
+    # ---- times: the frame, and the kernel at the main path's chunk
+    frame_ms = cuda_ms(torch, lambda: render_image(
+        model, None, FRAME_H, FRAME_W, T_FOCAL, c2ws[1], cfg), 3, warmup=1)
+    packed, packed32 = sm.int8_teacher["packed"], sm.int8_teacher["packed32"]
+    c, n = sm.chunk, T_CHUNK
+    times, ops, nbytes = {}, {}, {}
+    w_bytes = sum(packed[k].numel() * packed[k].element_size() for k in (
+        "pts0_w", "pts0_b", "body_qw", "skip_x_w", "feat_qw", "views_h_w", "views_d_w",
+        "views_b", "rgb_w", "alpha_w", "out_b", "body_sw", "feat_sw", "body_b_f32",
+        "feat_b_f32"))
+    lib_err = 0.0
+    for k in ("coarse", "fine"):
+        pts, vd = c[k], c["vd"]
+        act = calibrate_nerf_int8(packed32, pts.reshape(-1, 3)[:1024], T_L)
+        lib_err = max(lib_err, (int8_teacher_library_forward(torch, packed, pts, vd, act)
+                                - nerf_forward_int8_ref(packed, pts, vd, T_L, T_LV,
+                                                        act_scales=act)).abs().max().item())
+        torch.cuda.empty_cache()
+        times[k] = {
+            "ms": cuda_ms(torch, lambda: nerf_forward_int8(packed, pts, vd, T_L, T_LV,
+                                                           act_scales=act), 5),
+            "plain_ms": cuda_ms(torch, lambda: nerf_forward_int8_ref(
+                packed, pts, vd, T_L, T_LV, act_scales=act), 1, warmup=1),
+            "library_ms": cuda_ms(torch, lambda: int8_teacher_library_forward(
+                torch, packed, pts, vd, act), 3, warmup=1)}
+        torch.cuda.empty_cache()
+        ops[k] = nerf_int8_ops(packed, n * pts.shape[1], n)
+        nbytes[k] = n * pts.shape[1] * (12 + 16) + n * 12 + w_bytes
+        b = bound(ops[k][1], nbytes[k], int8_ops=ops[k][0])
+        t = times[k]
+        print(f"teacher_int8: nerf_forward_int8 {k} chunk {n} x {pts.shape[1]}: kernel "
+              f"{t['ms']:.3f} ms, bound {b[0]:.3f} ms ({ops[k][0] / 1e12:.3f} T int8 operations "
+              f"at 1979 TOPS + {ops[k][1] / 1e12:.3f} TFLOP at 989 TFLOP/s, {b[1]}) -> "
+              f"{b[0] / t['ms'] * 100:.1f}% of the bound; plain version {t['plain_ms']:.3f} ms "
+              f"(not a yardstick); unfused torch._int_mm path (library_ms) "
+              f"{t['library_ms']:.3f} ms", flush=True)
+    chunk_bound = bound(ops["coarse"][1] + ops["fine"][1], nbytes["coarse"] + nbytes["fine"],
+                        int8_ops=ops["coarse"][0] + ops["fine"][0])
+    n_rays = FRAME_H * FRAME_W
+    f8, f16 = nerf_int8_ops(packed, n_rays * (2 * T_SAMPLES + T_IMPORTANCE), 2 * n_rays)
+    frame_bound = bound(f16, n_rays * (2 * T_SAMPLES + T_IMPORTANCE) * 28, int8_ops=f8)
+    print(f"teacher_int8: render_image(teacher_quant='int8') {frame_ms:.3f} ms/frame "
+          f"({n_rays / frame_ms * 1e3 / 1e6:.3f} M rays/s) against the bf16 frame's "
+          f"{sm.teacher_frame_ms:.3f}; the frame's int8 field evals bound {frame_bound[0]:.3f} "
+          f"ms; the library path is {lib_err:.3g} from the plain version", flush=True)
+    sm.entries["nerf_forward_int8"] = {
+        "name": "nerf_forward_int8", "route": "cuda",
+        "source": "efficient_nerf_tpu_torch/csrc/nerf_int8.cu",
+        "replaces": "efficient_nerf_tpu/ops/pallas/nerf_int8.py:306",
+        "launches": launches[0], "max_abs_err": sm.int8_teacher["err"],
+        # one coarse and one fine launch of a 32,768-ray chunk
+        "ms": times["coarse"]["ms"] + times["fine"]["ms"],
+        "plain_ms": times["coarse"]["plain_ms"] + times["fine"]["plain_ms"],
+        "bound_ms": chunk_bound[0], "bound_by": chunk_bound[1],
+        "library_ms": times["coarse"]["library_ms"] + times["fine"]["library_ms"]}
+
+
+FRAME_FIELDS = ("rgb", "disp", "acc", "depth", "rgb0", "disp0", "acc0", "z_std")
+
+
+def phase_frame_kernel(sm: Smoke) -> None:
+    from efficient_nerf_tpu_torch.ops import nerf_frame as fr
+    from efficient_nerf_tpu_torch.ops.nerf_forward import nerf_forward_flops
+    from efficient_nerf_tpu_torch.ops.sample_pdf import sample_pdf_det_fused
+
+    torch, dev, packed = sm.torch, sm.dev, sm.teacher_packed
+    o, d, vd = _teacher_rays(sm, sm.poses[0])
+    _, bins, u = fr._consts(NEAR, FAR, T_SAMPLES, T_IMPORTANCE, False, dev)
+    tol = dict(FRAME_TOL, rgb0=FRAME_TOL["rgb"], acc0=FRAME_TOL["acc"])
+    pick = torch.randint(0, o.shape[0], (37,), generator=sm.gen, device=dev)
+    worst = 0.0
+    for label, idx in (("a ragged 37 rays", pick), (f"a {T_CHUNK}-ray chunk", slice(0, T_CHUNK))):
+        ro, rd, rv = o[idx].contiguous(), d[idx].contiguous(), vd[idx].contiguous()
+        n = ro.shape[0]
+        args = (packed, None, ro, rd, rv, NEAR, FAR, T_SAMPLES, T_IMPORTANCE, T_L, T_LV)
+        got = dict(zip(FRAME_FIELDS + ("w", "zf"),
+                       fr.nerf_render_rays_fused(*args, white_bkgd=True, taps=True)))
+        want = dict(zip(FRAME_FIELDS + ("w", "zf"),
+                        fr.nerf_render_rays_fused_ref(*args, white_bkgd=True, taps=True)))
+        # the fine depths: kernel 6's walk on the kernel's own coarse weights
+        zf6 = sample_pdf_det_fused(bins.expand(n, -1).contiguous(),
+                                   got["w"][:, 1:-1].contiguous(), T_IMPORTANCE, levels=u)
+        torch.cuda.synchronize()
+        n_zdiff = int((zf6 != got["zf"]).sum().item())
+        if not all(torch.isfinite(got[k]).all() for k in ("rgb", "acc", "depth", "rgb0",
+                                                          "acc0", "z_std")):
+            fail("whole-ray kernel output is not finite")
+        beyond = torch.zeros(n, dtype=torch.bool, device=dev)
+        errs = {}
+        for k in FRAME_FIELDS:
+            g, w = got[k].reshape(n, -1), want[k].reshape(n, -1)
+            nan = torch.isnan(g) | torch.isnan(w)
+            e = torch.where(nan, torch.zeros_like(g), (g - w).abs()).amax(-1)
+            errs[k] = e.max().item()
+            beyond |= (torch.isnan(g) != torch.isnan(w)).any(-1)
+            if k in tol:
+                beyond |= e > tol[k]
+        share = beyond.float().mean().item()
+        del got, want, zf6
+        torch.cuda.empty_cache()
+        print(f"frame_kernel: nerf_render_rays_fused W{T_WIDTH} D{T_DEPTH} {T_SAMPLES} + "
+              f"{T_IMPORTANCE} samples, {label}: max |kernel - plain| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f"; {int(beyond.sum().item())} rays beyond {json.dumps(tol)} or with another "
+              f"NaN mask (share {share:.2e}, at most {FRAME_SHARE:g}); fine depths against "
+              f"sample_pdf_det_fused on the kernel's own weights: {n_zdiff} of "
+              f"{n * T_IMPORTANCE} differ (bit for bit)", flush=True)
+        if n_zdiff or share > FRAME_SHARE:
+            fail(f"whole-ray kernel differs from its plain version ({share:.2e} of the rays) "
+                 f"or its fine depths from the sampler's ({n_zdiff})")
+        worst = max(worst, errs["rgb"], errs["acc"], errs["rgb0"], errs["acc0"])
+
+    # ---- time at the main path's chunk beside the bound and the plain version
+    ro, rd, rv = (x[:T_CHUNK].contiguous() for x in (o, d, vd))
+    args = (packed, None, ro, rd, rv, NEAR, FAR, T_SAMPLES, T_IMPORTANCE, T_L, T_LV)
+    ms = cuda_ms(torch, lambda: fr.nerf_render_rays_fused(*args, white_bkgd=True), 5)
+    plain_ms = cuda_ms(torch, lambda: fr.nerf_render_rays_fused_ref(*args, white_bkgd=True),
+                       1, warmup=1)
+    torch.cuda.empty_cache()
+    n, S_f = T_CHUNK, T_SAMPLES + T_IMPORTANCE
+    flops = nerf_forward_flops(packed, n * T_SAMPLES, n) + nerf_forward_flops(packed, n * S_f, n)
+    w_bytes = sum(packed[k].numel() * packed[k].element_size() for k in packed
+                  if torch.is_tensor(packed[k]))
+    # o, d and the embedded directions in; the 12 floats of the fields out
+    b = bound(flops, n * (6 + 3 * (2 * T_LV + 1)) * 4 + n * 12 * 4 + w_bytes)
+    print(f"frame_kernel: nerf_render_rays_fused at a {n}-ray chunk: {ms:.3f} ms, bound "
+          f"{b[0]:.3f} ms ({flops / 1e12:.3f} TFLOP, {b[1]}) -> {b[0] / ms * 100:.1f}% of the "
+          f"bound; plain version {plain_ms:.3f} ms (not a yardstick); no single torch call "
+          f"computes it", flush=True)
+    sm.entries["nerf_render_rays_fused"] = {
+        "name": "nerf_render_rays_fused", "route": "cuda",
+        "source": "efficient_nerf_tpu_torch/csrc/nerf_frame.cu",
+        "replaces": "efficient_nerf_tpu/ops/pallas/nerf_frame.py:479",
+        "launches": 0, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
+
+def phase_teacher_frame(sm: Smoke) -> None:
+    import dataclasses
+
+    import numpy as np
+
+    from efficient_nerf_tpu_torch.ops.nerf_forward import nerf_forward_fused
+    from efficient_nerf_tpu_torch.ops.nerf_frame import nerf_render_rays_fused
+    from efficient_nerf_tpu_torch.ops.sample_pdf import sample_pdf_det_fused
+    from efficient_nerf_tpu_torch.ops.trig import fast_sincos_cuda
+    from efficient_nerf_tpu_torch.render import render_image
+
+    torch, model = sm.torch, sm.teacher
+    cfg = dataclasses.replace(teacher_config(), frame_fused=True).eval_mode()
+    c2ws = [np.asarray(p[:3, :4]) for p in sm.poses]
+    chunks = -(-FRAME_H * FRAME_W // T_CHUNK)
+    counters = (nerf_render_rays_fused, nerf_forward_fused, sample_pdf_det_fused)
+    render_image(model, None, FRAME_H, FRAME_W, T_FOCAL, c2ws[0], cfg)   # warm-up
+    torch.cuda.synchronize()
+    for f in counters + (fast_sincos_cuda,):
+        f.launches = 0
+    # as a user calls it: numpy poses, the default device (CUDA)
+    frames = [render_image(model, None, FRAME_H, FRAME_W, T_FOCAL, c2w, cfg) for c2w in c2ws]
+    torch.cuda.synchronize()
+    launches = tuple(f.launches for f in counters)
+    print(f"teacher_frame: 3 frames of {FRAME_H}x{FRAME_W} with frame_fused ({chunks} chunks "
+          f"each): nerf_render_rays_fused launches {launches[0]}, nerf_forward_fused "
+          f"{launches[1]}, sample_pdf_det_fused {launches[2]}", flush=True)
+    if launches != (chunks * 3, 0, 0):
+        fail(f"expected one whole-ray launch a chunk and no other teacher kernel, counted "
+             f"{launches} over 3 frames")
+    for f in frames:
+        if f.rgb.shape != (FRAME_H, FRAME_W, 3) or not torch.isfinite(f.rgb).all() \
+                or f.rgb.min() < 0 or f.rgb.max() > 1 + 1e-6 \
+                or not torch.isfinite(f.depth).all() or not torch.isfinite(f.acc).all():
+            fail("whole-ray frame has the wrong shape, values that are not finite or rgb "
+                 "outside [0, 1]")
+    share = _frame_diff(sm, "teacher_frame: frame 0 against the composed kernel path's "
+                        "frame 0 (teacher phase)", frames[0], sm.teacher_frame0)
+    if share > FRAME_SHARE:
+        fail(f"the whole-ray frame differs from the composed path's in a share {share:.2e} "
+             f"of its rays")
+    del frames
+    frame_ms = cuda_ms(torch, lambda: render_image(
+        model, None, FRAME_H, FRAME_W, T_FOCAL, c2ws[1], cfg), 3, warmup=1)
+    print(f"teacher_frame: render_image(frame_fused=True) {frame_ms:.3f} ms/frame "
+          f"({FRAME_H * FRAME_W / frame_ms * 1e3 / 1e6:.3f} M rays/s) against the composed "
+          f"kernel path's {sm.teacher_frame_ms:.3f} ms; the frame's field evals bound "
+          f"{sm.teacher_frame_bound:.3f} ms", flush=True)
+    sm.entries["nerf_render_rays_fused"]["launches"] = launches[0]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1325,7 +1786,9 @@ def main() -> None:
     sm = Smoke(args)
     for phase in (phase_build, phase_trig, phase_kernel, phase_main,
                   phase_kernel_int8, phase_main_int8, phase_train_kernel, phase_train,
-                  phase_teacher_kernel, phase_teacher, phase_pseudo):
+                  phase_teacher_kernel, phase_teacher, phase_pseudo,
+                  phase_teacher_int8_kernel, phase_teacher_int8, phase_frame_kernel,
+                  phase_teacher_frame):
         t0 = time.perf_counter()
         phase(sm)
         print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1333,10 +1796,12 @@ def main() -> None:
     sm.entries["fast_sincos"]["launches"] = sum(
         sm.entries[k]["launches"] for k in ("r2l_forward_fused", "r2l_forward_int8",
                                             "r2l_train_fwd", "r2l_train_bwd",
-                                            "nerf_forward_fused"))
+                                            "nerf_forward_fused", "nerf_forward_int8",
+                                            "nerf_render_rays_fused"))
     print(json.dumps({"kernels": [sm.entries[k] for k in (
         "r2l_forward_fused", "fast_sincos", "r2l_forward_int8", "r2l_train_fwd",
-        "r2l_train_bwd", "nerf_forward_fused", "sample_pdf_det_fused")]}))
+        "r2l_train_bwd", "nerf_forward_fused", "sample_pdf_det_fused", "nerf_forward_int8",
+        "nerf_render_rays_fused")]}))
     print(sm.gpu)  # the card, as nvidia-smi names it and its power limit
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": sm.torch.cuda.get_device_name(0),

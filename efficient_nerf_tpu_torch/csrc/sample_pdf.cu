@@ -12,12 +12,8 @@
 //     t = (u - cdf_lo) / denom, val = b_lo + t (b_hi - b_lo);
 //   u >= cdf_last takes bins[C-1], and the top level u >= 1 is pinned to it.
 //
-// The Pallas kernel tests every interval against every level and sums the
-// masked values. The intervals [cdf_lo, cdf_hi) are disjoint and in order,
-// so at most one matches a level, and over the sorted levels (u = linspace)
-// a walk of two pointers finds the same interval: O(C + n) a ray instead of
-// O(C n), and the same value bit for bit (every operation is the
-// round-to-nearest intrinsic the plain version's torch ops round as).
+// One thread walks one ray (pdf_walk of sample_pdf.cuh, which the whole-ray
+// kernel nerf_frame.cu also runs, so that the two agree bit for bit).
 //
 // Bound: 4 (2C - 1 + n) bytes a ray in and out (about 1 KB at C 63, n 128,
 // the fine pass of the lego config): bound by bytes. One thread walks one ray;
@@ -26,7 +22,11 @@
 // threads of a warp, one row each, hit distinct banks).
 #include <cuda_runtime.h>
 
+#include "sample_pdf.cuh"
+
 namespace {
+
+using enerf::pdf_walk;
 
 constexpr int TR = 32;  // rays (threads) per block
 
@@ -54,31 +54,7 @@ __global__ void __launch_bounds__(TR) sample_pdf_det_kernel(
   for (int e = tid; e < n; e += TR) su[e] = u[e];
   __syncthreads();
 
-  if (tid < rows) {
-    const float* b = sb + tid * C;
-    const float* w = sw + tid * C;
-    float* o = so + tid * (n + 1);
-    const float top = b[C - 1];
-    float total = 0.0f;
-    for (int i = 0; i < C - 1; ++i) total = __fadd_rn(total, __fadd_rn(w[i], 1e-5f));
-    float cdf_lo = 0.0f;
-    int j = 0;
-    for (int i = 0; i < C - 1; ++i) {
-      const float pdf = __fdiv_rn(__fadd_rn(w[i], 1e-5f), total);
-      const float cdf_hi = __fadd_rn(cdf_lo, pdf);
-      float denom = __fsub_rn(cdf_hi, cdf_lo);
-      if (denom < 1e-5f) denom = 1.0f;
-      const float b_lo = b[i], span = __fsub_rn(b[i + 1], b_lo);
-      for (; j < n && su[j] < cdf_hi; ++j) {
-        const float uj = su[j];
-        float v = 0.0f;  // a level below the interval matches none
-        if (cdf_lo <= uj) v = __fadd_rn(b_lo, __fmul_rn(__fdiv_rn(__fsub_rn(uj, cdf_lo), denom), span));
-        o[j] = uj >= 1.0f ? top : v;
-      }
-      cdf_lo = cdf_hi;
-    }
-    for (; j < n; ++j) o[j] = top;  // u >= cdf_last: the tail (and u >= 1)
-  }
+  if (tid < rows) pdf_walk(sb + tid * C, sw + tid * C, C, su, n, so + tid * (n + 1));
   __syncthreads();
   for (int e = tid; e < rows * n; e += TR) out[ray0 * n + e] = so[(e / n) * (n + 1) + e % n];
 }

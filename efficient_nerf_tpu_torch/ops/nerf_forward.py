@@ -120,6 +120,13 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _plain_keys(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The state_dict's tensors, detached, under keys without a DataParallel
+    `module.` prefix."""
+    return {k[len("module."):] if k.startswith("module.") else k: v.detach()
+            for k, v in state_dict.items()}
+
+
 def pack_nerf_weights(state_dict: Mapping[str, torch.Tensor], skip: int = 4,
                       dtype: torch.dtype = torch.bfloat16) -> Dict[str, object]:
     """NeRFMLP state_dict (reference key layout, viewdir branch) -> the
@@ -132,8 +139,7 @@ def pack_nerf_weights(state_dict: Mapping[str, torch.Tensor], skip: int = 4,
     [W], views_b [W/2] in `dtype`; out_b [4] f32 (rgb, then alpha). Also
     depth, skip, width, half, in_ch, in_ch_views (ev) and in_pad.
     """
-    sd = {k[len("module."):] if k.startswith("module.") else k: v.detach()
-          for k, v in state_dict.items()}
+    sd = _plain_keys(state_dict)
     if "views_linears.0.weight" not in sd:
         raise ValueError("pack_nerf_weights: the fused field eval covers the "
                          "viewdir teacher (no 'views_linears.0' in state_dict)")
@@ -209,6 +215,34 @@ def _as_points(pts: torch.Tensor, cm: bool):
     return (pts.shape[1], pts.shape[2]) if cm else (pts.shape[0], pts.shape[1])
 
 
+def _check_kernel_operands(packed, dev: torch.device, who: str) -> None:
+    """Raises unless `packed` holds what the bf16 field kernels take
+    (`pack_nerf_weights` with dtype bf16) on `dev`."""
+    for name in _OPERANDS:
+        t = packed[name]
+        if t.dtype != torch.bfloat16 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{who}: packed {name} must be a contiguous bfloat16 tensor "
+                             f"on {dev} (pack with dtype=torch.bfloat16)")
+    ob = packed["out_b"]
+    if ob.dtype != torch.float32 or ob.device != dev or ob.shape != (4,):
+        raise ValueError(f"{who}: packed out_b must be float32 [4] on {dev}")
+    W, half, depth = packed["width"], packed["half"], packed["depth"]
+    ev, in_pad = packed["in_ch_views"], packed["in_pad"]
+    if W % WIDTH_ALIGN or W > MAX_WIDTH or half * 2 != W or in_pad % IN_ALIGN \
+            or depth > MAX_DEPTH \
+            or packed["pts0_w"].shape != (W, in_pad) \
+            or packed["skip_x_w"].shape != (W, in_pad) \
+            or packed["body_w"].shape != (depth - 1, W, W) \
+            or packed["body_b"].shape != (depth - 1, W) \
+            or packed["views_h_w"].shape != (half, W) \
+            or packed["views_d_w"].shape != (half, ev) \
+            or packed["rgb_w"].shape != (3, half) \
+            or packed["alpha_w"].shape != (W,):
+        raise ValueError(f"{who}: width {W} must be a multiple of {WIDTH_ALIGN} up to "
+                         f"{MAX_WIDTH} with a view layer of W/2, depth at most {MAX_DEPTH}, "
+                         f"with the shapes pack_nerf_weights gives")
+
+
 def nerf_forward_fused_ref(packed, pts: torch.Tensor, viewdirs: torch.Tensor,
                            L: int = 10, L_views: int = 4, *,
                            cm: bool = False) -> torch.Tensor:
@@ -273,31 +307,9 @@ def nerf_forward_fused(packed, pts: torch.Tensor, viewdirs: torch.Tensor,
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"nerf_forward_fused: {name} must be a contiguous "
                              f"float32 tensor on {dev}")
-    for name in _OPERANDS:
-        t = packed[name]
-        if t.dtype != torch.bfloat16 or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"nerf_forward_fused: packed {name} must be a "
-                             f"contiguous bfloat16 tensor on {dev} (pack with "
-                             f"dtype=torch.bfloat16)")
-    ob = packed["out_b"]
-    if ob.dtype != torch.float32 or ob.device != dev or ob.shape != (4,):
-        raise ValueError(f"nerf_forward_fused: packed out_b must be float32 [4] on {dev}")
-    W, half, depth = packed["width"], packed["half"], packed["depth"]
+    _check_kernel_operands(packed, dev, "nerf_forward_fused")
+    W, depth, ob = packed["width"], packed["depth"], packed["out_b"]
     ic, ev, in_pad = packed["in_ch"], packed["in_ch_views"], packed["in_pad"]
-    if W % WIDTH_ALIGN or W > MAX_WIDTH or half * 2 != W or in_pad % IN_ALIGN \
-            or depth > MAX_DEPTH \
-            or packed["pts0_w"].shape != (W, in_pad) \
-            or packed["skip_x_w"].shape != (W, in_pad) \
-            or packed["body_w"].shape != (depth - 1, W, W) \
-            or packed["body_b"].shape != (depth - 1, W) \
-            or packed["views_h_w"].shape != (half, W) \
-            or packed["views_d_w"].shape != (half, ev) \
-            or packed["rgb_w"].shape != (3, half) \
-            or packed["alpha_w"].shape != (W,):
-        raise ValueError(f"nerf_forward_fused: width {W} must be a multiple of "
-                         f"{WIDTH_ALIGN} up to {MAX_WIDTH} with a view layer of "
-                         f"W/2, depth at most {MAX_DEPTH}, with the shapes "
-                         f"pack_nerf_weights gives")
     lib = load_kernels("nerf_forward", _SIGNATURES)
     smem = lib.nerf_forward_smem_bytes(in_pad, W, S)
     if smem > MAX_SMEM:

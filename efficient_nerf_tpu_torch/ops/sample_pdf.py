@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -49,11 +50,12 @@ def _levels(n: int, device: torch.device) -> torch.Tensor:
 
 
 def sample_pdf_det_fused_ref(bins: torch.Tensor, weights: torch.Tensor,
-                             n_samples: int) -> torch.Tensor:
+                             n_samples: int, levels: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """Plain torch version of the kernel, on the inputs' device."""
     bins = bins.float()
     w = weights.float() + 1e-5
-    u = _levels(n_samples, bins.device)
+    u = _levels(n_samples, bins.device) if levels is None else levels
     total = torch.zeros_like(w[:, 0])
     for i in range(w.shape[1]):
         total = total + w[:, i]
@@ -76,9 +78,12 @@ def sample_pdf_det_fused_ref(bins: torch.Tensor, weights: torch.Tensor,
 
 
 def sample_pdf_det_fused(bins: torch.Tensor, weights: torch.Tensor,
-                         n_samples: int) -> torch.Tensor:
+                         n_samples: int, levels: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Deterministic inverse-CDF sampling: bins [N, C], weights [N, C-1]
-    (f32) -> sorted samples [N, n_samples] (f32).
+    (f32) -> sorted samples [N, n_samples] (f32). `levels` [n_samples]
+    (sorted, f32, on the inputs' device) replaces the linspace levels: the
+    whole-ray kernel's own levels (ops/nerf_frame.py).
 
     On CUDA tensors this launches csrc/sample_pdf.cu or raises; it never
     falls back. CPU tensors run the plain version `sample_pdf_det_fused_ref`.
@@ -88,10 +93,14 @@ def sample_pdf_det_fused(bins: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"sample_pdf_det_fused: bins [N, C] and weights "
                          f"[N, C-1] with C >= 2, got {tuple(bins.shape)} and "
                          f"{tuple(weights.shape)}")
+    if levels is not None and levels.shape != (n_samples,):
+        raise ValueError(f"sample_pdf_det_fused: levels must be [{n_samples}], got "
+                         f"{tuple(levels.shape)}")
     if not bins.is_cuda:
-        return sample_pdf_det_fused_ref(bins, weights, n_samples)
+        return sample_pdf_det_fused_ref(bins, weights, n_samples, levels)
     dev = bins.device
-    for name, t in (("bins", bins), ("weights", weights)):
+    u = _levels(n_samples, dev) if levels is None else levels
+    for name, t in (("bins", bins), ("weights", weights), ("levels", u)):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"sample_pdf_det_fused: {name} must be a "
                              f"contiguous float32 tensor on {dev}")
@@ -104,7 +113,6 @@ def sample_pdf_det_fused(bins: torch.Tensor, weights: torch.Tensor,
     out = torch.empty((N, n_samples), dtype=torch.float32, device=dev)
     if N == 0:
         return out
-    u = _levels(n_samples, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.sample_pdf_det_launch(bins.data_ptr(), weights.data_ptr(),
                                     u.data_ptr(), out.data_ptr(), N, C,

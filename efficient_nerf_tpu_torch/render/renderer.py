@@ -11,18 +11,24 @@ branch, one input skip, embed widths that match the config) with
 `cfg.fused_teacher` (on in `eval_mode()` unless exact embeds are asked for)
 evaluates the field with `ops.nerf_forward_fused`, and, for deterministic
 levels (no `u`, no perturb), draws the fine depths with
-`ops.sample_pdf_det_fused`. The device then picks: a CUDA tensor launches
+`ops.sample_pdf_det_fused`. `teacher_quant="int8"` evaluates every field
+with `ops.nerf_forward_int8` instead, whether or not `fused_teacher` is on,
+after calibrating static activation scales on the first 1024 points of the
+call (`ops.calibrate_nerf_int8`). `frame_fused` with the deterministic eval
+profile (no int8, scalar config near/far, no hooks, 16 or more samples a
+pass, multiples of 8) renders the whole ray batch with
+`ops.nerf_render_rays_fused`. The device then picks: a CUDA tensor launches
 the kernel, a CPU tensor runs its plain version. A deliberate divergence:
 the JAX package takes its XLA path off the TPU, where its Pallas kernels are
-unavailable; here the CPU runs the kernels' plain versions, so that the
-tests hold the eval path that runs on the card against the JAX package's
-fused path (its Pallas kernels in interpret mode). Everything else (the
-training profile, `u`, perturbed sampling, other models) takes the unfused
-path: `nerf_embed` -> `NeRFMLP` -> `raw2outputs`, `core.sampling.sample_pdf`.
+unavailable (for int8 its jnp twin, which is the port's plain version too);
+here the CPU runs the kernels' plain versions, so that the tests hold the
+eval path that runs on the card against the JAX package's fused path (its
+Pallas kernels in interpret mode). Everything else (the training profile,
+`u`, perturbed sampling, other models) takes the unfused path: `nerf_embed`
+-> `NeRFMLP` -> `raw2outputs`, `core.sampling.sample_pdf`.
 
-The card's kernel runs bf16 weights: a teacher on the fused path there needs
-`dtype=torch.bfloat16`. The int8 teacher (`teacher_quant="int8"`) and the
-whole-ray kernel (`frame_fused`) are not ported and raise.
+The card's kernels run bf16 weights: a teacher on a kernel path there needs
+`dtype=torch.bfloat16`.
 """
 from __future__ import annotations
 
@@ -36,7 +42,9 @@ from ..core.rays import get_rays, ndc_rays
 from ..core.sampling import linear_zvals, merge_sorted, sample_pdf, stratify_zvals
 from ..core.volume import raw2outputs
 from ..device import DeviceLike, resolve_device
-from ..ops import nerf_forward_fused, pack_nerf_weights, sample_pdf_det_fused
+from ..ops import (calibrate_nerf_int8, nerf_forward_fused, nerf_forward_int8,
+                   nerf_render_rays_fused, pack_nerf_weights, pack_nerf_weights_int8,
+                   sample_pdf_det_fused)
 from ._pack_cache import param_version_key
 
 __all__ = ["RenderConfig", "RenderResult", "render_rays", "render_image",
@@ -64,11 +72,12 @@ class RenderConfig:
     fused_teacher: bool = False
     # double-angle-recurrence encoding on the unfused path
     fast_embed: bool = True
-    # '' | 'int8': the W8A8 teacher, not ported (raises)
+    # '' | 'int8': the W8A8 teacher field eval (eval only)
     teacher_quant: str = ""
-    # the whole-ray teacher kernel, not ported (raises); its two tiling
-    # options below are kept for the JAX package's field set, and nothing
-    # reads them until that kernel is ported
+    # the whole-ray teacher kernel (deterministic eval only); its two tiling
+    # options below tune the Pallas kernel and are kept for the JAX
+    # package's field set: the CUDA kernel picks its own rays a block, and
+    # nothing reads them
     frame_fused: bool = False
     frame_tile_r: int = 256
     frame_eval_chunks: int = 4
@@ -94,18 +103,8 @@ class RenderResult(NamedTuple):
 
 
 def _check_modes(cfg: RenderConfig) -> None:
-    if cfg.teacher_quant == "int8":
-        raise NotImplementedError(
-            "teacher_quant='int8' needs the W8A8 teacher kernel "
-            "(efficient_nerf_tpu/ops/pallas/nerf_int8.py::nerf_forward_int8, "
-            "kernel 7), which is not ported yet")
-    if cfg.teacher_quant:
+    if cfg.teacher_quant not in ("", "int8"):
         raise ValueError(f"unknown teacher_quant {cfg.teacher_quant!r}")
-    if cfg.frame_fused:
-        raise NotImplementedError(
-            "frame_fused=True needs the whole-ray teacher kernel "
-            "(efficient_nerf_tpu/ops/pallas/nerf_frame.py::"
-            "nerf_render_rays_fused, kernel 8), which is not ported yet")
 
 
 def _teacher_profile_ok(model, cfg: RenderConfig) -> bool:
@@ -125,17 +124,83 @@ def _nerf_profile_ok(model, cfg: RenderConfig) -> bool:
     return cfg.fused_teacher and _teacher_profile_ok(model, cfg)
 
 
-def _packed(model) -> dict:
-    """The model's kernel operands in its compute dtype, packed once and
-    reused while no parameter changes (`param_version_key`)."""
+def _cached(model, attr: str, make):
+    """make() of the model's weights, kept on the model and made again when a
+    parameter changes (`param_version_key`)."""
     key = (model.skips[0], model.dtype) + param_version_key(model)
-    cached = getattr(model, "_nerf_pack", None)
+    cached = getattr(model, attr, None)
     if cached is None or cached[0] != key:
         with torch.no_grad():
-            cached = (key, pack_nerf_weights(model.state_dict(), skip=model.skips[0],
-                                             dtype=model.dtype))
-        model._nerf_pack = cached
+            cached = (key, make())
+        setattr(model, attr, cached)
     return cached[1]
+
+
+def _packed(model) -> dict:
+    """The model's kernel operands in its compute dtype."""
+    return _cached(model, "_nerf_pack", lambda: pack_nerf_weights(
+        model.state_dict(), skip=model.skips[0], dtype=model.dtype))
+
+
+def _packed_int8(model):
+    """(the int8 kernel's operands in the model's compute dtype, an f32 pack
+    that the per-call calibration reads)."""
+    def make():
+        sd, skip = model.state_dict(), model.skips[0]
+        return (pack_nerf_weights_int8(sd, skip, model.dtype),
+                pack_nerf_weights(sd, skip, torch.float32))
+    return _cached(model, "_nerf_pack_int8", make)
+
+
+def _frame_fused_eligible(model, cfg: RenderConfig, near, far, t_rand, u, noise) -> bool:
+    """The whole-ray kernel's profile (the JAX package's
+    `_frame_fused_eligible`, :141-155, without its TPU gate): deterministic
+    eval with the config's scalar near/far and no determinism hooks."""
+    return (cfg.frame_fused and not cfg.teacher_quant
+            and _nerf_profile_ok(model, cfg)
+            and cfg.n_importance >= 16 and cfg.n_samples >= 16
+            and cfg.n_samples % 8 == 0 and cfg.n_importance % 8 == 0
+            and not cfg.perturb and cfg.raw_noise_std == 0.0
+            and near is None and far is None
+            and t_rand is None and u is None and noise is None)
+
+
+def _needs_bf16(models, path: str) -> None:
+    """The card's kernels take bf16 weights; another compute dtype raises."""
+    if any(m.dtype != torch.bfloat16 for m in models):
+        raise ValueError(f"the teacher's {path} runs bf16 weights on the card: make the "
+                         f"model with dtype=torch.bfloat16")
+
+
+def _render_frame(model, model_fine, rays_o, rays_d, viewdirs,
+                  cfg: RenderConfig) -> RenderResult:
+    """render_rays through the whole-ray kernel."""
+    if model_fine is not None and not _teacher_profile_ok(model_fine, cfg):
+        raise ValueError("nerf_render_rays_fused requires matching coarse/fine "
+                         "architectures; the fine model is not the teacher profile")
+    if rays_o.is_cuda:
+        _needs_bf16((model,) if model_fine is None else (model, model_fine),
+                    "whole-ray render (frame_fused)")
+    out = nerf_render_rays_fused(
+        _packed(model), None if model_fine is None else _packed(model_fine),
+        rays_o.contiguous(), rays_d.contiguous(), viewdirs.contiguous(), cfg.near,
+        cfg.far, cfg.n_samples, cfg.n_importance, cfg.multires, cfg.multires_views,
+        white_bkgd=cfg.white_bkgd, lindisp=cfg.lindisp)
+    return RenderResult(*out)
+
+
+def _query_int8(model, pts, viewdirs, cfg: RenderConfig) -> torch.Tensor:
+    """teacher_quant='int8' (the JAX package's `_query_int8`, :158-180):
+    static scales calibrated on the first 1024 points of this very call, in
+    ray-major order, then the W8A8 field eval. pts [N, S, 3] -> raw."""
+    if not _teacher_profile_ok(model, cfg):
+        raise ValueError("teacher_quant=int8 requires the standard viewdir teacher profile")
+    if pts.is_cuda:
+        _needs_bf16((model,), "int8 field eval (teacher_quant='int8')")
+    packed, packed_f32 = _packed_int8(model)
+    scales = calibrate_nerf_int8(packed_f32, pts.reshape(-1, 3)[:1024], cfg.multires)
+    return nerf_forward_int8(packed, pts.contiguous(), viewdirs.contiguous(), cfg.multires,
+                             cfg.multires_views, act_scales=scales)
 
 
 def _query(model, pts, viewdirs, cfg: RenderConfig) -> torch.Tensor:
@@ -153,13 +218,13 @@ def _field(model, rays_o, rays_d, z_vals, viewdirs, cfg: RenderConfig,
            fused: bool) -> torch.Tensor:
     """raw [N, S, 4] at the depths z_vals [N, S] along the rays."""
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
+    if cfg.teacher_quant:
+        return _query_int8(model, pts, viewdirs, cfg)
     if not fused:
         return _query(model, pts, viewdirs, cfg)
-    if pts.is_cuda and model.dtype != torch.bfloat16:
-        raise ValueError(
-            "the teacher's fused field eval runs bf16 weights on the card: make "
-            "the model with dtype=torch.bfloat16, or render with "
-            "fused_teacher=False and fast_embed=False")
+    if pts.is_cuda:
+        _needs_bf16((model,), "fused field eval (fused_teacher=False and fast_embed=False "
+                    "take the unfused path)")
     return nerf_forward_fused(_packed(model), pts.contiguous(),
                               viewdirs.contiguous(), cfg.multires,
                               cfg.multires_views)
@@ -179,6 +244,8 @@ def render_rays(model, model_fine, rays_o: torch.Tensor, rays_d: torch.Tensor,
     draws its own from `generator` when raw_noise_std > 0).
     """
     _check_modes(cfg)
+    if _frame_fused_eligible(model, cfg, near, far, t_rand, u, noise):
+        return _render_frame(model, model_fine, rays_o, rays_d, viewdirs, cfg)
     n_rays = rays_o.shape[0]
     dev = rays_o.device
     near = cfg.near if near is None else near

@@ -37,6 +37,9 @@ DEPTH, WIDTH, FOCAL = 8, 64, 9.0
 # shard measured).
 TOL = {"rays": 4e-7, "rgb": 2e-3, "depth": 1e-2}
 SHARE = 0.01
+# the int8 teacher: one int8 level that an ulp of the jitted JAX scales moves
+# (tests/test_torch_renderer.py, INT8_TOL)
+INT8_TOL = {"rays": 4e-7, "rgb": 1e-2, "depth": 5e-2}
 CFG = dict(n_samples=16, n_importance=16, white_bkgd=True, chunk=64)
 
 
@@ -62,12 +65,12 @@ def models():
     return jm, params, NeRFMLP(depth=DEPTH, width=WIDTH).load_jax_params(params)
 
 
-def _compare_rows(got, want):
+def _compare_rows(got, want, tol=TOL):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape
-    np.testing.assert_allclose(got[:, :6], want[:, :6], atol=TOL["rays"], rtol=0)
+    np.testing.assert_allclose(got[:, :6], want[:, :6], atol=tol["rays"], rtol=0)
     diff = np.abs(got - want)
-    beyond = (diff[:, 6:9] > TOL["rgb"]).any(-1) | (diff[:, 9:] > TOL["depth"]).any(-1)
+    beyond = (diff[:, 6:9] > tol["rgb"]).any(-1) | (diff[:, 9:] > tol["depth"]).any(-1)
     assert beyond.mean() <= SHARE, (beyond.sum(), diff[:, 6:].max())
 
 
@@ -84,6 +87,25 @@ def test_frame_rows_match_jax(learn_depth, models, jax_fused):
                                        learn_depth, device="cpu")(pose[:3, :4], fs)
     assert got.shape == (64, {"": 9, "depth": 10, "surface": 12}[learn_depth])
     _compare_rows(got.numpy(), want)
+
+
+def test_int8_frame_rows_match_jax(models):
+    """teacher_quant='int8' reaches the renderer through cfg.eval_mode(): the
+    rows against the JAX package's int8 rows (off the TPU its jnp twin, so
+    no monkeypatch), and away from the f32 teacher's rows."""
+    jm, params, tm = models
+    rng = np.random.default_rng(3)
+    pose = random_spherical_pose(rng)
+    fs = 1.0 + rng.random()
+    cfg = dict(CFG, teacher_quant="int8")
+    want = JP.make_pseudo_frame_renderer(jm, JaxRenderConfig(**cfg), 8, 8, FOCAL, "depth")(
+        params, params, jnp.asarray(pose[:3, :4]), jnp.float32(fs), None)
+    got = P.make_pseudo_frame_renderer(tm, None, RenderConfig(**cfg), 8, 8, FOCAL, "depth",
+                                       device="cpu")(pose[:3, :4], fs)
+    _compare_rows(got.numpy(), want, INT8_TOL)
+    f32 = P.make_pseudo_frame_renderer(tm, None, RenderConfig(**CFG), 8, 8, FOCAL, "depth",
+                                       device="cpu")(pose[:3, :4], fs)
+    assert (f32[:, 6:9] - got[:, 6:9]).abs().max() > TOL["rgb"]
 
 
 def test_shuffle_buffer_matches_jax():
