@@ -29,14 +29,18 @@ calibrate_r2l_int8 on the frame's first 1024 rays) on the rays of one
   ring_64x4    64-byte weight chunks in 4 stages instead of 128 in 2: a
                deeper ring, a barrier per chunk
 
-train_bwd: the training backward of csrc/r2l_train.cu at 98,304 rays (the
-training step's), need_dx off:
+train_bwd: the training backward's two passes at 98,304 rays (the training
+step's), need_dx off, the global residual on. Pass 1, csrc/r2l_train.cu:
   shipped          the kernel as the port runs it
-  float4_atomics   lanes pair up for one float4 atomic per four columns,
-                   instead of one float2 per column pair
-  no_atomics       the weight-gradient products without their atomics (a
-                   store that never fires keeps them alive)
-  no_weight_grads  neither the weight-gradient products nor their atomics
+  no_stores        no stores of pass 2's operands (the tiles' copy-out to
+                   device memory skipped): the activation chain alone
+and pass 2, csrc/r2l_wgrad.cu, on the shipped pass 1's scratch:
+  wgrad_shipped    the kernel as the port runs it (TMA boxes, mbarriers)
+  wgrad_cp_async   a cp.async ring into padded rows that every warp loads, a
+                   block barrier a stage, instead of the producer's TMA boxes
+  wgrad_loads_only no products: the TMA copies and the barriers alone
+  wgrad_products_only  no copies (each stage's barrier completes on the
+                   producer's arrival alone): the products on stale tiles
 
 teacher: the teacher's field eval of csrc/nerf_forward.cu (W256 D8, L 10/4)
 on a fine-pass chunk, 32,768 rays of one 400x400 frame at 192 sorted depths,
@@ -74,19 +78,12 @@ import chip_smoke as cs
 
 _LOAD = "cp_async16(dst + r * LDS + piece * 8, src + (size_t)r * K + piece * 8);"
 _PRODUCTS = "    if (owns) {\n      const __nv_bfloat16* X = (l & 1) ? X1 : X0;"
-_ATOMIC = ("            atomicAdd(reinterpret_cast<float2*>(gW + (size_t)row * ldg + col),\n"
-           "                      make_float2(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]));")
-# lanes t and t ^ 1 trade a column pair, so that each adds four neighbouring
-# columns of one row with one float4 atomic (half the atomic instructions)
-_FLOAT4 = """            if (hf == 1) continue;
-            const bool odd = t & 1;
-            const float r0 = __shfl_xor_sync(0xffffffffu, odd ? acc[i][j][0] : acc[i][j][2], 1);
-            const float r1 = __shfl_xor_sync(0xffffffffu, odd ? acc[i][j][1] : acc[i][j][3], 1);
-            const float4 v = odd ? make_float4(r0, r1, acc[i][j][2], acc[i][j][3])
-                                 : make_float4(acc[i][j][0], acc[i][j][1], r0, r1);
-            atomicAdd(reinterpret_cast<float4*>(gW + (size_t)(row + (odd ? 8 : 0)) * ldg +
-                                                n0 + 8 * j + 4 * (t / 2)), v);"""
-_DW = "  const int g = lane / 4, t = lane % 4, mi = lane / 8;\n  for (int m0"
+_STORE = "  const int c8 = ncols / 8;\n"
+_LOADER = "constexpr Loader LOADER = TMA_BOXES;"
+_W_PRODUCTS = "      if (active) stage_product<true>(As, As + A_TILE_SW, acc, ms, ns, lane);\n"
+_W_EXPECT = "        mbar_arrive_expect_tx(&full[s], bytes);"
+_W_BOXES_A = "        for (int b = 0; b < na; ++b)"
+_W_BOXES_B = "        for (int b = 0; b < nbx; ++b)"
 _LOAD8 = "cp_async16(dst + r * LDS8 + piece * 16, src + (size_t)r * W + piece * 16);"
 _PRODUCTS8 = "    if (owns) {\n      const int8_t* X = (l & 1) ? X1 : X0;"
 _EPI_EVEN = "      } else if (owns) {\n        // t = acc * (dqs0 * inv1)"
@@ -132,12 +129,15 @@ KERNELS = {
     }),
     "train_bwd": ("r2l_train.cu", {
         "shipped": [],
-        "float4_atomics": [("r2l_train.cu", _ATOMIC, _FLOAT4)],
-        "no_atomics": [("r2l_train.cu", _ATOMIC,
-                        "            if (acc[i][j][2 * hf] == 1.2345e-38f) "
-                        "gW[(size_t)row * ldg + col] = acc[i][j][2 * hf + 1];")],
-        "no_weight_grads": [("r2l_train.cu", _DW, _DW.replace(
-            "  for (int m0", "  if (M > 0) return;\n  for (int m0"))],
+        "no_stores": [("r2l_train.cu", _STORE, _STORE + "  if (c8 > 0) return;\n")],
+        "wgrad_shipped": ("r2l_wgrad.cu", []),
+        "wgrad_cp_async": ("r2l_wgrad.cu", [("r2l_wgrad.cu", _LOADER, _LOADER.replace(
+            "TMA_BOXES", "CP_ASYNC"))]),
+        "wgrad_loads_only": ("r2l_wgrad.cu", [("r2l_wgrad.cu", _W_PRODUCTS, "")]),
+        "wgrad_products_only": ("r2l_wgrad.cu", [
+            ("r2l_wgrad.cu", _W_EXPECT, "        mbar_arrive(&full[s]);"),
+            ("r2l_wgrad.cu", _W_BOXES_A, _W_BOXES_A.replace("b < na", "b < 0")),
+            ("r2l_wgrad.cu", _W_BOXES_B, _W_BOXES_B.replace("b < nbx", "b < 0"))]),
     }),
     "teacher": ("nerf_forward.cu", {
         "shipped": [],
@@ -280,27 +280,52 @@ def _train_bwd_runner(torch, dev, seed):
                           generator=gen).contiguous()
     _, hs = rt.r2l_train_fwd(packed, x, use_global_residual=True)
     dout = torch.randn((n_rays, 3), generator=gen, device=dev)
-    # the port's own launch of the shipped kernel: the variants' reference
-    want = rt.r2l_train_bwd(packed, x, hs, dout, use_global_residual=True,
-                            need_dx=False)
-    grads = {k: torch.zeros_like(want[k]) for k in rt._OPERANDS}
+    # the port's own launches of the shipped passes: the variants' references
+    want_act = rt.r2l_train_bwd_act(packed, x, hs, dout, use_global_residual=True,
+                                    need_dx=False)
+    want_g = rt.r2l_train_wgrad(want_act, hs)
+    keys = ("dg2", "dg1", "g1", "dpre", "emb", "part")
+    act = {k: torch.empty_like(want_act[k]) for k in keys}
+    grads = {k: torch.empty_like(want_g[k]) for k in rt._OPERANDS}
+    nb, Bp, width, in_pad, out_dim = rt._act_dims(want_act)
+    zero = torch.zeros(256, dtype=torch.bfloat16, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    last = {}
 
     def make_run(lib):
+        if hasattr(lib, "r2l_wgrad_launch"):       # pass 2 on pass 1's scratch
+            sig = {**rt._WGRAD_SIGNATURES}
+            for name, (restype, argtypes) in sig.items():
+                getattr(lib, name).restype = restype
+                getattr(lib, name).argtypes = list(argtypes)
+            work = torch.empty(lib.r2l_wgrad_work_floats(Bp // 64, width, in_pad, nb),
+                               dtype=torch.float32, device=dev)
+
+            def run():
+                last["pass"] = 2
+                return lib.r2l_wgrad_launch(
+                    *(want_act[k].data_ptr() for k in ("dg2", "dg1", "g1")), hs.data_ptr(),
+                    want_act["dpre"].data_ptr(), want_act["emb"].data_ptr(), zero.data_ptr(),
+                    want_act["part"].data_ptr(), work.data_ptr(),
+                    *(grads[k].data_ptr() for k in rt._OPERANDS), Bp // 64, n_rays, n_rays,
+                    width, in_pad, nb, out_dim, 0, stream)
+            return run
         fn = lib.r2l_train_bwd_launch
         restype, argtypes = rt._SIGNATURES["r2l_train_bwd_launch"]
         fn.restype, fn.argtypes = restype, list(argtypes)
 
         def run():
-            for g in grads.values():
-                g.zero_()
+            last["pass"] = 1
             return fn(x.data_ptr(), hs.data_ptr(), dout.data_ptr(),
                       *(packed[k].data_ptr() for k in rt._OPERANDS),
-                      *(grads[k].data_ptr() for k in rt._OPERANDS), None,
-                      *rt._shape_args(packed, x, 1.0, True))
+                      *(act[k].data_ptr() for k in keys), None, n_rays, n_rays,
+                      x.shape[1], cs.L_FREQ, in_pad, width, nb, out_dim, 1.0, 1, stream)
         return run
 
     def error():
-        return max(cs.rel_err(grads[k], want[k]) for k in rt._OPERANDS)
+        if last["pass"] == 2:
+            return max(cs.rel_err(grads[k], want_g[k]) for k in rt._OPERANDS)
+        return max(cs.rel_err(act[k], want_act[k]) for k in keys)
 
     bound_ms = rt.r2l_train_flops(packed, n_rays)[1] / cs.H100_BF16_FLOPS * 1e3
     return n_rays, bound_ms, cs.TRAIN_TOL["grad"], make_run, error
@@ -408,9 +433,12 @@ def main() -> None:
         cs.fail("torch.cuda.is_available() is false; this script needs a card")
     from efficient_nerf_tpu_torch.ops import _build as build
 
-    source, variants = KERNELS[args.kernel]
-    sources = {}
+    default_source, variants = KERNELS[args.kernel]
+    sources, built_from = {}, {}
     for name, edits in variants.items():
+        # a variant is its edits, or (the file it builds, its edits)
+        source, edits = edits if isinstance(edits, tuple) else (default_source, edits)
+        built_from[name] = source
         texts = {}
         for fname, old, new in edits:
             text = texts.get(fname) or (build.CSRC / fname).read_text()
@@ -421,7 +449,7 @@ def main() -> None:
     out_dir = build.BUILD_DIR / "breakdown" / args.kernel
     out_dir.mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(len(sources)) as ex:
-        futs = {n: ex.submit(_build, n, texts, source, out_dir, build._nvcc(),
+        futs = {n: ex.submit(_build, n, texts, built_from[n], out_dir, build._nvcc(),
                              build.NVCC_FLAGS, build.CSRC)
                 for n, texts in sources.items()}
         built = {n: f.result() for n, f in futs.items()}
@@ -447,8 +475,9 @@ def main() -> None:
         print(f"{name:16s} {ms:8.3f} ms  error vs the port's kernel or plain "
               f"version {err:.3g}  {regs}", flush=True)
         result["variants"][name] = {"ms": ms, "err": err}
-    if not result["variants"]["shipped"]["err"] <= tol:
-        cs.fail("the shipped kernel disagrees with its reference")
+    for name, v in result["variants"].items():
+        if name.endswith("shipped") and not v["err"] <= tol:
+            cs.fail(f"the shipped kernel ({name}) disagrees with its reference")
     result["card"] = cs.gpu_line()
     print(json.dumps(result))
 

@@ -15,38 +15,36 @@
 // input, hs[i] = bf16(h) stored before block i, and hs[n_block] = bf16(h)
 // after the optional global residual (the tail's input).
 //
-// Backward (r2l_train_bwd_kernel): the tail backward with sigmoid', then the
-// blocks in reverse with dh in f32 registers (warp w owns columns
-// [32 w, 32 w + 32) of the tile, as the forward holds h). Per block, five
-// products of 256^2 per ray:
+// Backward, pass 1 of 2 (r2l_train_bwd_kernel): the activation chain. The
+// tail backward with sigmoid', then the blocks in reverse with dh in f32
+// registers (warp w owns columns [32 w, 32 w + 32) of the tile, as the
+// forward holds h). Per block, three products of 256^2 per ray:
 //   g1  = relu(h_in @ W0^T + b0)   recomputed from the bf16 h_in (mma_stream)
-//   dW1 += dg2^T @ g1              rays contracted (dw_product)
 //   dg1 = (dg2 @ W1) * (g1 > 0)    W1 read as [k, n] (mma_stream_kn)
-//   dW0 += dg1^T @ h_in            (dw_product)
 //   dh  += dg1 @ W0                (mma_stream_kn)
-// then the head backward: the relu mask from hs[0] > 0 (in f32), the head's
-// weight gradient against the recomputed embed and, when dx is asked for,
-// the input gradient through the embed's chain rule. Rounding follows
-// :143-201: dt, dg2, dg1 and dpre enter the products as bf16, their bias
-// gradients sum the f32 values; g1 is rounded to bf16 as an operand.
+// then the head backward: the relu mask from hs[0] > 0 (in f32) and, when dx
+// is asked for, the input gradient through the embed's chain rule. Rounding
+// follows :143-201: dt, dg2, dg1 and dpre enter the products as bf16, their
+// bias gradients sum the f32 values; g1 is rounded to bf16 as an operand.
 //
-// Summing the weight gradients across ray tiles. The Pallas grid runs in
-// order and adds into VMEM-resident f32 blocks; on the card blocks run in
-// parallel. Each block adds its [256, 256] partial products into one zeroed
-// f32 gradient buffer (23.5 MB at W256 D88, which stays in the 50 MB L2)
-// with vector f32 atomics (atomicAdd on float2, a red.global.add.v2.f32):
-// 23.5 MB of atomic traffic per 64-ray tile, 36 GB per 98,304-ray step.
-// Per-block partial sums were the other choice: 132 persistent blocks would
-// need 3.1 GB of scratch that does not fit in L2, so every tile's
-// read-modify-write of its partials would go to HBM, twice the bytes of the
-// atomics and none of it in L2. The atomics make the gradients' summation
-// order, and so their last bits, change from run to run.
+// The weight gradients contract the rays, a sum across blocks, which the
+// Pallas grid runs in order into VMEM-resident f32 blocks. Here it is a
+// second pass (csrc/r2l_wgrad.cu): this pass writes the products' bf16
+// operands, dg2, g1 and dg1 of every block ([n_block, Bp, W] each, Bp = B
+// padded to a whole tile), dpre [Bp, W] and the recomputed embed [Bp,
+// in_pad], each tile a contiguous run of rows, 16 bytes a thread from the
+// shared tiles; and each tile's f32 column sums of the bias and tail
+// gradients into a row of `part` (head_b | body_b | tail_w | tail_b). No
+// global atomics: the sums are added in a fixed order by the second pass,
+// so the gradients' bits do not change from run to run.
 //
 // Bound (W256 D88, 98,304 rays, need_dx off): forward 5,894,912 MAC a ray
 // (1.159 TFLOP, 1.172 ms at 989 TFLOP/s dense bf16) plus 2.2 GB of hs
-// stores; backward 14,350,592 MAC a ray (2.821 TFLOP, 2.853 ms) plus the
-// 2.2 GB hs read. Both are bound by tensor-core operations; the atomics'
-// 36 GB of L2 traffic are the backward's largest cost beside them.
+// stores, bound by operations. This pass: 3 x 43 x 65,536 MAC a ray plus the
+// tail (1.663 TFLOP, 1.68 ms) against 2.2 GB of hs read and 6.8 GB of
+// operands written (2.69 ms at 3.35 TB/s): bound by bytes. The whole
+// backward's operations (14,350,592 MAC a ray, 2.853 ms) are the two
+// passes' together.
 //
 // Shared memory of the backward (W = 256, in_pad = 1024): the weight ring
 // (2 x 36 KB), two h_in tiles (double buffer for the next block's hs row
@@ -73,6 +71,7 @@ struct Weights {
 
 struct Shape {
   int B, x_cols, embed_L, in_pad, W, n_block, out_dim, global_residual;
+  int hs_rows;                     // rows between two blocks of hs (B, or more for a ray chunk)
   float res_scale;
 };
 
@@ -88,14 +87,14 @@ struct BwdArgs {
   Weights w;
   Shape s;
   const float* x;                  // [B, x_cols]
-  const __nv_bfloat16* hs;         // [n_block + 1, B, W]
+  const __nv_bfloat16* hs;         // [n_block + 1, hs_rows, W], rows 0 .. B - 1 used
   const float* dout;               // [B, out_dim]
-  float* g_head_w;                 // [W, in_pad]     (all gradients zeroed
-  float* g_head_b;                 // [W]              by the caller, f32)
-  float* g_body_w;                 // [n_block, 2, W, W]
-  float* g_body_b;                 // [n_block, 2, W]
-  float* g_tail_w;                 // [out_dim, W]
-  float* g_tail_b;                 // [out_dim]
+  __nv_bfloat16* dg2s;             // [n_block, Bp, W]: the weight-gradient operands
+  __nv_bfloat16* dg1s;             // [n_block, Bp, W]
+  __nv_bfloat16* g1s;              // [n_block, Bp, W]
+  __nv_bfloat16* dpres;            // [Bp, W]
+  __nv_bfloat16* embs;             // [Bp, in_pad]
+  float* part;                     // [Bp / TB, W + 2 n_block W + out_dim W + out_dim]
   float* dx;                       // [B, x_cols], or null: need_dx off
 };
 
@@ -326,17 +325,17 @@ __device__ __forceinline__ void load_hs_tile(__nv_bfloat16* dst, const __nv_bflo
     const int row = q / (W / 8), col = (q % (W / 8)) * 8;
     const long long ray = ray0 + row;
     if (ray < s.B)
-      cp_async16(dst + row * lda + col, hs + ((size_t)blk * s.B + ray) * W + col);
+      cp_async16(dst + row * lda + col, hs + ((size_t)blk * s.hs_rows + ray) * W + col);
     else
       *reinterpret_cast<uint4*>(dst + row * lda + col) = make_uint4(0, 0, 0, 0);
   }
 }
 
 // Column sums over the tile's TB rows of v * scale (each product rounded
-// once, as the plain version's f32 sum of a rounded product), added into
-// gb[n0 ..] with one atomic per column.
-__device__ __forceinline__ void col_sums_atomic(const Frag& v, float scale, float* gb,
-                                                int n0, int lane) {
+// once, as the plain version's f32 sum of a rounded product), stored to
+// gb[n0 ..], one column a lane of group 0.
+__device__ __forceinline__ void col_sums_store(const Frag& v, float scale, float* gb,
+                                               int n0, int lane) {
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
@@ -350,58 +349,20 @@ __device__ __forceinline__ void col_sums_atomic(const Frag& v, float scale, floa
       sum += __shfl_xor_sync(0xffffffffu, sum, 4);
       sum += __shfl_xor_sync(0xffffffffu, sum, 8);
       sum += __shfl_xor_sync(0xffffffffu, sum, 16);
-      if (g == 0) atomicAdd(gb + n0 + 8 * j + 2 * t + e, sum);
+      if (g == 0) gb[n0 + 8 * j + 2 * t + e] = sum;
     }
 }
 
-// gW[M, N] (row stride ldg, f32) += A^T @ B over the tile's TB rays: A a
-// [TB, M] and B a [TB, N] bf16 tile in shared memory (row strides lda_,
-// ldb), both row-major by ray, so both operands load transposed. Output in
-// passes of 64 rows x (8 warps x 32 columns); each pass adds its partial
-// sums with one float2 atomic per pair of columns (float4 atomics, with
-// lanes trading pairs, measured no faster: the adds are bound by L2
-// bandwidth, PERF.md). M a multiple of 64, N of 32. Reads only shared
-// memory: the caller orders it against the writers.
-__device__ void dw_product(const __nv_bfloat16* A, int lda_, const __nv_bfloat16* B,
-                           int ldb, int M, int N, float* gW, int ldg) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, mi = lane / 8;
-  for (int m0 = 0; m0 < M; m0 += TB) {
-    for (int nb0 = 0; nb0 < N; nb0 += NWARPS * WN) {
-      const int n0 = nb0 + warp * WN;
-      if (n0 >= N) continue;
-      Frag acc;
-      frag_zero(acc);
-#pragma unroll
-      for (int kk = 0; kk < TB; kk += 16) {
-        unsigned b[NJ / 2][4];
-#pragma unroll
-        for (int jj = 0; jj < NJ / 2; ++jj) load_b_kn(b[jj], B, ldb, kk, n0 + 16 * jj, lane);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          // A^T fragment, rows m0 + 16 i .. (A's columns), k = rays kk ..:
-          // matrices (m lo, k lo), (m hi, k lo), (m lo, k hi), (m hi, k hi)
-          unsigned a[4];
-          ldmatrix_x4_trans(a, A + (size_t)(kk + (mi / 2) * 8 + lane % 8) * lda_ + m0 +
-                                   16 * i + (mi % 2) * 8);
-#pragma unroll
-          for (int jj = 0; jj < NJ / 2; ++jj) {
-            mma_bf16(acc[i][2 * jj], a, b[jj][0], b[jj][1]);
-            mma_bf16(acc[i][2 * jj + 1], a, b[jj][2], b[jj][3]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int row = m0 + 16 * i + g + 8 * hf, col = n0 + 8 * j + 2 * t;
-            atomicAdd(reinterpret_cast<float2*>(gW + (size_t)row * ldg + col),
-                      make_float2(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]));
-          }
-    }
+// Copies a [TB, ncols] bf16 tile (shared, row stride lds) to rows ray0 ..
+// ray0 + TB - 1 of a row-major [*, ncols] array, 16 bytes a thread. Reads
+// only shared memory: the caller orders it against the tile's writers.
+__device__ __forceinline__ void store_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           int lds, int ncols, long long ray0) {
+  const int c8 = ncols / 8;
+  for (int q = threadIdx.x; q < TB * c8; q += NTHREADS) {
+    const int row = q / c8, col = (q % c8) * 8;
+    *reinterpret_cast<uint4*>(dst + (size_t)(ray0 + row) * ncols + col) =
+        *reinterpret_cast<const uint4*>(src + row * lds + col);
   }
 }
 
@@ -448,9 +409,15 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArg
   const int g = lane / 4, t = lane % 4, n0 = warp * WN;
   const bool owns = n0 < W;
   const long long ray0 = (long long)blockIdx.x * TB;
+  const size_t Bp = (size_t)gridDim.x * TB;
   const __nv_bfloat16* tail_w = p.w.tail_w;
   const float* body_b = p.w.body_b;
   const __nv_bfloat16* body_w = p.w.body_w;
+  // this tile's row of column sums: head_b | body_b | tail_w | tail_b
+  float* part_head_b = p.part + blockIdx.x * (size_t)(W + 2 * nb * W + od * W + od);
+  float* part_body_b = part_head_b + W;
+  float* part_tail_w = part_body_b + 2 * nb * W;
+  float* part_tail_b = part_tail_w + od * W;
 
   // ---- the tail input hs[nb] and the last block's input hs[nb - 1]
   load_hs_tile(hbuf[nb & 1], p.hs, s, nb, ray0);
@@ -482,7 +449,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArg
   if (tid < od) {
     float sum = 0.0f;
     for (int r = 0; r < TB; ++r) sum += sdt[r * MAX_OUT + tid];
-    atomicAdd(p.g_tail_b + tid, sum);
+    part_tail_b[tid] = sum;
   }
   for (int q = tid; q < od * W; q += NTHREADS) {
     const int j = q / W, n = q % W;
@@ -490,7 +457,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArg
     for (int r = 0; r < TB; ++r)
       sum = __fadd_rn(sum, __fmul_rn(bf16r(sdt[r * MAX_OUT + j]),
                                      __bfloat162float(hN[r * lda + n])));
-    atomicAdd(p.g_tail_w + q, sum);
+    part_tail_w[q] = sum;
   }
   Frag dh;
   if (owns) tail_dh(dh, sdt, tail_w, od, W, n0, lane);
@@ -505,10 +472,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArg
     cp_async_commit();
     const __nv_bfloat16* w0 = body_w + (size_t)(2 * blk) * W * W;
     const __nv_bfloat16* w1 = w0 + (size_t)W * W;
-    float* gw0 = p.g_body_w + (size_t)(2 * blk) * W * W;
-    float* gw1 = gw0 + (size_t)W * W;
-    float* gb0 = p.g_body_b + (size_t)(2 * blk) * W;
+    float* gb0 = part_body_b + (size_t)(2 * blk) * W;
     float* gb1 = gb0 + W;
+    const size_t lofs = (size_t)blk * Bp * W;   // this block's rows of the operands
 
     // dg2 = dh * res_scale: bf16 operand, f32 bias gradient
     if (owns) {
@@ -522,7 +488,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArg
             store_bf16x2(sdg2 + row * lda + col, __fmul_rn(dh[i][j][2 * hf], rs),
                          __fmul_rn(dh[i][j][2 * hf + 1], rs));
           }
-      col_sums_atomic(dh, rs, gb1, n0, lane);
+      col_sums_store(dh, rs, gb1, n0, lane);
     }
 
     // g1 = relu(h_in @ W0^T + b0) -> sg1 (bf16) and the relu mask
@@ -546,8 +512,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArg
         }
     });
 
-    // dW1 += dg2^T g1
-    dw_product(sdg2, lda, sg1, lda, W, W, gw1, W);
+    // the dW1 operands: mma_stream ended with a barrier, so g1 and dg2 are
+    // complete; mma_stream_kn's first barrier orders these reads before
+    // its epilogue overwrites g1 with dg1
+    store_tile(p.g1s + lofs, sg1, lda, W, ray0);
+    store_tile(p.dg2s + lofs, sdg2, lda, W, ray0);
 
     // dg1 = (dg2 @ W1) * (g1 > 0) -> sg1 (g1 is dead), bias gradient
     mma_stream_kn(sdg2, lda, w1, W, W, W, W, ring, [&](Frag& acc) {
@@ -567,11 +536,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArg
             const int row = 16 * i + g + 8 * hf, col = n0 + 8 * j + 2 * t;
             store_bf16x2(sg1 + row * lda + col, acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
           }
-      col_sums_atomic(acc, 1.0f, gb0, n0, lane);
+      col_sums_store(acc, 1.0f, gb0, n0, lane);
     });
 
-    // dW0 += dg1^T h_in
-    dw_product(sg1, lda, hin, lda, W, W, gw0, W);
+    // the dW0 operand (h_in is hs itself)
+    store_tile(p.dg1s + lofs, sg1, lda, W, ray0);
 
     // dh += dg1 @ W0
     mma_stream_kn(sg1, lda, w0, W, W, W, W, ring, [&](Frag& acc) {
@@ -610,9 +579,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArg
           if (!(hv.y > 0.0f)) dh[i][j][2 * hf + 1] = 0.0f;
           store_bf16x2(sdg2 + row * lda + col, dh[i][j][2 * hf], dh[i][j][2 * hf + 1]);
         }
-    col_sums_atomic(dh, 1.0f, p.g_head_b, n0, lane);
+    col_sums_store(dh, 1.0f, part_head_b, n0, lane);
   }
   __syncthreads();
+  store_tile(p.dpres, sdg2, lda, W, ray0);
 
   // ---- dx = dpre @ head_w, chained through the embed when embed_L > 0
   const float* xg = p.x;
@@ -664,10 +634,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArg
     __syncthreads();  // dp and the ring are overwritten by the embed
   }
 
-  // ---- head weight gradient against the recomputed embed
+  // ---- the head's weight-gradient operand: the recomputed embed
   embed_tile(xg, ray0, s, emb, lde);
   __syncthreads();
-  dw_product(sdg2, lda, emb, lde, W, s.in_pad, p.g_head_w, s.in_pad);
+  store_tile(p.embs, emb, lde, s.in_pad, ray0);
 }
 
 bool shape_ok(const Shape& s) {
@@ -688,6 +658,7 @@ Shape make_shape(int B, int x_cols, int embed_L, int in_pad, int W, int n_block,
   s.n_block = n_block;
   s.out_dim = out_dim;
   s.global_residual = global_residual;
+  s.hs_rows = B;
   s.res_scale = res_scale;
   return s;
 }
@@ -743,19 +714,25 @@ extern "C" int r2l_train_fwd_launch(const float* x, const void* head_w, const fl
   return (int)cudaGetLastError();
 }
 
+// The backward's pass 1: the scratch of pass 2 (dg2s, dg1s, g1s [n_block,
+// Bp, W], dpres [Bp, W], embs [Bp, in_pad] bf16, part [Bp / 64, W + 2
+// n_block W + out_dim W + out_dim] f32, Bp = B rounded up to 64; every
+// element written) and dx. hs holds block b's rows at hs + b hs_rows W.
 extern "C" int r2l_train_bwd_launch(const float* x, const void* hs, const float* dout,
                                     const void* head_w, const float* head_b,
                                     const void* body_w, const float* body_b,
                                     const void* tail_w, const float* tail_b,
-                                    float* g_head_w, float* g_head_b, float* g_body_w,
-                                    float* g_body_b, float* g_tail_w, float* g_tail_b,
-                                    float* dx, int B, int x_cols, int embed_L, int in_pad,
-                                    int W, int n_block, int out_dim, float res_scale,
-                                    int global_residual, void* stream) {
+                                    void* dg2s, void* dg1s, void* g1s, void* dpres,
+                                    void* embs, float* part, float* dx, int B, int hs_rows,
+                                    int x_cols, int embed_L, int in_pad, int W, int n_block,
+                                    int out_dim, float res_scale, int global_residual,
+                                    void* stream) {
   if (B <= 0) return 0;
   BwdArgs p;
   p.s = make_shape(B, x_cols, embed_L, in_pad, W, n_block, out_dim, res_scale,
                    global_residual);
+  if (hs_rows < B) return (int)cudaErrorInvalidValue;
+  p.s.hs_rows = hs_rows;
   const BwdLayout lay = bwd_layout(in_pad, W);
   // dx's [TB, K] f32 sums overlay one h_in tile and g1
   const bool dp_fits = dx == nullptr || embed_L == 0 ||
@@ -769,12 +746,12 @@ extern "C" int r2l_train_bwd_launch(const float* x, const void* hs, const float*
   p.x = x;
   p.hs = static_cast<const __nv_bfloat16*>(hs);
   p.dout = dout;
-  p.g_head_w = g_head_w;
-  p.g_head_b = g_head_b;
-  p.g_body_w = g_body_w;
-  p.g_body_b = g_body_b;
-  p.g_tail_w = g_tail_w;
-  p.g_tail_b = g_tail_b;
+  p.dg2s = static_cast<__nv_bfloat16*>(dg2s);
+  p.dg1s = static_cast<__nv_bfloat16*>(dg1s);
+  p.g1s = static_cast<__nv_bfloat16*>(g1s);
+  p.dpres = static_cast<__nv_bfloat16*>(dpres);
+  p.embs = static_cast<__nv_bfloat16*>(embs);
+  p.part = part;
   p.dx = dx;
   const unsigned blocks = (unsigned)((B + TB - 1) / TB);
   r2l_train_bwd_kernel<<<blocks, NTHREADS, lay.total, (cudaStream_t)stream>>>(p);

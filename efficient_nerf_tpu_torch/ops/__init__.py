@@ -6,8 +6,11 @@
     with the residual body in int8 (W8A8, static or per-row dynamic
     activation scales), beside `pack_r2l_weights_int8` and
     `calibrate_r2l_int8`.
-  * `r2l_train_fwd` / `r2l_train_bwd` (r2l_train.py, csrc/r2l_train.cu):
-    the fused training forward and backward, behind `r2l_train_apply`.
+  * `r2l_train_fwd` / `r2l_train_bwd` (r2l_train.py): the fused training
+    forward (csrc/r2l_train.cu) and the backward in two passes, the
+    activation chain `r2l_train_bwd_act` (csrc/r2l_train.cu) and the weight
+    gradients `r2l_train_wgrad` (csrc/r2l_wgrad.cu), behind
+    `r2l_train_apply`.
   * `nerf_forward_fused` (nerf_forward.py, csrc/nerf_forward.cu): the
     teacher's field eval, sample points and view directions in, raw out,
     beside `pack_nerf_weights`.
@@ -34,7 +37,9 @@ from .r2l_forward import pack_r2l_weights, r2l_forward_fused, r2l_forward_fused_
 from .r2l_int8 import (calibrate_r2l_int8, pack_r2l_weights_int8, r2l_forward_int8,
                        r2l_forward_int8_ref)
 from .r2l_train import (pack_r2l_train_weights, r2l_train_apply, r2l_train_bwd,
-                        r2l_train_bwd_ref, r2l_train_fwd, r2l_train_fwd_ref)
+                        r2l_train_bwd_act, r2l_train_bwd_act_ref, r2l_train_bwd_ref,
+                        r2l_train_fwd, r2l_train_fwd_ref, r2l_train_wgrad,
+                        r2l_train_wgrad_ref)
 from .nerf_forward import nerf_forward_fused, nerf_forward_fused_ref, pack_nerf_weights
 from .nerf_frame import nerf_render_rays_fused, nerf_render_rays_fused_ref
 from .nerf_int8 import (calibrate_nerf_int8, nerf_forward_int8, nerf_forward_int8_ref,
@@ -48,6 +53,8 @@ __all__ = ["fused_r2l_available", "fused_r2l_train_available",
            "r2l_forward_int8_ref",
            "pack_r2l_train_weights", "r2l_train_apply", "r2l_train_fwd",
            "r2l_train_fwd_ref", "r2l_train_bwd", "r2l_train_bwd_ref",
+           "r2l_train_bwd_act", "r2l_train_bwd_act_ref", "r2l_train_wgrad",
+           "r2l_train_wgrad_ref",
            "pack_nerf_weights", "nerf_forward_fused", "nerf_forward_fused_ref",
            "pack_nerf_weights_int8", "calibrate_nerf_int8", "nerf_forward_int8",
            "nerf_forward_int8_ref", "nerf_render_rays_fused", "nerf_render_rays_fused_ref",

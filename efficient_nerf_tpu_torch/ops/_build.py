@@ -24,8 +24,8 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "build_all", "build_log",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("r2l_forward", "r2l_int8", "r2l_train", "trig", "nerf_forward",
-           "sample_pdf", "nerf_int8", "nerf_frame")
+SOURCES = ("r2l_forward", "r2l_int8", "r2l_train", "r2l_wgrad", "trig",
+           "nerf_forward", "sample_pdf", "nerf_int8", "nerf_frame")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

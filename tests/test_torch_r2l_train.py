@@ -1,7 +1,7 @@
-"""The fused training forward and backward: their plain versions (what the
-wrappers run on CPU tensors) and the autograd Function against the JAX Pallas
-kernels in interpret mode; the CUDA kernels against the plain versions on a
-card."""
+"""The fused training forward and the two-pass backward: their plain versions
+(what the wrappers run on CPU tensors) and the autograd Function against the
+JAX Pallas kernels in interpret mode, the passes' composition and its ray
+chunks; the CUDA kernels against the plain versions on a card."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -76,6 +76,11 @@ def _jax_vjp(params, x, dout, *, grs, res_scale, embed_L, need_dx, dtype):
     return np.asarray(out), sd, np.asarray(g_x)
 
 
+def _launches():
+    return (rt.r2l_train_fwd.launches, rt.r2l_train_bwd_act.launches,
+            rt.r2l_train_wgrad.launches)
+
+
 def _port_grads(tm, x, dout, embed_L, need_dx):
     xt = torch.from_numpy(x).requires_grad_(need_dx)
     out = rt.r2l_train_apply(tm, xt, embed_L=embed_L, need_dx=need_dx)
@@ -101,9 +106,9 @@ def test_function_matches_pallas_interpret_f32(grs, res_scale, embed_L, need_dx,
     out_w, g_w, dx_w = _jax_vjp(params, x, dout, grs=grs, res_scale=res_scale,
                                 embed_L=embed_L, need_dx=need_dx,
                                 dtype=jnp.float32)
-    launches = (rt.r2l_train_fwd.launches, rt.r2l_train_bwd.launches)
+    launches = _launches()
     out, grads, dx = _port_grads(tm, x, dout, embed_L, need_dx)
-    assert (rt.r2l_train_fwd.launches, rt.r2l_train_bwd.launches) == launches
+    assert _launches() == launches
     assert out.shape == (B, 3)
     np.testing.assert_allclose(out, out_w, atol=TOL_OUT[embed_L], rtol=0)
     # every weight and bias gradient, the head's rows back in ray_embed order
@@ -123,6 +128,106 @@ def test_function_matches_pallas_interpret_bf16(grs, rng):
     np.testing.assert_allclose(out, out_w, atol=TOL_BF16_OUT, rtol=0)
     _assert_grads(grads, g_w, TOL_BF16_GRAD)
     _assert_grads({"dx": dx}, {"dx": dx_w}, TOL_BF16_GRAD)
+
+
+@pytest.mark.parametrize("need_dx", [False, True])
+@pytest.mark.parametrize("embed_L", [0, 10])
+def test_passes_match_pallas_interpret_bf16(embed_L, need_dx, rng):
+    """Pass 1's plain version composed with pass 2's, through the Function,
+    against the Pallas backward at bf16 operands, a ragged B of 37."""
+    params, tm, x, dout = _setup(rng, grs=True, res_scale=0.5, embed_L=embed_L,
+                                 dtype=jnp.bfloat16)
+    out_w, g_w, dx_w = _jax_vjp(params, x, dout, grs=True, res_scale=0.5,
+                                embed_L=embed_L, need_dx=need_dx, dtype=jnp.bfloat16)
+    out, grads, dx = _port_grads(tm, x, dout, embed_L, need_dx)
+    np.testing.assert_allclose(out, out_w, atol=TOL_BF16_OUT, rtol=0)
+    _assert_grads(grads, g_w, TOL_BF16_GRAD)
+    if need_dx:
+        _assert_grads({"dx": dx}, {"dx": dx_w}, TOL_BF16_GRAD)
+
+
+def _packed_inputs(rng, embed_L=10, grs=False, n_rays=B):
+    _, tm, _, _ = _setup(rng, grs=grs, embed_L=embed_L)
+    packed = rt.pack_r2l_train_weights(rt._model_params(tm), embed_L, torch.float32)
+    cols = K if embed_L else IN_DIM
+    x = torch.from_numpy((rng.normal(size=(n_rays, cols)) * 3.0).astype(np.float32))
+    dout = torch.from_numpy(rng.normal(size=(n_rays, 3)).astype(np.float32))
+    _, hs = rt.r2l_train_fwd_ref(packed, x, use_global_residual=grs)
+    return packed, x, hs, dout
+
+
+@pytest.mark.parametrize("grs", [False, True])
+def test_passes_compose_to_the_plain_backward(grs, rng):
+    packed, x, hs, dout = _packed_inputs(rng, grs=grs)
+    kw = dict(res_scale=0.5, use_global_residual=grs, need_dx=True)
+    act = rt.r2l_train_bwd_act(packed, x, hs, dout, **kw)
+    nb = (DEPTH - 2) // 2
+    # the scratch of pass 2: B = 37 rays padded to one 64-ray tile
+    for k in ("dg2", "dg1", "g1"):
+        assert act[k].shape == (nb, 64, WIDTH)
+    assert act["dpre"].shape == (64, WIDTH) and act["emb"].shape == (64, 256)
+    assert act["part"].shape == (1, WIDTH * (1 + 2 * nb + 3) + 3)
+    # padded rays carry no cotangent
+    for k in ("dg2", "dg1", "dpre"):
+        assert not act[k][..., B:, :].any(), k
+    want = rt.r2l_train_bwd_ref(packed, x, hs, dout, **kw)
+    got = {**rt.r2l_train_wgrad_ref(act, hs), "dx": act["dx"]}
+    whole = rt.r2l_train_bwd(packed, x, hs, dout, **kw)
+    assert set(got) == set(want) == set(whole)
+    for k in want:
+        assert torch.equal(got[k], want[k]) and torch.equal(whole[k], want[k]), k
+
+
+def test_ray_chunks_give_the_unchunked_result(rng):
+    """A cap of 64 rays splits 150 rays into chunks of 64, 64 and 22 (each
+    padded to a tile); their gradients, added in order, equal one pass pair
+    over all rays up to the f32 order of the sums."""
+    packed, x, hs, dout = _packed_inputs(rng, grs=True, n_rays=150)
+    kw = dict(res_scale=0.5, use_global_residual=True, need_dx=True)
+    one = rt.r2l_train_bwd(packed, x, hs, dout, **kw)
+    chunked = rt.r2l_train_bwd(packed, x, hs, dout, ray_cap=64, **kw)
+    for k, w in one.items():
+        torch.testing.assert_close(chunked[k], w, rtol=0,
+                                   atol=2e-6 * float(w.abs().max()), msg=k)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        rt.r2l_train_bwd(packed, x, hs, dout, ray_cap=100, **kw)
+
+
+def test_wgrad_plain_version_is_the_f64_product(rng):
+    """r2l_train_wgrad_ref against an f64 numpy product of the same bf16
+    operands (and f64 sums of the same per-tile partials)."""
+    nb, n_rays, W, in_pad, od = 3, 100, 64, 128, 3
+    Bp = 128
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+
+    act = {"dg2": bf16(nb, Bp, W), "dg1": bf16(nb, Bp, W), "g1": bf16(nb, Bp, W),
+           "dpre": bf16(Bp, W), "emb": bf16(Bp, in_pad),
+           "part": torch.from_numpy(rng.normal(
+               size=(Bp // 64, W * (1 + 2 * nb + od) + od)).astype(np.float32))}
+    hs = bf16(nb + 1, n_rays, W)
+    g = rt.r2l_train_wgrad_ref(act, hs)
+
+    def f64(t):
+        return t.double().numpy()
+
+    h_in = np.zeros((nb, Bp, W))
+    h_in[:, :n_rays] = f64(hs[:nb])
+    tol = dict(rtol=1e-5, atol=1e-4)
+    for i in range(nb):
+        np.testing.assert_allclose(g["body_w"][i, 0], f64(act["dg1"][i]).T @ h_in[i], **tol)
+        np.testing.assert_allclose(g["body_w"][i, 1],
+                                   f64(act["dg2"][i]).T @ f64(act["g1"][i]), **tol)
+    np.testing.assert_allclose(g["head_w"], f64(act["dpre"]).T @ f64(act["emb"]), **tol)
+    sums = f64(act["part"]).sum(0)
+    flat = np.concatenate([g[k].reshape(-1).numpy() for k in
+                           ("head_b", "body_b", "tail_w", "tail_b")])
+    np.testing.assert_allclose(flat, sums, **tol)
+    # with `grads`, pass 2 adds into them
+    twice = rt.r2l_train_wgrad_ref(act, hs, {k: v.clone() for k, v in g.items()})
+    for k, v in g.items():
+        torch.testing.assert_close(twice[k], 2 * v, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("embed_L", [0, 10])
@@ -176,6 +281,9 @@ def test_flagship_bounds_match_the_slice():
     packed = rt.pack_r2l_train_weights(rt._model_params(tm), 10)
     fwd, bwd = rt.r2l_train_flops(packed, 1)
     assert (fwd // 2, bwd // 2) == (5_894_912, 14_350_592)
+    act, wgrad = rt.r2l_train_pass_flops(packed, 1)
+    assert (act // 2, wgrad // 2) == (3 * 43 * 256 ** 2 + 3 * 256 * 3,
+                                      2 * 43 * 256 ** 2 + 1008 * 256)
 
 
 def test_body_gradients_are_views_of_one_buffer(rng):
@@ -224,14 +332,13 @@ def test_kernels_match_plain_versions(grs, embed_L, cuda_device, rng):
     x = torch.from_numpy((rng.normal(size=(B, cols)) * 3.0).astype(np.float32)
                          ).to(cuda_device)
     dout = torch.from_numpy(rng.normal(size=(B, 3)).astype(np.float32)).to(cuda_device)
-    launches = (rt.r2l_train_fwd.launches, rt.r2l_train_bwd.launches)
+    launches = _launches()
     out, hs = rt.r2l_train_fwd(packed, x, use_global_residual=grs)
     out_p, hs_p = rt.r2l_train_fwd_ref(packed, x, use_global_residual=grs)
     g = rt.r2l_train_bwd(packed, x, hs_p, dout, use_global_residual=grs)
     g_p = rt.r2l_train_bwd_ref(packed, x, hs_p, dout, use_global_residual=grs)
     torch.cuda.synchronize()
-    assert (rt.r2l_train_fwd.launches, rt.r2l_train_bwd.launches) == (
-        launches[0] + 1, launches[1] + 1)
+    assert _launches() == tuple(n + 1 for n in launches)
     # chip_smoke.py's tolerances, set from the measured summation-order
     # noise (bf16 roundings that flip) at 88 layers
     torch.testing.assert_close(out, out_p, atol=4e-3, rtol=0)
@@ -258,3 +365,66 @@ def test_function_on_the_card_matches_the_cpu(cuda_device, rng):
     np.testing.assert_allclose(oc.detach().cpu().numpy(), out, atol=4e-3, rtol=0)
     _assert_grads({k: v.grad.cpu().numpy() for k, v in tc.named_parameters()},
                   grads, 1e-2)
+
+
+def _card_inputs(rng, dev, grs=True, n_rays=300, depth=12):
+    tm = _random_model(rng, depth, grs).to(dev)
+    packed = rt.pack_r2l_train_weights(rt._model_params(tm), 10)
+    x = torch.from_numpy((rng.normal(size=(n_rays, K)) * 3.0).astype(np.float32)).to(dev)
+    dout = torch.from_numpy(rng.normal(size=(n_rays, 3)).astype(np.float32)).to(dev)
+    _, hs = rt.r2l_train_fwd_ref(packed, x, use_global_residual=grs)
+    return packed, x, hs, dout
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+def test_each_pass_matches_its_plain_version(cuda_device, rng):
+    packed, x, hs, dout = _card_inputs(rng, cuda_device)
+    kw = dict(use_global_residual=True, need_dx=True)
+    act = rt.r2l_train_bwd_act(packed, x, hs, dout, **kw)
+    act_p = rt.r2l_train_bwd_act_ref(packed, x, hs, dout, **kw)
+    torch.cuda.synchronize()
+    # pass 1, through the gradients pass 2's plain version makes of its
+    # scratch: an operand can differ by its whole size where a relu mask
+    # flips with the summation order, which the sums over rays average out
+    for k in ("dg2", "dg1", "g1", "dpre", "emb", "part", "dx"):
+        assert act[k].shape == act_p[k].shape, k
+    assert _rel(act["dx"], act_p["dx"]) <= 4e-2
+    g_k, g_pk = rt.r2l_train_wgrad_ref(act, hs), rt.r2l_train_wgrad_ref(act_p, hs)
+    for k in g_k:
+        assert _rel(g_k[k], g_pk[k]) <= 1e-2, k
+    # pass 2 on the kernel's own scratch: the same products, summed in another
+    # f32 order
+    g = rt.r2l_train_wgrad(act, hs)
+    g_p = rt.r2l_train_wgrad_ref(act, hs)
+    torch.cuda.synchronize()
+    for k in g_p:
+        assert _rel(g[k], g_p[k]) <= 1e-5, k
+
+
+@pytest.mark.cuda
+def test_backward_is_bit_identical_across_calls(cuda_device, rng):
+    packed, x, hs, dout = _card_inputs(rng, cuda_device, n_rays=4096)
+    a = rt.r2l_train_bwd(packed, x, hs, dout, use_global_residual=True)
+    b = rt.r2l_train_bwd(packed, x, hs, dout, use_global_residual=True)
+    # the weight and bias gradients (dx's embed chain sums in shared memory
+    # with atomics)
+    for k in rt._OPERANDS:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_ray_chunks_on_the_card(cuda_device, rng):
+    packed, x, hs, dout = _card_inputs(rng, cuda_device, n_rays=1000)
+    kw = dict(use_global_residual=True, need_dx=True)
+    counts = _launches()
+    one = rt.r2l_train_bwd(packed, x, hs, dout, **kw)
+    chunked = rt.r2l_train_bwd(packed, x, hs, dout, ray_cap=256, **kw)
+    torch.cuda.synchronize()
+    # one pass pair, then 4 chunks of each pass
+    assert _launches()[1:] == (counts[1] + 5, counts[2] + 5)
+    for k, w in one.items():
+        assert _rel(chunked[k], w) <= 1e-5, k

@@ -207,7 +207,8 @@ def test_three_train_steps_match_jax(fused, learn_depth, rng):
     pool = hard_pool_init(POOL, 6 + (4 if learn_depth else 3), device="cpu")
     assert state.step == 0 and pool.count == 0
 
-    launches = (rt.r2l_train_fwd.launches, rt.r2l_train_bwd.launches)
+    launches = (rt.r2l_train_fwd.launches, rt.r2l_train_bwd_act.launches,
+                rt.r2l_train_wgrad.launches)
     for i, key in enumerate(_step_keys(3, full_from=2)):
         o = rng.normal(size=(B, 3)).astype(np.float32)
         d = rng.normal(size=(B, 3)).astype(np.float32)
@@ -231,7 +232,8 @@ def test_three_train_steps_match_jax(fused, learn_depth, rng):
             diff = np.abs(v.numpy() - want[k]).max()
             assert diff <= PARAM_TOL_LR * float(lr_max), (k, i, diff / lr_max)
     # on the CPU the fused mode runs the kernels' plain versions
-    assert (rt.r2l_train_fwd.launches, rt.r2l_train_bwd.launches) == launches
+    assert (rt.r2l_train_fwd.launches, rt.r2l_train_bwd_act.launches,
+            rt.r2l_train_wgrad.launches) == launches
 
 
 def test_train_step_gates(rng):
