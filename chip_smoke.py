@@ -169,8 +169,11 @@ KERNEL_TOL = 4e-3
 # per-tile sums) carries the same noise and is held to "grad".
 TRAIN_TOL = {"hs": 2e-2, "grad": 1e-2, "dx": 4e-2}
 # Pass 2 against its plain version on the same scratch: the same bf16
-# products, summed in f32 in another order over up to 98,304 rays.
-WGRAD_TOL = 1e-5
+# products, summed in f32 in another order over up to 98,304 rays, which
+# moves a sum by some sqrt(n) ulps of the terms' scale. The first card runs
+# measured 1.1e-5 and 1.5e-5 at 98,304 rays (4e-6 at 8192); 1e-4 is 7x that,
+# and a wrong tile, index or orientation gives errors of order 1.
+WGRAD_TOL = 1e-4
 # int8 kernel vs its plain version: the int8 products are exact on both
 # sides and the epilogues round alike, so they differ only where the bf16
 # head's (or tail's) f32 sum lands an ulp apart and that ulp moves a value

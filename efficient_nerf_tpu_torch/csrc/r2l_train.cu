@@ -391,6 +391,10 @@ __device__ __forceinline__ bool mask_bit(unsigned long long m, int i, int j, int
   return (m >> ((i * NJ + j) * 4 + e)) & 1ull;
 }
 
+// NEED_DX: the dx chain is compiled in only where it runs. Its code in the
+// same kernel made ptxas spill around the body's products and cost the
+// need_dx-off pass a fifth of its time (PERF.md).
+template <bool NEED_DX>
 __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Shape s = p.s;  // a copy: the epilogues capture locals only
@@ -587,7 +591,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArg
   // ---- dx = dpre @ head_w, chained through the embed when embed_L > 0
   const float* xg = p.x;
   float* dxg = p.dx;
-  if (dxg != nullptr) {
+  if (NEED_DX) {
     if (L > 0)
       for (int q = tid; q < TB * K; q += NTHREADS) dp[q] = 0.0f;
     for (int nc = 0; nc < s.in_pad; nc += W) {
@@ -739,8 +743,9 @@ extern "C" int r2l_train_bwd_launch(const float* x, const void* hs, const float*
                        (size_t)TB * x_cols * 4 <= lay.dg2 - lay.dp;
   if (!shape_ok(p.s) || !dp_fits || lay.total > (size_t)MAX_SMEM)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      r2l_train_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
+  auto kernel = dx != nullptr ? r2l_train_bwd_kernel<true> : r2l_train_bwd_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
   p.w = make_weights(head_w, head_b, body_w, body_b, tail_w, tail_b);
   p.x = x;
@@ -754,6 +759,6 @@ extern "C" int r2l_train_bwd_launch(const float* x, const void* hs, const float*
   p.part = part;
   p.dx = dx;
   const unsigned blocks = (unsigned)((B + TB - 1) / TB);
-  r2l_train_bwd_kernel<<<blocks, NTHREADS, lay.total, (cudaStream_t)stream>>>(p);
+  kernel<<<blocks, NTHREADS, lay.total, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
