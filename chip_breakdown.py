@@ -36,8 +36,6 @@ step's), need_dx off, the global residual on. Pass 1, csrc/r2l_train.cu:
                    device memory skipped): the activation chain alone
 and pass 2, csrc/r2l_wgrad.cu, on the shipped pass 1's scratch:
   wgrad_shipped    the kernel as the port runs it (TMA boxes, mbarriers)
-  wgrad_cp_async   a cp.async ring into padded rows that every warp loads, a
-                   block barrier a stage, instead of the producer's TMA boxes
   wgrad_loads_only no products: the TMA copies and the barriers alone
   wgrad_products_only  no copies (each stage's barrier completes on the
                    producer's arrival alone): the products on stale tiles
@@ -79,8 +77,7 @@ import chip_smoke as cs
 _LOAD = "cp_async16(dst + r * LDS + piece * 8, src + (size_t)r * K + piece * 8);"
 _PRODUCTS = "    if (owns) {\n      const __nv_bfloat16* X = (l & 1) ? X1 : X0;"
 _STORE = "  const int c8 = ncols / 8;\n"
-_LOADER = "constexpr Loader LOADER = TMA_BOXES;"
-_W_PRODUCTS = "      if (active) stage_product<true>(As, As + A_TILE_SW, acc, ms, ns, lane);\n"
+_W_PRODUCTS = "      if (active) stage_product(As, As + A_TILE, acc, ms, ns, lane);\n"
 _W_EXPECT = "        mbar_arrive_expect_tx(&full[s], bytes);"
 _W_BOXES_A = "        for (int b = 0; b < na; ++b)"
 _W_BOXES_B = "        for (int b = 0; b < nbx; ++b)"
@@ -131,8 +128,6 @@ KERNELS = {
         "shipped": [],
         "no_stores": [("r2l_train.cu", _STORE, _STORE + "  if (c8 > 0) return;\n")],
         "wgrad_shipped": ("r2l_wgrad.cu", []),
-        "wgrad_cp_async": ("r2l_wgrad.cu", [("r2l_wgrad.cu", _LOADER, _LOADER.replace(
-            "TMA_BOXES", "CP_ASYNC"))]),
         "wgrad_loads_only": ("r2l_wgrad.cu", [("r2l_wgrad.cu", _W_PRODUCTS, "")]),
         "wgrad_products_only": ("r2l_wgrad.cu", [
             ("r2l_wgrad.cu", _W_EXPECT, "        mbar_arrive(&full[s]);"),
@@ -288,7 +283,6 @@ def _train_bwd_runner(torch, dev, seed):
     act = {k: torch.empty_like(want_act[k]) for k in keys}
     grads = {k: torch.empty_like(want_g[k]) for k in rt._OPERANDS}
     nb, Bp, width, in_pad, out_dim = rt._act_dims(want_act)
-    zero = torch.zeros(256, dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     last = {}
 
@@ -305,7 +299,7 @@ def _train_bwd_runner(torch, dev, seed):
                 last["pass"] = 2
                 return lib.r2l_wgrad_launch(
                     *(want_act[k].data_ptr() for k in ("dg2", "dg1", "g1")), hs.data_ptr(),
-                    want_act["dpre"].data_ptr(), want_act["emb"].data_ptr(), zero.data_ptr(),
+                    want_act["dpre"].data_ptr(), want_act["emb"].data_ptr(),
                     want_act["part"].data_ptr(), work.data_ptr(),
                     *(grads[k].data_ptr() for k in rt._OPERANDS), Bp // 64, n_rays, n_rays,
                     width, in_pad, nb, out_dim, 0, stream)

@@ -49,24 +49,15 @@
 
 namespace {
 
-using namespace enerf;  // TB, NWARPS, NTHREADS, PAD, mma_bf16, ldmatrix (r2l_mma.cuh)
+using namespace enerf;  // TB, NWARPS, NTHREADS, mma_bf16, ldmatrix (r2l_mma.cuh)
 
-// How operand tiles reach shared memory: TMA boxes (shipped), or, for the
-// breakdown's comparison, cp.async from every warp into padded rows with a
-// block barrier a stage.
-enum Loader { TMA_BOXES, CP_ASYNC };
-constexpr Loader LOADER = TMA_BOXES;
 constexpr int WS = 4;              // ring stages
 constexpr int TM = 256;            // output rows of a unit: the row operand's columns (<= W)
 constexpr int TN = 128;            // output columns of a unit
-constexpr int LDA_S = TM + PAD;    // shared row strides, 16 bytes past a multiple of 128
-constexpr int LDB_S = TN + PAD;
-constexpr int A_TILE = TB * LDA_S;  // bf16 elements (padded rows)
-constexpr int STAGE = A_TILE + TB * LDB_S;
-constexpr int BOX = TB * 64;        // bf16 elements of a 64 x 64 TMA box (8 KB)
-constexpr int A_TILE_SW = TM / 64 * BOX;   // swizzled tiles: A then B
-constexpr int STAGE_SW = A_TILE_SW + TN / 64 * BOX;
-constexpr size_t RING_BYTES = (size_t)WS * (LOADER == TMA_BOXES ? STAGE_SW : STAGE) * 2;
+constexpr int BOX = TB * 64;       // bf16 elements of a 64-ray x 64-column TMA box (8 KB)
+constexpr int A_TILE = TM / 64 * BOX;       // a stage: the row operand's boxes, then
+constexpr int STAGE = A_TILE + TN / 64 * BOX;  // the column operand's
+constexpr size_t RING_BYTES = (size_t)WS * STAGE * 2;
 constexpr int NT_TMA = NTHREADS + 128;  // 2 consumer warpgroups and the producer's
 constexpr int N_SEG = 6;
 enum Map { M_DG2, M_DG1, M_G1, M_HS, M_DPRE, M_EMB, N_MAPS };
@@ -78,59 +69,39 @@ struct TMaps {
 };
 
 struct WgArgs {
-  const __nv_bfloat16 *dg2, *dg1, *g1;   // [nb, Bp, W]
-  const __nv_bfloat16* hs;               // rows of hs[b] at hs + b * hs_rows * W
-  const __nv_bfloat16 *dpre, *emb;       // [Bp, W], [Bp, in_pad]
-  const __nv_bfloat16* zero;             // >= TN zero bf16 (the cp.async loader's rows past B)
   float* work;                           // [n_chunks, total_w] partial tiles
   long long total_w;                     // 2 nb W^2 + W in_pad
-  int n_rt, B, hs_rows, W, in_pad, nb, chunk_rt, nt_body, nt_head, n_units;
+  int n_rt, W, in_pad, nb, chunk_rt, nt_body, nt_head, n_units;
 };
 
-// One unit: out[M, n0 .. n0 + nw) of A^T Bm over ray tiles t0 .. t0 + nt.
+// One unit: out[M, n0 .. n0 + nw) of A^T B over ray tiles t0 .. t0 + nt,
+// A and B layer `layer` of the tensor maps amap and bmap.
 struct Unit {
-  const __nv_bfloat16 *A, *Bm;   // row-major by ray, at ray 0
   float* out;                    // [M, N] f32, row stride N
-  int lda, ldb, M, N, n0, nw, t0, nt;
-  int amap, bmap, layer;         // the same operands as tensor maps
-  long long b_valid;             // Bm's rows past this read zeros
+  int M, N, n0, nw, t0, nt;
+  int amap, bmap, layer;
 };
 
 __device__ Unit unit_of(const WgArgs& p, int u) {
   const int per_chunk = 2 * p.nb * p.nt_body + p.nt_head;
   const int c = u / per_chunk, r = u % per_chunk;
-  const size_t Bp = (size_t)p.n_rt * TB, WW = (size_t)p.W * p.W;
+  const size_t WW = (size_t)p.W * p.W;
   float* work = p.work + (size_t)c * p.total_w;
   Unit q;
   q.M = p.W;
-  q.lda = p.W;
-  q.b_valid = (long long)Bp;
-  q.layer = 0;
   if (r < 2 * p.nb * p.nt_body) {
-    const int l = r / p.nt_body, blk = l / 2;
+    const int l = r / p.nt_body;
     q.n0 = (r % p.nt_body) * TN;
-    q.N = q.ldb = p.W;
+    q.N = p.W;
     q.out = work + (size_t)l * WW;
-    const size_t off = (size_t)blk * Bp * p.W;
-    q.layer = blk;
-    if (l & 1) {                 // dW1 = dg2^T g1
-      q.A = p.dg2 + off;
-      q.Bm = p.g1 + off;
-      q.amap = M_DG2;
-      q.bmap = M_G1;
-    } else {                     // dW0 = dg1^T h_in
-      q.A = p.dg1 + off;
-      q.Bm = p.hs + (size_t)blk * p.hs_rows * p.W;
-      q.b_valid = p.B;
-      q.amap = M_DG1;
-      q.bmap = M_HS;
-    }
-  } else {                       // dW_head = dpre^T emb
+    q.layer = l / 2;
+    q.amap = (l & 1) ? M_DG2 : M_DG1;   // dW1 = dg2^T g1, dW0 = dg1^T h_in
+    q.bmap = (l & 1) ? M_G1 : M_HS;
+  } else {                               // dW_head = dpre^T emb
     q.n0 = (r - 2 * p.nb * p.nt_body) * TN;
-    q.N = q.ldb = p.in_pad;
+    q.N = p.in_pad;
     q.out = work + 2 * p.nb * WW;
-    q.A = p.dpre;
-    q.Bm = p.emb;
+    q.layer = 0;
     q.amap = M_DPRE;
     q.bmap = M_EMB;
   }
@@ -142,20 +113,16 @@ __device__ Unit unit_of(const WgArgs& p, int u) {
 
 typedef float Acc[4][8][4];  // warp (ms, ns): rows 64 ms + 16 i + g (+8), cols 64 ns + 8 j + 2 t
 
-// The 8 columns c .. c + 7 (c a multiple of 8) of row r of a [TB, *] tile:
-// padded rows of stride ld, or (SWZ) 64-column TMA boxes of 128-byte rows
-// whose 16-byte chunks are permuted by the row's low 3 bits.
-template <bool SWZ>
-__device__ __forceinline__ const __nv_bfloat16* tile_at(const __nv_bfloat16* tile, int ld,
-                                                        int r, int c) {
-  if (SWZ)
-    return tile + (c >> 6) * BOX + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3);
-  return tile + r * ld + c;
+// The 8 columns c .. c + 7 (c a multiple of 8) of row r of a [TB, *] tile
+// landed as 64-column TMA boxes of 128-byte rows, whose 16-byte chunks the
+// 128-byte swizzle permutes by the row's low 3 bits.
+__device__ __forceinline__ const __nv_bfloat16* tile_at(const __nv_bfloat16* tile, int r,
+                                                        int c) {
+  return tile + (c >> 6) * BOX + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3);
 }
 
 // acc += A^T B over one 64-ray stage: A [TB, M] and B [TB, nw] in shared
 // memory, both rows by ray, so both load transposed (as mma_stream_kn's B).
-template <bool SWZ>
 __device__ __forceinline__ void stage_product(const __nv_bfloat16* As, const __nv_bfloat16* Bs,
                                               Acc& acc, int ms, int ns, int lane) {
   const int mi = lane / 8;
@@ -166,15 +133,15 @@ __device__ __forceinline__ void stage_product(const __nv_bfloat16* As, const __n
     unsigned b[4][4];
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
-      ldmatrix_x4_trans(b[jj], tile_at<SWZ>(Bs, LDB_S, kk + (mi % 2) * 8 + lane % 8,
-                                            64 * ns + 16 * jj + (mi / 2) * 8));
+      ldmatrix_x4_trans(b[jj], tile_at(Bs, kk + (mi % 2) * 8 + lane % 8,
+                                       64 * ns + 16 * jj + (mi / 2) * 8));
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       // A^T fragment, rows 64 ms + 16 i (A's columns), k = rays kk ..:
       // matrices (m lo, k lo), (m hi, k lo), (m lo, k hi), (m hi, k hi)
       unsigned a[4];
-      ldmatrix_x4_trans(a, tile_at<SWZ>(As, LDA_S, kk + (mi / 2) * 8 + lane % 8,
-                                        64 * ms + 16 * i + (mi % 2) * 8));
+      ldmatrix_x4_trans(a, tile_at(As, kk + (mi / 2) * 8 + lane % 8,
+                                   64 * ms + 16 * i + (mi % 2) * 8));
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         mma_bf16(acc[i][2 * jj], a, b[jj][0], b[jj][1]);
@@ -207,11 +174,6 @@ __device__ __forceinline__ void acc_store(const Acc& acc, const Unit& q, int ms,
         *reinterpret_cast<float2*>(q.out + (size_t)row * q.N + col) =
             make_float2(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
       }
-}
-
-__device__ __forceinline__ const __nv_bfloat16* b_row(const Unit& q, long long ray,
-                                                      const __nv_bfloat16* zero) {
-  return ray < q.b_valid ? q.Bm + (size_t)ray * q.ldb + q.n0 : zero;
 }
 
 // ---- mbarriers and TMA
@@ -273,8 +235,8 @@ __device__ __forceinline__ void consume(const WgArgs& p, const __nv_bfloat16* ri
     for (int t = 0; t < q.nt; ++t, ++k) {
       const int s = k % WS;
       mbar_wait(&full[s], (k / WS) & 1);
-      const __nv_bfloat16* As = ring + (size_t)s * STAGE_SW;
-      if (active) stage_product<true>(As, As + A_TILE_SW, acc, ms, ns, lane);
+      const __nv_bfloat16* As = ring + (size_t)s * STAGE;
+      if (active) stage_product(As, As + A_TILE, acc, ms, ns, lane);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
     }
@@ -282,7 +244,7 @@ __device__ __forceinline__ void consume(const WgArgs& p, const __nv_bfloat16* ri
   }
 }
 
-// The pass as shipped: a producer warpgroup whose one thread issues TMA
+// The pass: a producer warpgroup whose one thread issues TMA
 // boxes into a WS-stage ring of 1024-byte-aligned stages, and two consumer
 // warpgroups; full and empty mbarriers per stage.
 __global__ void __launch_bounds__(NT_TMA, 1) r2l_wgrad_tma_kernel(const __grid_constant__ TMaps maps,
@@ -315,12 +277,12 @@ __global__ void __launch_bounds__(NT_TMA, 1) r2l_wgrad_tma_kernel(const __grid_c
         const int s = k % WS;
         mbar_wait(&empty[s], ((k / WS) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], bytes);
-        __nv_bfloat16* As = ring + (size_t)s * STAGE_SW;
+        __nv_bfloat16* As = ring + (size_t)s * STAGE;
         const int ray0 = (q.t0 + t) * TB;
         for (int b = 0; b < na; ++b)
           tma_box(As + b * BOX, &maps.m[q.amap], 64 * b, ray0, q.layer, &full[s]);
         for (int b = 0; b < nbx; ++b)
-          tma_box(As + A_TILE_SW + b * BOX, &maps.m[q.bmap], q.n0 + 64 * b, ray0, q.layer,
+          tma_box(As + A_TILE + b * BOX, &maps.m[q.bmap], q.n0 + 64 * b, ray0, q.layer,
                   &full[s]);
       }
     }
@@ -328,52 +290,6 @@ __global__ void __launch_bounds__(NT_TMA, 1) r2l_wgrad_tma_kernel(const __grid_c
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   consume(p, ring, full, empty, warp, lane);
-}
-
-// The same pass on a cp.async ring: every warp loads, one block barrier a
-// stage (the breakdown's comparison for the TMA boxes).
-__device__ void load_stage_async(__nv_bfloat16* As, const Unit& q, int t,
-                                 const __nv_bfloat16* zero) {
-  __nv_bfloat16* Bs = As + A_TILE;
-  const long long ray0 = (long long)(q.t0 + t) * TB;
-  const int ac = q.M / 8, bc = q.nw / 8;
-  for (int idx = threadIdx.x; idx < TB * ac; idx += NTHREADS) {
-    const int row = idx / ac, c = (idx % ac) * 8;
-    cp_async16(As + row * LDA_S + c, q.A + (size_t)(ray0 + row) * q.lda + c);
-  }
-  for (int idx = threadIdx.x; idx < TB * bc; idx += NTHREADS) {
-    const int row = idx / bc, c = (idx % bc) * 8;
-    cp_async16(Bs + row * LDB_S + c, b_row(q, ray0 + row, zero) + c);
-  }
-}
-
-__global__ void __launch_bounds__(NTHREADS, 1) r2l_wgrad_async_kernel(const WgArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ms = warp / 2, ns = warp % 2;
-  Acc acc;
-  for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
-    const Unit q = unit_of(p, u);
-    const bool active = 64 * ms < q.M && 64 * ns < q.nw;
-    for (int t = 0; t < WS - 1; ++t) {
-      if (t < q.nt) load_stage_async(ring + (size_t)t * STAGE, q, t, p.zero);
-      cp_async_commit();
-    }
-    acc_zero(acc);
-    for (int t = 0; t < q.nt; ++t) {
-      cp_async_wait<WS - 2>();
-      __syncthreads();
-      const int tn = t + WS - 1;
-      if (tn < q.nt) load_stage_async(ring + (size_t)(tn % WS) * STAGE, q, tn, p.zero);
-      cp_async_commit();
-      const __nv_bfloat16* As = ring + (size_t)(t % WS) * STAGE;
-      if (active) stage_product<false>(As, As + A_TILE, acc, ms, ns, lane);
-    }
-    if (active) acc_store(acc, q, ms, ns, lane);
-    cp_async_wait<0>();
-    __syncthreads();
-  }
 }
 
 // dst[e] (+)= sum over rows r of src[r * stride + e], the rows summed in a
@@ -483,7 +399,7 @@ extern "C" long long r2l_wgrad_work_floats(int n_rt, int W, int in_pad, int nb) 
 // out_dim (head_b | body_b | tail_w | tail_b). Returns cudaGetLastError().
 extern "C" int r2l_wgrad_launch(const void* dg2, const void* dg1, const void* g1,
                                 const void* hs, const void* dpre, const void* emb,
-                                const void* zero, const float* part, float* work,
+                                const float* part, float* work,
                                 float* g_head_w, float* g_head_b, float* g_body_w,
                                 float* g_body_b, float* g_tail_w, float* g_tail_b, int n_rt,
                                 int B, int hs_rows, int W, int in_pad, int nb, int out_dim,
@@ -492,18 +408,9 @@ extern "C" int r2l_wgrad_launch(const void* dg2, const void* dg1, const void* g1
   if (W % 64 || W > TM || in_pad % 64 || nb < 1 || out_dim < 1 || B > n_rt * TB)
     return (int)cudaErrorInvalidValue;
   WgArgs p;
-  p.dg2 = static_cast<const __nv_bfloat16*>(dg2);
-  p.dg1 = static_cast<const __nv_bfloat16*>(dg1);
-  p.g1 = static_cast<const __nv_bfloat16*>(g1);
-  p.hs = static_cast<const __nv_bfloat16*>(hs);
-  p.dpre = static_cast<const __nv_bfloat16*>(dpre);
-  p.emb = static_cast<const __nv_bfloat16*>(emb);
-  p.zero = static_cast<const __nv_bfloat16*>(zero);
   p.work = work;
   p.total_w = 2LL * nb * W * W + (long long)W * in_pad;
   p.n_rt = n_rt;
-  p.B = B;
-  p.hs_rows = hs_rows;
   p.W = W;
   p.in_pad = in_pad;
   p.nb = nb;
@@ -516,31 +423,25 @@ extern "C" int r2l_wgrad_launch(const void* dg2, const void* dg1, const void* g1
   p.n_units = n_out * nc;
   const unsigned grid = (unsigned)(p.n_units < sms ? p.n_units : sms);
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = RING_BYTES + (LOADER == TMA_BOXES ? 2 * WS * sizeof(uint64_t) + 1024 : 0);
-  cudaError_t err;
-  if (LOADER == TMA_BOXES) {
-    EncodeTiled fn = encoder();
-    if (fn == nullptr) return (int)cudaErrorNotSupported;
-    TMaps maps;
-    const long long Bp = (long long)n_rt * TB, W2 = 2LL * W;
-    const bool ok = encode(fn, &maps.m[M_DG2], dg2, W, Bp, nb, W2, Bp * W2) &&
-                    encode(fn, &maps.m[M_DG1], dg1, W, Bp, nb, W2, Bp * W2) &&
-                    encode(fn, &maps.m[M_G1], g1, W, Bp, nb, W2, Bp * W2) &&
-                    encode(fn, &maps.m[M_HS], hs, W, B, nb, W2, hs_rows * W2) &&
-                    encode(fn, &maps.m[M_DPRE], dpre, W, Bp, 1, W2, Bp * W2) &&
-                    encode(fn, &maps.m[M_EMB], emb, in_pad, Bp, 1, 2LL * in_pad,
-                           Bp * 2LL * in_pad);
-    if (!ok) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(r2l_wgrad_tma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    r2l_wgrad_tma_kernel<<<grid, NT_TMA, smem, st>>>(maps, p);
-  } else {
-    err = cudaFuncSetAttribute(r2l_wgrad_async_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    r2l_wgrad_async_kernel<<<grid, NTHREADS, smem, st>>>(p);
-  }
+  // the ring, its barriers, and slack to align the ring to 1024 bytes
+  const size_t smem = RING_BYTES + 2 * WS * sizeof(uint64_t) + 1024;
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  TMaps maps;  // hs's map ends at ray B: the rays past it land as zeros
+  const long long Bp = (long long)n_rt * TB, W2 = 2LL * W;
+  const bool ok = encode(fn, &maps.m[M_DG2], dg2, W, Bp, nb, W2, Bp * W2) &&
+                  encode(fn, &maps.m[M_DG1], dg1, W, Bp, nb, W2, Bp * W2) &&
+                  encode(fn, &maps.m[M_G1], g1, W, Bp, nb, W2, Bp * W2) &&
+                  encode(fn, &maps.m[M_HS], hs, W, B, nb, W2, hs_rows * W2) &&
+                  encode(fn, &maps.m[M_DPRE], dpre, W, Bp, 1, W2, Bp * W2) &&
+                  encode(fn, &maps.m[M_EMB], emb, in_pad, Bp, 1, 2LL * in_pad,
+                         Bp * 2LL * in_pad);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(r2l_wgrad_tma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  r2l_wgrad_tma_kernel<<<grid, NT_TMA, smem, st>>>(maps, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

@@ -77,9 +77,9 @@ _SIGNATURES = {
 _WGRAD_SIGNATURES = {
     # (n_rt, W, in_pad, n_block) -> floats of workspace
     "r2l_wgrad_work_floats": (ctypes.c_longlong, (_I,) * 4),
-    # (dg2, dg1, g1, hs, dpre, emb, zero, part, work, 6 grads, n_rt, B,
-    #  hs_rows, W, in_pad, n_block, out_dim, accumulate, stream) -> cudaError_t
-    "r2l_wgrad_launch": (_I, (_P,) * 15 + (_I,) * 8 + (_P,)),
+    # (dg2, dg1, g1, hs, dpre, emb, part, work, 6 grads, n_rt, B, hs_rows, W,
+    #  in_pad, n_block, out_dim, accumulate, stream) -> cudaError_t
+    "r2l_wgrad_launch": (_I, (_P,) * 14 + (_I,) * 8 + (_P,)),
 }
 _OPERANDS = ("head_w", "head_b", "body_w", "body_b", "tail_w", "tail_b")
 
@@ -539,10 +539,9 @@ def r2l_train_wgrad(act, hs: torch.Tensor,
     n_rt = Bp // TILE
     work = torch.empty(lib.r2l_wgrad_work_floats(n_rt, width, in_pad, nb),
                        dtype=torch.float32, device=hs.device)
-    zero = torch.zeros(MAX_WIDTH, dtype=torch.bfloat16, device=hs.device)
     err = lib.r2l_wgrad_launch(
         *(act[k].data_ptr() for k in ("dg2", "dg1", "g1")), hs.data_ptr(),
-        act["dpre"].data_ptr(), act["emb"].data_ptr(), zero.data_ptr(),
+        act["dpre"].data_ptr(), act["emb"].data_ptr(),
         act["part"].data_ptr(), work.data_ptr(),
         *(grads[k].data_ptr() for k in _OPERANDS),
         n_rt, B, hs_rows, width, in_pad, nb, out_dim, int(accumulate),
