@@ -45,8 +45,7 @@ __all__ = ["pack_r2l_train_weights", "r2l_train_fwd", "r2l_train_bwd",
            "r2l_train_bwd_act", "r2l_train_wgrad", "r2l_train_fwd_ref",
            "r2l_train_bwd_ref", "r2l_train_bwd_act_ref", "r2l_train_wgrad_ref",
            "R2LTrainFunction", "r2l_train_apply", "r2l_train_flops",
-           "r2l_train_pass_flops",
-           "train_profile_eligible", "RAY_CAP"]
+           "r2l_train_pass_flops", "train_profile_eligible", "RAY_CAP"]
 
 MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 IN_ALIGN = 64      # the kernels stream weights in chunks of 64 rows
@@ -69,9 +68,9 @@ _SIGNATURES = {
     #  embed_L, in_pad, W, n_block, out_dim, res_scale, global_residual,
     #  stream) -> cudaError_t
     "r2l_train_fwd_launch": (_I, (_P,) * 9 + (_I,) * 7 + (_F, _I, _P)),
-    # (x, hs, dout, head_w, head_b, body_w, body_b, tail_w, tail_b, 6 grads,
-    #  dx, B, x_cols, embed_L, in_pad, W, n_block, out_dim, res_scale,
-    #  global_residual, stream) -> cudaError_t
+    # (x, hs, dout, head_w, head_b, body_w, body_b, tail_w, tail_b, dg2, dg1,
+    #  g1, dpre, emb, part, dx, B, hs_rows, x_cols, embed_L, in_pad, W,
+    #  n_block, out_dim, res_scale, global_residual, stream) -> cudaError_t
     "r2l_train_bwd_launch": (_I, (_P,) * 16 + (_I,) * 8 + (_F, _I, _P)),
 }
 _WGRAD_SIGNATURES = {
