@@ -348,8 +348,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver, through the runtime (the library
-// links no libcuda), or null.
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query (the library links no libcuda), or null.
 EncodeTiled encoder() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
