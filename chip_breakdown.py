@@ -2,17 +2,26 @@
 """Where a fused kernel's time goes, on one CUDA card.
 
     python3 chip_breakdown.py [--seed N]
-        [--kernel serve|serve_int8|train_bwd|teacher|teacher_int8]
+        [--kernel serve|train_fwd|serve_int8|train_bwd|teacher|teacher_int8]
 
 Builds the kernel as shipped and variants of it made by replacing a few
 statements each, all with nvcc in parallel into build/kernels/breakdown/,
 and times each with CUDA events at the main path's shape (W256 D88).
 
 serve: csrc/r2l_forward.cu on the rays of one 400x400 frame, its variants
-edited in the weight stream it includes (csrc/r2l_mma.cuh):
+edited in the wgmma tile it includes (csrc/r2l_wgmma.cuh):
   shipped      the kernel as the port runs it
-  no_loads     no weight copies: the products and barriers alone
-  no_products  no mma.sync or ldmatrix: the weight stream and barriers alone
+  no_multicast each block's producer loads every chunk whole into its own
+               block, and a stage waits for its own block's consumers only:
+               the ring and wgmma without the cluster's shared stream
+  no_loads     no TMA weight copies (each stage completes on the producer's
+               arrival alone): the products, epilogues and layer barriers
+  no_products  no wgmma: the weight stream, epilogues and layer barriers
+
+train_fwd: csrc/r2l_train.cu's forward (the same tile, storing hs) at the
+training step's 98,304 rays, the global residual on, variants as serve's:
+  shipped, no_loads, no_products, and
+  no_hs_stores no TMA stores of hs: the forward alone
 
 serve_int8: csrc/r2l_int8.cu with static activation scales (from
 calibrate_r2l_int8 on the frame's first 1024 rays) on the rays of one
@@ -74,8 +83,27 @@ from concurrent.futures import ThreadPoolExecutor
 
 import chip_smoke as cs
 
-_LOAD = "cp_async16(dst + r * LDS + piece * 8, src + (size_t)r * K + piece * 8);"
-_PRODUCTS = "    if (owns) {\n      const __nv_bfloat16* X = (l & 1) ? X1 : X0;"
+_WG = "r2l_wgmma.cuh"
+_WG_ISSUE = """    mbar_arrive_expect_tx(&full[s], WP * KC * 2);
+    tma_box_multicast(ring + (size_t)s * WP * KC + rank * NT * KC,
+                      head ? &maps.head : &maps.body, k * KC, rank * NT, layer, &full[s],
+                      0x3);
+"""
+_WG_OWN_ISSUE = """    mbar_arrive_expect_tx(&full[s], WP * KC * 2);
+    for (int r = 0; r < 2; ++r)
+      tma_box_multicast(ring + (size_t)s * WP * KC + r * NT * KC,
+                        head ? &maps.head : &maps.body, k * KC, r * NT, layer, &full[s],
+                        (unsigned short)(1u << rank));
+"""
+_WG_RELEASE = """      mbar_arrive_cluster(&empty[read % S], 0);
+      mbar_arrive_cluster(&empty[read % S], 1);
+"""
+_WG_PRODUCTS = "        Wgmma<NT>::run(acc, da + 2 * k, db + 2 * k, kc + k);\n"
+_WG_HS = "tma_store_box(&maps.hs, a + q * PANEL, 64 * q, (int)ray0, blk);"
+_WG_VARIANTS = {
+    "no_loads": [(_WG, _WG_ISSUE, "    mbar_arrive(&full[s]);\n")],
+    "no_products": [(_WG, _WG_PRODUCTS, "")],
+}
 _STORE = "  const int c8 = ncols / 8;\n"
 _W_PRODUCTS = "      if (active) stage_product(As, As + A_TILE, acc, ms, ns, lane);\n"
 _W_EXPECT = "        mbar_arrive_expect_tx(&full[s], bytes);"
@@ -109,8 +137,14 @@ _FIELD = "nerf_field.cuh"
 KERNELS = {
     "serve": ("r2l_forward.cu", {
         "shipped": [],
-        "no_loads": [("r2l_mma.cuh", _LOAD, "")],
-        "no_products": [("r2l_mma.cuh", _PRODUCTS, _PRODUCTS.replace("(owns)", "(false)"))],
+        "no_multicast": [(_WG, _WG_ISSUE, _WG_OWN_ISSUE),
+                         (_WG, _WG_RELEASE, "      mbar_arrive(&empty[read % S]);\n" * 2)],
+        **_WG_VARIANTS,
+    }),
+    "train_fwd": ("r2l_train.cu", {
+        "shipped": [],
+        **_WG_VARIANTS,
+        "no_hs_stores": [(_WG, _WG_HS, "")],
     }),
     "serve_int8": ("r2l_int8.cu", {
         "shipped": [],
@@ -250,6 +284,49 @@ def _serve_int8_runner(torch, dev, seed):
     ops8, ops16 = i8.r2l_int8_ops(packed, n_rays)
     bound_ms = cs.bound(ops16, 0, int8_ops=ops8)[0]
     return n_rays, bound_ms, cs.INT8_TOL["static"], make_run, error
+
+
+def _train_fwd_runner(torch, dev, seed):
+    from efficient_nerf_tpu_torch.core.poses import pose_spherical
+    from efficient_nerf_tpu_torch.core.ray_sampler import sample_ray_points
+    from efficient_nerf_tpu_torch.core.rays import get_rays
+    from efficient_nerf_tpu_torch.models import R2LNet
+    from efficient_nerf_tpu_torch.ops import r2l_train as rt
+
+    model = R2LNet(cs.IN_DIM, cs.DEPTH, cs.WIDTH, use_residual=True,
+                   dtype=torch.bfloat16)
+    model.load_state_dict(cs.random_state_dict(seed, torch))
+    model = model.to(dev)
+    packed = rt.pack_r2l_train_weights(rt._model_params(model), cs.L_FREQ)
+    n_rays = cs.TRAIN_BATCH + cs.TRAIN_HARD[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ro, rd = get_rays(cs.FRAME_H, cs.FRAME_W, cs.FOCAL,
+                      pose_spherical(-30.0, -30.0, 4.0)[:3, :4], device=dev)
+    pick = torch.randint(0, cs.FRAME_H * cs.FRAME_W, (n_rays,), generator=gen,
+                         device=dev)
+    x = sample_ray_points(ro.reshape(-1, 3)[pick], rd.reshape(-1, 3)[pick],
+                          cs.NEAR, cs.FAR, cs.N_SAMPLE, perturb=True,
+                          generator=gen).contiguous()
+    want, _ = rt.r2l_train_fwd_ref(packed, x, use_global_residual=True)
+    width, in_pad = packed["head_w"].shape
+    nb = packed["body_w"].shape[0]
+    out = torch.empty((n_rays, 3), device=dev)
+    hs = torch.empty((nb + 1, n_rays, width), dtype=torch.bfloat16, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def make_run(lib):
+        fn = lib.r2l_train_fwd_launch
+        restype, argtypes = rt._SIGNATURES["r2l_train_fwd_launch"]
+        fn.restype, fn.argtypes = restype, list(argtypes)
+        return lambda: fn(x.data_ptr(), *(packed[k].data_ptr() for k in rt._OPERANDS),
+                          out.data_ptr(), hs.data_ptr(), n_rays, x.shape[1], cs.L_FREQ,
+                          in_pad, width, nb, 3, 1.0, 1, stream)
+
+    def error():
+        return (out - want).abs().max().item()
+
+    bound_ms = rt.r2l_train_flops(packed, n_rays)[0] / cs.H100_BF16_FLOPS * 1e3
+    return n_rays, bound_ms, cs.KERNEL_TOL, make_run, error
 
 
 def _train_bwd_runner(torch, dev, seed):
@@ -410,7 +487,8 @@ def _teacher_int8_runner(torch, dev, seed):
     return n * S, bound_ms, cs.INT8_TEACHER_TOL, make_run, error
 
 
-RUNNERS = {"serve": _serve_runner, "serve_int8": _serve_int8_runner,
+RUNNERS = {"serve": _serve_runner, "train_fwd": _train_fwd_runner,
+           "serve_int8": _serve_int8_runner,
            "train_bwd": _train_bwd_runner, "teacher": _teacher_runner,
            "teacher_int8": _teacher_int8_runner}
 

@@ -3,16 +3,21 @@
 teacher's rendering and pseudo-data paths on one CUDA card, and holds their
 kernels against their plain versions.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases build,kernel,...]
 
 Phases, each of which fails the run (non-zero exit, no result line):
   build         nvcc builds every csrc/*.cu into build/kernels/ (one nvcc per
                 source, all started together); prints the time and ptxas's
-                report.
+                report, and for the two forward kernels on the wgmma tile
+                (csrc/r2l_wgmma.cuh) each instantiation's registers, spill
+                bytes and dynamic shared memory.
   trig          the fast_sincos device helper (csrc/trig.cuh) against its
                 plain torch version over |y| <= 4e3.
-  kernel        the fused R2L kernel at W256 D88, n_sample 16, L 10, B 8192,
-                both use_residual settings, against r2l_forward_fused_ref.
+  kernel        the fused R2L kernel at W256 D88, n_sample 16, L 10, B 8192
+                and the ragged B 1, 37, 64, 65, 192 (a tile or a cluster's
+                second block partly or wholly empty), both use_residual
+                settings, against r2l_forward_fused_ref; two calls bit for
+                bit.
   main          r2l_render_image for 3 pose_spherical poses at 400x400
                 through the public entry points, with the kernels' launch
                 counters set to 0 just before and read just after; then the
@@ -35,9 +40,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
   train_kernel  the training kernels at W256 D88, embed_L 10, bf16, B 8192
                 and a ragged B 37, use_residual and need_dx off and on:
                 out and hs of the forward, every gradient and dx of the
-                backward, against their plain versions; at B 8192 each
-                backward pass against its plain version (pass 2 on pass 1's
-                own scratch) and two backward calls bit for bit.
+                backward, against their plain versions; the forward also at
+                the ragged B 1, 64, 65, 192, and two forward calls bit for
+                bit; at B 8192 each backward pass against its plain version
+                (pass 2 on pass 1's own scratch) and two backward calls bit
+                for bit.
   train         make_r2l_train_step at the slice's configuration (98,304
                 rays a step: 81,920 batch rays + 16,384 hard rays from an
                 81,920-row pool, perturbed, Adam with the warmup schedule):
@@ -105,7 +112,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 teacher phase; frame time beside the composed path's.
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Weights are random, made from --seed: the
+{"ok": true, "device": {...}}. --phases runs the named phases only (each
+with the phases it reads from: main needs kernel, train train_kernel, ...)
+and then prints the kernels line of those phases and no "ok" line. Weights are random, made from --seed: the
 student's with each block's second linear scaled by 0.1 so that the 88-layer
 output is not saturated by the sigmoid; the teacher's lecun-normal kernels
 (normal, std 1/sqrt(fan_in)) and normal biases of std 0.01, a bf16 NeRFMLP
@@ -117,6 +126,7 @@ import argparse
 import copy
 import json
 import math
+import re
 import subprocess
 import tempfile
 import time
@@ -132,6 +142,10 @@ NEAR, FAR = 2.0, 6.0
 FRAME_H = FRAME_W = 400
 FOCAL = 0.5 * FRAME_W / 0.4142135623730951   # 45-degree field of view
 KERNEL_B = 8192
+# Batches that leave a 64-ray tile, or the second block of a cluster of two
+# tiles, partly or wholly empty: one ray, part of a tile, one tile, one ray
+# past it, three tiles (an odd count)
+RAGGED_B = (1, 37, 64, 65, 192)
 NOISE_B = 2048
 TRIG_N = 1 << 22
 
@@ -355,6 +369,28 @@ def phase_build(sm: Smoke) -> None:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    # the two forward kernels on the wgmma tile, one line an instantiation
+    # (NT output columns a warpgroup; W256 is NT 128)
+    import ctypes
+
+    for name, kernel, fn in (("r2l_forward", "r2l_forward_kernel", "r2l_forward_smem_bytes"),
+                             ("r2l_train", "r2l_train_fwd_kernel", "r2l_train_fwd_smem_bytes")):
+        cur, props = None, {}
+        for line in _build.build_log(name).splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                cur = m.group(1)
+            elif cur and kernel in cur and ("spill" in line or "Used" in line):
+                props.setdefault(cur, []).append(line.strip())
+        lib = ctypes.CDLL(str(_build.library_path(name)))
+        getattr(lib, fn).restype = ctypes.c_longlong
+        smem = getattr(lib, fn)(1024, WIDTH)
+        for cur, lines in sorted(props.items()):
+            nt = re.search(r"ILi(\d+)E", cur)
+            print(f"build: {kernel}<NT={nt.group(1) if nt else '?'}>: "
+                  + "; ".join(lines), flush=True)
+        print(f"build: {kernel} dynamic shared memory at W{WIDTH}, in_pad 1024: {smem} "
+              f"bytes", flush=True)
 
 
 def phase_trig(sm: Smoke) -> None:
@@ -414,6 +450,30 @@ def phase_kernel(sm: Smoke) -> None:
         if not err <= KERNEL_TOL:
             fail(f"kernel differs from its plain version by {err}")
         max_err = max(max_err, err)
+        again = r2l_forward_fused(packed, ko, kd, NEAR, FAR, N_SAMPLE, L_FREQ,
+                                  use_global_residual=use_res)
+        if not torch.equal(got, again):
+            fail("two kernel calls on the same rays differ in their bits")
+    # batches that leave a tile, or a cluster's second block, empty
+    ragged = {}
+    for B in RAGGED_B:
+        for use_res in (False, True):
+            o, d = ko[-B:].contiguous(), kd[-B:].contiguous()
+            got = r2l_forward_fused(packed, o, d, NEAR, FAR, N_SAMPLE, L_FREQ,
+                                    use_global_residual=use_res)
+            want = r2l_forward_fused_ref(packed, o, d, NEAR, FAR, N_SAMPLE, L_FREQ,
+                                         use_global_residual=use_res)
+            torch.cuda.synchronize()
+            if got.shape != (B, 3) or not torch.isfinite(got).all():
+                fail(f"kernel output at B={B} has the wrong shape or is not finite")
+            ragged[(B, use_res)] = (got - want).abs().max().item()
+    print("kernel: ragged batches, max |kernel - plain| (B, use_residual): "
+          + " ".join(f"{k[0]}/{int(k[1])} {v:.3g}" for k, v in ragged.items())
+          + f"; two calls bit for bit: True", flush=True)
+    if not max(ragged.values()) <= KERNEL_TOL:
+        fail(f"kernel differs from its plain version by {max(ragged.values())} at a "
+             "ragged batch")
+    max_err = max(max_err, *ragged.values())
     # the noise that summation order alone makes: the same plain version on
     # the host CPU and on the card, on the first NOISE_B of these rays
     cpu_packed = {k: v.cpu() if torch.is_tensor(v) else v for k, v in packed.items()}
@@ -797,6 +857,25 @@ def phase_train_kernel(sm: Smoke) -> None:
                          + " ".join(f"{k} {v:.3g}" for k, v in e.items())
                          + (f" dx {e_dx:.3g}" if need_dx else ""))
             print(line, flush=True)
+    # the forward at batches that leave a tile or a cluster's block empty,
+    # and two forward calls bit for bit
+    for B in RAGGED_B[:1] + RAGGED_B[2:] + (KERNEL_B,):
+        x, _ = _train_inputs(sm, B)
+        for use_res in (False, True):
+            kw = dict(res_scale=1.0, use_global_residual=use_res)
+            out, hs = rt.r2l_train_fwd(packed, x, **kw)
+            out2, hs2 = rt.r2l_train_fwd(packed, x, **kw)
+            out_p, hs_p = rt.r2l_train_fwd_ref(packed, x, **kw)
+            torch.cuda.synchronize()
+            if out.shape != (B, 3) or hs.shape != hs_p.shape:
+                fail(f"training forward output at B={B} has the wrong shape")
+            if not (torch.equal(out, out2) and torch.equal(hs, hs2)):
+                fail(f"two training forward calls differ in their bits at B={B}")
+            errs["out"] = max(errs["out"], (out - out_p).abs().max().item())
+            errs["hs"] = max(errs["hs"], rel_err(hs, hs_p))
+    print(f"train_kernel: forward at B {', '.join(map(str, RAGGED_B[:1] + RAGGED_B[2:]))} "
+          f"and {KERNEL_B}, both use_residual: out and hs within the errors below, two "
+          f"calls bit for bit", flush=True)
     # each pass alone at KERNEL_B, and the bits of two backward calls
     x, dout = _train_inputs(sm, KERNEL_B)
     kw = dict(res_scale=1.0, use_global_residual=True, need_dx=True)
@@ -1912,17 +1991,31 @@ def phase_teacher_frame(sm: Smoke) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
+    phases = (phase_build, phase_trig, phase_kernel, phase_main,
+              phase_kernel_int8, phase_main_int8, phase_train_kernel, phase_train,
+              phase_teacher_kernel, phase_teacher, phase_pseudo,
+              phase_teacher_int8_kernel, phase_teacher_int8, phase_frame_kernel,
+              phase_teacher_frame)
+    chosen = [p for p in args.phases.split(",") if p]
+    unknown = set(chosen) - {p.__name__[len("phase_"):] for p in phases}
+    if unknown:
+        fail(f"unknown phases {sorted(unknown)}")
 
     sm = Smoke(args)
-    for phase in (phase_build, phase_trig, phase_kernel, phase_main,
-                  phase_kernel_int8, phase_main_int8, phase_train_kernel, phase_train,
-                  phase_teacher_kernel, phase_teacher, phase_pseudo,
-                  phase_teacher_int8_kernel, phase_teacher_int8, phase_frame_kernel,
-                  phase_teacher_frame):
+    for phase in phases:
+        if chosen and phase.__name__[len("phase_"):] not in chosen:
+            continue
         t0 = time.perf_counter()
         phase(sm)
         print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    if chosen:
+        print(json.dumps({"kernels": list(sm.entries.values())}))
+        print(sm.gpu)
+        print(f"chip_smoke: partial run of {','.join(chosen)}: no result line")
+        return
     # the helper runs inside every launch of the kernels that embed
     sm.entries["fast_sincos"]["launches"] = sum(
         sm.entries[k]["launches"] for k in ("r2l_forward_fused", "r2l_forward_int8",

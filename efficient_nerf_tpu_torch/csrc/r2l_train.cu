@@ -9,10 +9,11 @@
 // inner pre-activations never reach device memory, except the 44 bf16 block
 // inputs `hs` that the forward saves for the backward.
 //
-// Forward (r2l_train_fwd_kernel): csrc/r2l_forward.cu's kernel, with the
-// sample points [B, K] (embed_L > 0, embedded here by fast_sincos and the
-// double-angle recurrence) or the embedded rows [B, x_cols] (embed_L = 0) as
-// input, hs[i] = bf16(h) stored before block i, and hs[n_block] = bf16(h)
+// Forward (r2l_train_fwd_kernel): the tile of csrc/r2l_wgmma.cuh that the
+// serving forward (csrc/r2l_forward.cu) runs, with the sample points [B, K]
+// (embed_L > 0, embedded here by fast_sincos and the double-angle
+// recurrence) or the embedded rows [B, x_cols] (embed_L = 0) as input,
+// hs[i] = bf16(h) stored by TMA before block i, and hs[n_block] = bf16(h)
 // after the optional global residual (the tail's input).
 //
 // Backward, pass 1 of 2 (r2l_train_bwd_kernel): the activation chain. The
@@ -40,7 +41,7 @@
 //
 // Bound (W256 D88, 98,304 rays, need_dx off): forward 5,894,912 MAC a ray
 // (1.159 TFLOP, 1.172 ms at 989 TFLOP/s dense bf16) plus 2.2 GB of hs
-// stores, bound by operations. This pass: 3 x 43 x 65,536 MAC a ray plus the
+// stores, bound by operations; its design is r2l_wgmma.cuh's. This pass: 3 x 43 x 65,536 MAC a ray plus the
 // tail (1.663 TFLOP, 1.68 ms) against 2.2 GB of hs read and 6.8 GB of
 // operands written (2.69 ms at 3.35 TB/s): bound by bytes. The whole
 // backward's operations (14,350,592 MAC a ray, 2.853 ms) are the two
@@ -54,6 +55,7 @@
 #include <cuda_runtime.h>
 
 #include "r2l_mma.cuh"
+#include "r2l_wgmma.cuh"
 #include "trig.cuh"
 
 namespace {
@@ -76,11 +78,9 @@ struct Shape {
 };
 
 struct FwdArgs {
-  Weights w;
-  Shape s;
+  wg::Net net;
   const float* x;                  // [B, x_cols]
-  float* out;                      // [B, out_dim]
-  __nv_bfloat16* hs;               // [n_block + 1, B, W]
+  int x_cols, embed_L;
 };
 
 struct BwdArgs {
@@ -101,27 +101,6 @@ struct BwdArgs {
 constexpr int MAX_OUT = 4;         // rgb, or rgb + depth
 
 __host__ __device__ inline size_t max_sz(size_t x, size_t y) { return x > y ? x : y; }
-
-// The forward's shared memory, as csrc/r2l_forward.cu lays it out.
-struct FwdLayout {
-  size_t a, a2, head_ring, emb, h0, body_ring, total;
-};
-
-__host__ __device__ inline FwdLayout fwd_layout(int in_pad, int W) {
-  const size_t lda = W + PAD, lde = in_pad + PAD;
-  const size_t ring = (size_t)S * ring_stage_bytes(W);
-  const size_t r1 = max_sz((size_t)2 * TB * lda * 2, ring);
-  const size_t r2 = max_sz((size_t)TB * lde * 2, (size_t)TB * W * 4 + ring);
-  FwdLayout l;
-  l.a = 0;
-  l.a2 = (size_t)TB * lda * 2;
-  l.head_ring = 0;
-  l.emb = r1;
-  l.h0 = r1;
-  l.body_ring = r1 + (size_t)TB * W * 4;
-  l.total = r1 + r2;
-  return l;
-}
 
 struct BwdLayout {
   size_t ring, hbuf0, hbuf1, g1, dg2, dt, emb, dp, total;
@@ -185,136 +164,41 @@ __device__ void embed_tile(const float* x, long long ray0, const Shape& s,
     emb[(size_t)(idx / n_pad) * lde + in_dim + idx % n_pad] = __float2bfloat16_rn(0.0f);
 }
 
-// Stores bf16(v0, v1) as hs[blk][ray0 + row][col, col + 1] for rays < B.
-__device__ __forceinline__ void store_hs(__nv_bfloat16* hs, const Shape& s, int blk,
-                                         long long ray0, int row, int col,
-                                         float v0, float v1) {
-  const long long ray = ray0 + row;
-  if (ray < s.B)
-    store_bf16x2(hs + ((size_t)blk * s.B + ray) * s.W + col, v0, v1);
+template <int NT>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(wg::NTHREADS, 1)
+    r2l_train_fwd_kernel(const __grid_constant__ wg::Maps maps, const FwdArgs p) {
+  extern __shared__ __align__(128) unsigned char fwd_smem[];  // aligned to 1024 inside
+  const wg::Net net = p.net;
+  const float* x = p.x;
+  const int K = p.x_cols, L = p.embed_L, B = net.B, in_pad = net.in_pad;
+  // the [64, in_pad] network input of the tile: the doubling embed of the
+  // [B, K] points (embed_L > 0) or the given rows (embed_L = 0); zeros
+  // past B and past the input's columns
+  wg::forward_tile<NT, true>(maps, net, fwd_smem, [=](__nv_bfloat16* emb, long long ray0) {
+    for (int idx = threadIdx.x; idx < wg::TB * K; idx += wg::NTHREADS) {
+      const int row = idx / K, m = idx % K;
+      const long long ray = ray0 + row;
+      const float v = ray < B ? x[ray * K + m] : 0.0f;
+      if (L > 0)
+        wg::embed_point(emb, row, m, v, K, L);
+      else
+        emb[wg::swz(row, m)] = __float2bfloat16_rn(v);
+    }
+    wg::embed_pad(emb, L > 0 ? K * (2 * L + 1) : K, in_pad);
+  });
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1) r2l_train_fwd_kernel(const FwdArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Shape s = p.s;  // a copy: the epilogues capture locals only
-  const FwdLayout lay = fwd_layout(s.in_pad, s.W);
-  const int W = s.W, lda = W + PAD, lde = s.in_pad + PAD;
-  __nv_bfloat16* a = reinterpret_cast<__nv_bfloat16*>(smem + lay.a);
-  __nv_bfloat16* a2 = reinterpret_cast<__nv_bfloat16*>(smem + lay.a2);
-  __nv_bfloat16* emb = reinterpret_cast<__nv_bfloat16*>(smem + lay.emb);
-  float* h0 = reinterpret_cast<float*>(smem + lay.h0);
-  __nv_bfloat16* head_ring = reinterpret_cast<__nv_bfloat16*>(smem + lay.head_ring);
-  __nv_bfloat16* body_ring = reinterpret_cast<__nv_bfloat16*>(smem + lay.body_ring);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4, n0 = warp * WN;
-  const long long ray0 = (long long)blockIdx.x * TB;
-  __nv_bfloat16* hs = p.hs;
-  const int nb = s.n_block;
-
-  embed_tile(p.x, ray0, s, emb, lde);
-  // (mma_stream's first barrier orders these writes before the head reads)
-
-  // ---- head + relu into the register-resident residual stream h
-  const float* head_b = p.w.head_b;
-  const float* body_b = p.w.body_b;
-  Frag h;
-  mma_stream(emb, emb, lde, p.w.head_w, 0, s.in_pad, 1, W, head_ring,
-             [&](int, Frag& acc) {
-#pragma unroll
-               for (int i = 0; i < RT; ++i)
-#pragma unroll
-                 for (int j = 0; j < NJ; ++j) {
-                   const int col = n0 + 8 * j + 2 * t;
-                   const float b0 = head_b[col], b1 = head_b[col + 1];
-#pragma unroll
-                   for (int e = 0; e < 4; ++e)
-                     h[i][j][e] = fmaxf(acc[i][j][e] + ((e & 1) ? b1 : b0), 0.0f);
-                 }
-             });
-  // (mma_stream ends with a barrier: the embed and the head ring are dead)
-  if (n0 < W) {
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = 16 * i + g + 8 * hf, col = n0 + 8 * j + 2 * t;
-          const float v0 = h[i][j][2 * hf], v1 = h[i][j][2 * hf + 1];
-          store_bf16x2(a + row * lda + col, v0, v1);
-          store_hs(hs, s, 0, ray0, row, col, v0, v1);
-          if (s.global_residual)
-            *reinterpret_cast<float2*>(h0 + row * W + col) = make_float2(v0, v1);
-        }
+template <int NT>
+struct FwdKernel {
+  static int launch(const wg::Maps& maps, const FwdArgs& p, unsigned grid, size_t smem,
+                    cudaStream_t stream) {
+    cudaError_t err = cudaFuncSetAttribute(
+        r2l_train_fwd_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    r2l_train_fwd_kernel<NT><<<grid, wg::NTHREADS, smem, stream>>>(maps, p);
+    return (int)cudaGetLastError();
   }
-
-  // ---- residual blocks, one stream of 2 n_block layers:
-  //   even l: a2 = bf16(relu(a @ w1 + b1))
-  //   odd l:  h = (a2 @ w2 + b2) * res_scale + h;  a = bf16(h) = hs[(l + 1) / 2]
-  const float rs = s.res_scale;
-  const bool gr = s.global_residual;
-  mma_stream(a, a2, lda, p.w.body_w, (size_t)W * W, W, 2 * nb, W, body_ring,
-             [&](int l, Frag& acc) {
-               const float* bias = body_b + (size_t)l * W;
-               const int blk = (l + 1) / 2;   // the block h now enters
-               const bool save = (l & 1) && (blk < nb || !gr);
-#pragma unroll
-               for (int i = 0; i < RT; ++i)
-#pragma unroll
-                 for (int j = 0; j < NJ; ++j) {
-                   const int col = n0 + 8 * j + 2 * t;
-                   const float b0 = bias[col], b1 = bias[col + 1];
-#pragma unroll
-                   for (int hf = 0; hf < 2; ++hf) {
-                     const int row = 16 * i + g + 8 * hf;
-                     const float v0 = acc[i][j][2 * hf] + b0;
-                     const float v1 = acc[i][j][2 * hf + 1] + b1;
-                     if ((l & 1) == 0) {
-                       store_bf16x2(a2 + row * lda + col, fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
-                     } else {
-                       // rounded as the plain version rounds it (no FMA)
-                       float& h0v = h[i][j][2 * hf];
-                       float& h1v = h[i][j][2 * hf + 1];
-                       h0v = __fadd_rn(__fmul_rn(v0, rs), h0v);
-                       h1v = __fadd_rn(__fmul_rn(v1, rs), h1v);
-                       store_bf16x2(a + row * lda + col, h0v, h1v);
-                       if (save) store_hs(hs, s, blk, ray0, row, col, h0v, h1v);
-                     }
-                   }
-                 }
-             });
-
-  // ---- optional global residual (+ h0): the tail input, saved as hs[nb]
-  if (gr && n0 < W) {
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = 16 * i + g + 8 * hf, col = n0 + 8 * j + 2 * t;
-          const float2 r = *reinterpret_cast<const float2*>(h0 + row * W + col);
-          const float v0 = h[i][j][2 * hf] + r.x, v1 = h[i][j][2 * hf + 1] + r.y;
-          store_bf16x2(a + row * lda + col, v0, v1);
-          store_hs(hs, s, nb, ray0, row, col, v0, v1);
-        }
-  }
-  __syncthreads();
-
-  // ---- tail and sigmoid: one warp per (ray, output)
-  for (int q = warp; q < TB * s.out_dim; q += NWARPS) {
-    const int row = q / s.out_dim, j = q % s.out_dim;
-    float acc = 0.0f;
-    for (int n = lane; n < W; n += 32)
-      acc += __bfloat162float(a[row * lda + n]) *
-             __bfloat162float(p.w.tail_w[(size_t)j * W + n]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    const long long ray = ray0 + row;
-    if (lane == 0 && ray < s.B)
-      p.out[ray * s.out_dim + j] = 1.0f / (1.0f + expf(-(acc + p.w.tail_b[j])));
-  }
-}
+};
 
 // Copies hs[blk] rows ray0 .. ray0 + TB - 1 into a [TB, W + PAD] bf16 tile
 // with cp.async (zeros past B). The caller commits and waits.
@@ -684,7 +568,7 @@ Weights make_weights(const void* head_w, const float* head_b, const void* body_w
 // Bytes of dynamic shared memory a block of each kernel needs; above 232448
 // the shape is not supported.
 extern "C" long long r2l_train_fwd_smem_bytes(int in_pad, int W) {
-  return (long long)fwd_layout(in_pad, W).total;
+  return (long long)wg::layout(in_pad, wg::round_up64(W), true).total;
 }
 
 extern "C" long long r2l_train_bwd_smem_bytes(int in_pad, int W) {
@@ -701,21 +585,32 @@ extern "C" int r2l_train_fwd_launch(const float* x, const void* head_w, const fl
                                     int W, int n_block, int out_dim, float res_scale,
                                     int global_residual, void* stream) {
   if (B <= 0) return 0;
+  const Shape s = make_shape(B, x_cols, embed_L, in_pad, W, n_block, out_dim, res_scale,
+                             global_residual);
+  if (!shape_ok(s) || !wg::tile_ok(in_pad, W, n_block, out_dim, global_residual != 0))
+    return (int)cudaErrorInvalidValue;
+  wg::Maps maps;  // hs [n_block + 1, B, W]: boxes of 64 columns x 64 rays
+  if (!wg::weight_maps(&maps, head_w, body_w, in_pad, W, n_block) ||
+      !encode(encoder(), &maps.hs, hs, W, B, n_block + 1, 2LL * W, 2LL * W * B, wg::TB))
+    return (int)cudaErrorInvalidValue;
   FwdArgs p;
-  p.s = make_shape(B, x_cols, embed_L, in_pad, W, n_block, out_dim, res_scale,
-                   global_residual);
-  const size_t smem = fwd_layout(in_pad, W).total;
-  if (!shape_ok(p.s) || smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      r2l_train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  p.w = make_weights(head_w, head_b, body_w, body_b, tail_w, tail_b);
+  p.net.head_b = head_b;
+  p.net.body_b = body_b;
+  p.net.tail_w = static_cast<const __nv_bfloat16*>(tail_w);
+  p.net.tail_b = tail_b;
+  p.net.out = out;
+  p.net.B = B;
+  p.net.in_pad = in_pad;
+  p.net.W = W;
+  p.net.n_block = n_block;
+  p.net.out_dim = out_dim;
+  p.net.global_residual = global_residual;
+  p.net.res_scale = res_scale;
   p.x = x;
-  p.out = out;
-  p.hs = static_cast<__nv_bfloat16*>(hs);
-  const unsigned blocks = (unsigned)((B + TB - 1) / TB);
-  r2l_train_fwd_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  p.x_cols = x_cols;
+  p.embed_L = embed_L;
+  return wg::launch_tile<FwdKernel>(maps, p, B, in_pad, W, global_residual != 0,
+                                    (cudaStream_t)stream);
 }
 
 // The backward's pass 1: the scratch of pass 2 (dg2s, dg1s, g1s [n_block,

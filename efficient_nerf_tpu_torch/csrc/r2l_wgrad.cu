@@ -40,16 +40,17 @@
 //   * no atomics: each unit stores its partial tile, and a second launch adds
 //     the ray chunks' partials and the per-tile bias sums in a fixed order, so
 //     two calls on the same inputs give bit-identical gradients.
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "r2l_mma.cuh"
+#include "r2l_tma.cuh"
 
 namespace {
 
-using namespace enerf;  // TB, NWARPS, NTHREADS, mma_bf16, ldmatrix (r2l_mma.cuh)
+using namespace enerf;  // TB, NWARPS, NTHREADS, mma_bf16, ldmatrix (r2l_mma.cuh);
+                        // mbarriers, TMA boxes, tensor maps (r2l_tma.cuh)
 
 constexpr int WS = 4;              // ring stages
 constexpr int TM = 256;            // output rows of a unit: the row operand's columns (<= W)
@@ -176,50 +177,6 @@ __device__ __forceinline__ void acc_store(const Acc& acc, const Unit& q, int ms,
       }
 }
 
-// ---- mbarriers and TMA
-__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(b)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(b)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* b, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(b)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete. A wait of about ten
-// seconds means a lost copy or arrival: trap, so that the launch fails
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
-  const long long t0 = clock64();
-  unsigned done = 0;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(b)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-// One 64 x 64 box of a 3-D tensor map at (column c0, ray c1, layer c2).
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int c0, int c1,
-                                        int c2, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // Consumer warp (ms, ns) owns output rows 64 ms.., columns 64 ns.. of each
 // unit: it waits for each stage's full barrier, multiplies, and releases
 // the stage on its empty barrier.
@@ -343,40 +300,6 @@ int pick_chunks(int n_rt, int n_out, int sms) {
   return best;
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
-// query (the library links no libcuda), or null.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A [layers][rows][cols] bf16 array with the given strides in bytes, read
-// as 64 x 64 x 1 boxes with the 128-byte swizzle; rows past `rows` read zeros.
-bool encode(EncodeTiled fn, CUtensorMap* m, const void* base, long long cols, long long rows,
-            long long layers, long long row_bytes, long long layer_bytes) {
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)layers};
-  const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)layer_bytes};
-  const cuuint32_t box[3] = {64, TB, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
 int sm_count() {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
@@ -429,13 +352,13 @@ extern "C" int r2l_wgrad_launch(const void* dg2, const void* dg1, const void* g1
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   TMaps maps;  // hs's map ends at ray B: the rays past it land as zeros
   const long long Bp = (long long)n_rt * TB, W2 = 2LL * W;
-  const bool ok = encode(fn, &maps.m[M_DG2], dg2, W, Bp, nb, W2, Bp * W2) &&
-                  encode(fn, &maps.m[M_DG1], dg1, W, Bp, nb, W2, Bp * W2) &&
-                  encode(fn, &maps.m[M_G1], g1, W, Bp, nb, W2, Bp * W2) &&
-                  encode(fn, &maps.m[M_HS], hs, W, B, nb, W2, hs_rows * W2) &&
-                  encode(fn, &maps.m[M_DPRE], dpre, W, Bp, 1, W2, Bp * W2) &&
+  const bool ok = encode(fn, &maps.m[M_DG2], dg2, W, Bp, nb, W2, Bp * W2, TB) &&
+                  encode(fn, &maps.m[M_DG1], dg1, W, Bp, nb, W2, Bp * W2, TB) &&
+                  encode(fn, &maps.m[M_G1], g1, W, Bp, nb, W2, Bp * W2, TB) &&
+                  encode(fn, &maps.m[M_HS], hs, W, B, nb, W2, hs_rows * W2, TB) &&
+                  encode(fn, &maps.m[M_DPRE], dpre, W, Bp, 1, W2, Bp * W2, TB) &&
                   encode(fn, &maps.m[M_EMB], emb, in_pad, Bp, 1, 2LL * in_pad,
-                         Bp * 2LL * in_pad);
+                         Bp * 2LL * in_pad, TB);
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(r2l_wgrad_tma_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,

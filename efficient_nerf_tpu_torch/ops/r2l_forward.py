@@ -2,7 +2,8 @@
 
 Port of `efficient_nerf_tpu/ops/pallas/r2l_forward.py::r2l_forward_fused`
 (:388) in its production configuration (the double-angle embedding,
-f32 epilogues). The kernel is csrc/r2l_forward.cu; this module holds
+f32 epilogues). The kernel is csrc/r2l_forward.cu, on the wgmma tile of
+csrc/r2l_wgmma.cuh that the training forward shares; this module holds
 
   * `pack_r2l_weights`: the model's weights as the kernel's operands, with
     the head's input columns permuted into the doubling embed's block layout
@@ -36,9 +37,9 @@ __all__ = ["pack_r2l_weights", "r2l_forward_fused", "r2l_forward_fused_ref",
            "r2l_forward_flops"]
 
 MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
-IN_ALIGN = 64      # the kernel streams weights in chunks of 64 input rows
-WIDTH_ALIGN = 32   # each of the kernel's warps owns 32 output columns
-MAX_WIDTH = 256    # eight warps
+IN_ALIGN = 64      # the kernel streams weights in chunks of 64 input columns
+WIDTH_ALIGN = 32   # the kernel pads the width to a multiple of 64 with zeros
+MAX_WIDTH = 256    # two warpgroups of 128 output columns
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -3,7 +3,8 @@
 Port of `efficient_nerf_tpu/ops/pallas/r2l_train.py::r2l_train_apply`
 (:397): `_fwd_kernel` (:85) and `_bwd_kernel` (:115) behind the custom VJP
 `_apply` (:348, `_apply_fwd` :355, `_apply_bwd` :361). The forward kernel is
-csrc/r2l_train.cu; the backward runs in two passes, the activation chain
+csrc/r2l_train.cu's, on the wgmma tile of csrc/r2l_wgmma.cuh that the
+serving forward shares; the backward runs in two passes, the activation chain
 (csrc/r2l_train.cu) and the weight gradients (csrc/r2l_wgrad.cu), which
 sums over the rays what the TPU grid summed tile by tile. This module holds
 
@@ -50,7 +51,7 @@ __all__ = ["pack_r2l_train_weights", "r2l_train_fwd", "r2l_train_bwd",
 MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 IN_ALIGN = 64      # the kernels stream weights in chunks of 64 rows
 WIDTH_ALIGN = 64   # ... and the width is a contraction length too
-MAX_WIDTH = 256    # eight warps of 32 output columns
+MAX_WIDTH = 256    # the backward's eight warps of 32 output columns
 MAX_OUT = 4        # rgb, or rgb + depth
 TILE = 64          # rays a block of the backward's pass 1 (a row of `part`)
 # Rays a pair of backward passes takes at most: pass 1's scratch is 3 bf16

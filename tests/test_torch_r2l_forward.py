@@ -16,6 +16,11 @@ from efficient_nerf_tpu_torch.ops import r2l_forward as fwd
 N_SAMPLE, L, DEPTH, WIDTH = 4, 10, 6, 64
 IN_DIM = N_SAMPLE * 3 * (2 * L + 1)   # 252: not a multiple of 16, so padded
 B = 40                                 # not a multiple of any tile
+# Batches that leave the card's 64-ray tile, or the second block of a
+# cluster of two tiles, partly or wholly empty: one ray, part of a tile, one
+# tile, one ray past it, three tiles (an odd count), and many
+RAGGED_B = (1, 37, 64, 65, 192)
+CARD_B = RAGGED_B + (8192,)
 # f32 operands on both sides; the double-angle embed carries ~2^L ulp
 # (~1e-4) of phase error that the net may amplify: the precedent of
 # tests/test_ops.py:64 for the same kernel in interpret mode
@@ -62,6 +67,27 @@ def test_plain_version_matches_pallas_interpret(use_residual, rng):
                                 use_global_residual=use_residual).numpy()
     assert fwd.r2l_forward_fused.launches == launches  # CPU: no kernel launch
     assert got.shape == (B, 3)
+    np.testing.assert_allclose(got, want, atol=TOL)
+
+
+@pytest.mark.parametrize("n_rays", RAGGED_B)
+@pytest.mark.parametrize("use_residual", [False, True])
+def test_plain_version_matches_pallas_interpret_ragged(use_residual, n_rays, rng):
+    """The contract the card tests hold the kernel to, at the batches that
+    leave a tile or a cluster's block empty."""
+    _, params, tm, _, _ = _setup(use_residual, rng)
+    o = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    d = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    want = np.asarray(jfwd.r2l_forward_fused(
+        params, jnp.asarray(o), jnp.asarray(d), 2.0, 6.0, N_SAMPLE, L,
+        dtype=jnp.float32, interpret=True, fast_embed=True, tile_b=16,
+        use_global_residual=use_residual))
+    packed = fwd.pack_r2l_weights(tm.state_dict(), N_SAMPLE, L,
+                                  dtype=torch.float32)
+    got = fwd.r2l_forward_fused(packed, torch.from_numpy(o), torch.from_numpy(d),
+                                2.0, 6.0, N_SAMPLE, L,
+                                use_global_residual=use_residual).numpy()
+    assert got.shape == (n_rays, 3)
     np.testing.assert_allclose(got, want, atol=TOL)
 
 
@@ -121,12 +147,10 @@ def test_pack_rejects_other_profiles(rng):
         fwd.r2l_forward_fused(packed, o, o, 2.0, 6.0, N_SAMPLE, L - 1)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("use_residual", [False, True])
-def test_kernel_matches_plain_version(use_residual, cuda_device, rng):
+def _card_model(rng, width, depth, use_residual, dev):
     # lecun-normal kernels with each block's second linear times 0.1, small
     # biases: the outputs stay clear of the sigmoid's flat ends (chip_smoke.py)
-    tm = R2LNet(IN_DIM, 12, 256, use_residual=use_residual)
+    tm = R2LNet(IN_DIM, depth, width, use_residual=use_residual)
     with torch.no_grad():
         for name, v in tm.named_parameters():
             scale = 0.01 if name.endswith("bias") else v.shape[-1] ** -0.5
@@ -134,20 +158,42 @@ def test_kernel_matches_plain_version(use_residual, cuda_device, rng):
                 scale *= 0.1
             v.copy_(torch.from_numpy(
                 rng.normal(scale=scale, size=tuple(v.shape)).astype(np.float32)))
-    o = rng.normal(size=(B, 3)).astype(np.float32)
-    d = rng.normal(size=(B, 3)).astype(np.float32)
-    packed = fwd.pack_r2l_weights(
-        {k: v.to(cuda_device) for k, v in tm.state_dict().items()}, N_SAMPLE, L)
-    ro = torch.from_numpy(o).to(cuda_device)
-    rd = torch.from_numpy(d).to(cuda_device)
+    return fwd.pack_r2l_weights({k: v.to(dev) for k, v in tm.state_dict().items()},
+                                N_SAMPLE, L)
+
+
+def _card_check(packed, n_rays, use_residual, dev, rng):
+    ro = torch.from_numpy(rng.normal(size=(n_rays, 3)).astype(np.float32)).to(dev)
+    rd = torch.from_numpy(rng.normal(size=(n_rays, 3)).astype(np.float32)).to(dev)
     launches = fwd.r2l_forward_fused.launches
     got = fwd.r2l_forward_fused(packed, ro, rd, 2.0, 6.0, N_SAMPLE, L,
                                 use_global_residual=use_residual)
+    again = fwd.r2l_forward_fused(packed, ro, rd, 2.0, 6.0, N_SAMPLE, L,
+                                  use_global_residual=use_residual)
     torch.cuda.synchronize()
-    assert fwd.r2l_forward_fused.launches == launches + 1
+    assert fwd.r2l_forward_fused.launches == launches + 2
+    assert torch.equal(got, again)  # no atomics, no order that changes
     want = fwd.r2l_forward_fused_ref(packed, ro, rd, 2.0, 6.0, N_SAMPLE, L,
                                      use_global_residual=use_residual)
     # same bf16 operands and f32 epilogues; only the summation order differs,
     # and a one-ulp difference can flip a bf16 rounding: chip_smoke.py's
     # tolerance, set from that noise at 88 layers (PERF.md)
     torch.testing.assert_close(got, want, atol=4e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays", CARD_B)
+@pytest.mark.parametrize("use_residual", [False, True])
+def test_kernel_matches_plain_version(use_residual, n_rays, cuda_device, rng):
+    packed = _card_model(rng, 256, 12, use_residual, cuda_device)
+    _card_check(packed, n_rays, use_residual, cuda_device, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [32, 96, 160])
+def test_kernel_pads_other_widths(width, cuda_device, rng):
+    """Widths that are not a multiple of 64 run on zero padding (rows and
+    columns past W land as zeros); with 256 these cover the kernel's four
+    warpgroup widths."""
+    packed = _card_model(rng, width, 6, True, cuda_device)
+    _card_check(packed, 65, True, cuda_device, rng)

@@ -31,6 +31,11 @@ TOL_GRAD = {0: 1e-5, 10: 5e-4}
 # a cotangent, and that carries through the blocks.
 TOL_BF16_OUT = 1e-2
 TOL_BF16_GRAD = 3e-2
+# Batches that leave the card's 64-ray tile, or the second block of a
+# cluster of two tiles, partly or wholly empty: one ray, part of a tile, one
+# tile, one ray past it, three tiles (an odd count), and many
+RAGGED_B = (1, 37, 64, 65, 192)
+CARD_B = RAGGED_B + (8192,)
 
 
 @pytest.fixture
@@ -144,6 +149,23 @@ def test_passes_match_pallas_interpret_bf16(embed_L, need_dx, rng):
     _assert_grads(grads, g_w, TOL_BF16_GRAD)
     if need_dx:
         _assert_grads({"dx": dx}, {"dx": dx_w}, TOL_BF16_GRAD)
+
+
+@pytest.mark.parametrize("n_rays", RAGGED_B)
+def test_forward_matches_pallas_interpret_ragged(n_rays, rng):
+    """The training forward's plain version (what the card's kernel is held
+    to) against the Pallas forward at the batches that leave a tile or a
+    cluster's block empty, f32 operands."""
+    params, tm, _, _ = _setup(rng, grs=True, res_scale=0.5)
+    x = (rng.normal(size=(n_rays, K)) * 3.0).astype(np.float32)
+    want = np.asarray(jtrain.r2l_train_apply(
+        params, jnp.asarray(x), res_scale=0.5, use_global_residual=True, tile_b=16,
+        tile_b_bwd=32, dtype=jnp.float32, embed_L=L, need_dx=False, interpret=True))
+    packed = rt.pack_r2l_train_weights(rt._model_params(tm), L, torch.float32)
+    out, hs = rt.r2l_train_fwd(packed, torch.from_numpy(x), res_scale=0.5,
+                               use_global_residual=True)
+    assert out.shape == (n_rays, 3) and hs.shape == ((DEPTH - 2) // 2 + 1, n_rays, WIDTH)
+    np.testing.assert_allclose(out.numpy(), want, atol=TOL_OUT[L], rtol=0)
 
 
 def _packed_inputs(rng, embed_L=10, grs=False, n_rays=B):
@@ -308,10 +330,10 @@ def test_other_profiles_and_inputs_raise(rng):
     assert not fused_r2l_train_available("cpu")
 
 
-def _random_model(rng, depth, grs=False, dtype=torch.float32):
+def _random_model(rng, depth, grs=False, dtype=torch.float32, width=256):
     # lecun-normal kernels with each block's second linear times 0.1, small
     # biases: the outputs stay clear of the sigmoid's flat ends (chip_smoke.py)
-    tm = R2LNet(IN_DIM, depth, 256, use_residual=grs, dtype=dtype)
+    tm = R2LNet(IN_DIM, depth, width, use_residual=grs, dtype=dtype)
     with torch.no_grad():
         for name, v in tm.named_parameters():
             scale = 0.01 if name.endswith("bias") else v.shape[-1] ** -0.5
@@ -346,6 +368,41 @@ def test_kernels_match_plain_versions(grs, embed_L, cuda_device, rng):
             (k, g[k], g_p[k], 4e-2 if k == "dx" else 1e-2) for k in g_p]:
         err = (got.float() - want.float()).abs().max() / want.float().abs().max()
         assert err <= tol, (name, err.item())
+
+
+def _forward_check(packed, n_rays, grs, dev, rng):
+    x = torch.from_numpy((rng.normal(size=(n_rays, K)) * 3.0).astype(np.float32)).to(dev)
+    launches = rt.r2l_train_fwd.launches
+    out, hs = rt.r2l_train_fwd(packed, x, use_global_residual=grs)
+    out2, hs2 = rt.r2l_train_fwd(packed, x, use_global_residual=grs)
+    out_p, hs_p = rt.r2l_train_fwd_ref(packed, x, use_global_residual=grs)
+    torch.cuda.synchronize()
+    assert rt.r2l_train_fwd.launches == launches + 2
+    # no atomics, no order that changes
+    assert torch.equal(out, out2) and torch.equal(hs, hs2)
+    assert hs.shape == hs_p.shape
+    torch.testing.assert_close(out, out_p, atol=4e-3, rtol=0)
+    assert _rel(hs, hs_p) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays", CARD_B)
+@pytest.mark.parametrize("grs", [False, True])
+def test_forward_kernel_ragged_batches(grs, n_rays, cuda_device, rng):
+    """out and every row of hs (stored by TMA, rows past B clipped) at the
+    batches that leave a tile or a cluster's second block empty."""
+    tm = _random_model(rng, 12, grs).to(cuda_device)
+    _forward_check(rt.pack_r2l_train_weights(rt._model_params(tm), 10), n_rays, grs,
+                   cuda_device, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 128, 192])
+def test_forward_kernel_other_widths(width, cuda_device, rng):
+    """With 256, the kernel's four warpgroup widths."""
+    tm = _random_model(rng, 6, True, width=width).to(cuda_device)
+    _forward_check(rt.pack_r2l_train_weights(rt._model_params(tm), 10), 65, True,
+                   cuda_device, rng)
 
 
 @pytest.mark.cuda
