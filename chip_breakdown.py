@@ -11,16 +11,19 @@ and times each with CUDA events at the main path's shape (W256 D88).
 serve: csrc/r2l_forward.cu on the rays of one 400x400 frame, its variants
 edited in the wgmma tile it includes (csrc/r2l_wgmma.cuh):
   shipped      the kernel as the port runs it
-  no_multicast each block's producer loads every chunk whole into its own
-               block, and a stage waits for its own block's consumers only:
-               the ring and wgmma without the cluster's shared stream
+  cluster_multicast  the tile in clusters of two blocks (CLUSTER = 2): each
+               block loads half of every chunk and multicasts it to both,
+               and a stage waits for both blocks' warps: the design the
+               kernels measured slower than and left off
+  release_early  each stage freed as soon as its own products are read
+               (instead of after the next chunk's products are issued)
   no_loads     no TMA weight copies (each stage completes on the producer's
                arrival alone): the products, epilogues and layer barriers
   no_products  no wgmma: the weight stream, epilogues and layer barriers
 
 train_fwd: csrc/r2l_train.cu's forward (the same tile, storing hs) at the
 training step's 98,304 rays, the global residual on, variants as serve's:
-  shipped, no_loads, no_products, and
+  shipped, cluster_multicast, release_early, no_loads, no_products, and
   no_hs_stores no TMA stores of hs: the forward alone
 
 serve_int8: csrc/r2l_int8.cu with static activation scales (from
@@ -85,22 +88,31 @@ import chip_smoke as cs
 
 _WG = "r2l_wgmma.cuh"
 _WG_ISSUE = """    mbar_arrive_expect_tx(&full[s], WP * KC * 2);
-    tma_box_multicast(ring + (size_t)s * WP * KC + rank * NT * KC,
-                      head ? &maps.head : &maps.body, k * KC, rank * NT, layer, &full[s],
-                      0x3);
-"""
-_WG_OWN_ISSUE = """    mbar_arrive_expect_tx(&full[s], WP * KC * 2);
-    for (int r = 0; r < 2; ++r)
-      tma_box_multicast(ring + (size_t)s * WP * KC + r * NT * KC,
-                        head ? &maps.head : &maps.body, k * KC, r * NT, layer, &full[s],
-                        (unsigned short)(1u << rank));
-"""
-_WG_RELEASE = """      mbar_arrive_cluster(&empty[read % S], 0);
-      mbar_arrive_cluster(&empty[read % S], 1);
+    for (int r = rank; r < 2; r += CLUSTER) {
+      __nv_bfloat16* dst = ring + (size_t)s * WP * KC + r * NT * KC;
+      if (CLUSTER > 1)
+        tma_box_multicast(dst, map, k * KC, r * NT, layer, &full[s], (1 << CLUSTER) - 1);
+      else
+        tma_box(dst, map, k * KC, r * NT, layer, &full[s]);
+    }
 """
 _WG_PRODUCTS = "        Wgmma<NT>::run(acc, da + 2 * k, db + 2 * k, kc + k);\n"
 _WG_HS = "tma_store_box(&maps.hs, a + q * PANEL, 64 * q, (int)ray0, blk);"
 _WG_VARIANTS = {
+    "cluster_multicast": [(_WG, "constexpr int CLUSTER = 1;", "constexpr int CLUSTER = 2;")],
+    "release_early": [(_WG, """      wgmma_commit();
+      if (kc > 0) {
+        wgmma_wait<1>();  // the chunk before this one has been read
+        release(c - 1);
+      }
+    }
+    wgmma_wait<0>();
+    release(c - 1);
+""", """      wgmma_commit();
+      wgmma_wait<0>();
+      release(c);
+    }
+""")],
     "no_loads": [(_WG, _WG_ISSUE, "    mbar_arrive(&full[s]);\n")],
     "no_products": [(_WG, _WG_PRODUCTS, "")],
 }
@@ -137,8 +149,6 @@ _FIELD = "nerf_field.cuh"
 KERNELS = {
     "serve": ("r2l_forward.cu", {
         "shipped": [],
-        "no_multicast": [(_WG, _WG_ISSUE, _WG_OWN_ISSUE),
-                         (_WG, _WG_RELEASE, "      mbar_arrive(&empty[read % S]);\n" * 2)],
         **_WG_VARIANTS,
     }),
     "train_fwd": ("r2l_train.cu", {

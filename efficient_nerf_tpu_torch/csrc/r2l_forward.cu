@@ -21,9 +21,9 @@
 // weights once. The function is bound by tensor-core operations. The tile
 // (csrc/r2l_wgmma.cuh, shared with the training forward) keeps the
 // activations on chip through all 88 layers and streams the weights from L2
-// by TMA into a 3-stage ring, multicast to a cluster of two blocks, under
-// wgmma products from two consumer warpgroups: the L2 stream falls to 14.7
-// GB a 160,000-ray frame, and no block barrier waits on a weight chunk.
+// by TMA into a 3-stage ring under wgmma products from two warpgroups, and
+// no block barrier waits on a weight chunk (a cluster that shares each
+// chunk between two blocks measured slower: r2l_wgmma.cuh, CLUSTER).
 // This file holds the embed of the rays and the launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,7 +44,7 @@ struct Args {
 };
 
 template <int NT>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(wg::NTHREADS, 1)
+__global__ void __cluster_dims__(wg::CLUSTER, 1, 1) __launch_bounds__(wg::NTHREADS, 1)
     r2l_forward_kernel(const __grid_constant__ wg::Maps maps, const Args p) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const wg::Net net = p.net;

@@ -37,14 +37,16 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* b, unsigned byte
 }
 
 // Arrives on the barrier at b's offset in block `cta` of the cluster (this
-// block's own when cta is its rank).
+// block's own when cta is its rank). The arrival releases at the block's
+// scope only: it says that this thread's reads of a stage are done, which
+// needs no fence across the cluster (a .release.cluster arrival, a fence on
+// every arrival, made the clustered forward 1.9 times as slow, PERF.md).
 __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* b, unsigned cta) {
   unsigned remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(remote)
                : "r"(tma_smem_addr(b)), "r"(cta));
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
-               : "memory");
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
 }
 
 // Waits for the phase of parity `parity` to complete. A wait of about ten

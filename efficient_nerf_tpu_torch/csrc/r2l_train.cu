@@ -165,7 +165,7 @@ __device__ void embed_tile(const float* x, long long ray0, const Shape& s,
 }
 
 template <int NT>
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(wg::NTHREADS, 1)
+__global__ void __cluster_dims__(wg::CLUSTER, 1, 1) __launch_bounds__(wg::NTHREADS, 1)
     r2l_train_fwd_kernel(const __grid_constant__ wg::Maps maps, const FwdArgs p) {
   extern __shared__ __align__(128) unsigned char fwd_smem[];  // aligned to 1024 inside
   const wg::Net net = p.net;

@@ -39,13 +39,14 @@
 //     the swizzled layout that the next layer's A descriptor reads. The
 //     block meets at one barrier per layer, where the epilogue's writes
 //     must precede the next layer's reads.
-//   * A cluster of two blocks halves the L2 stream: each block's loading
-//     thread loads half the rows of every chunk and multicasts them to both
-//     blocks; a stage is freed when the consumer warps of both blocks have
-//     arrived on its empty barrier (remote arrivals through mapa). A block
-//     past the last ray (an odd tile count, or B < 64) runs the whole
-//     stream on zero rays and stores nothing, so its partner never waits
-//     on it in vain.
+//   * Optionally (CLUSTER = 2), a cluster of two blocks halves the L2
+//     stream: each block's loading thread loads half the rows of every
+//     chunk and multicasts them to both blocks; a stage is freed when the
+//     warps of both blocks have arrived on its empty barrier (remote
+//     arrivals through mapa). A block past the last ray (an odd tile count,
+//     or B < 64) runs the whole stream on zero rays and stores nothing, so
+//     its partner never waits on it in vain. Measured slower than blocks
+//     that stream alone, so off (CLUSTER below).
 //   * hs (training): after the head and each odd layer, the a tile *is*
 //     bf16(h) = hs[blk]; one thread stores it with TMA (one box a 64-column
 //     panel; rows past B are not written) and waits for the store to have
@@ -71,6 +72,12 @@ constexpr int TB = 64;                  // rays a tile: one wgmma M
 constexpr int NTHREADS = 256;           // two warpgroups
 constexpr int KC = 64;                  // contraction columns of a chunk (128 bytes)
 constexpr int S = 3;                    // ring stages
+// Blocks a cluster. With 2, each block loads half of every weight chunk and
+// multicasts it to both, halving the L2 stream, and a stage is freed when
+// the warps of both blocks have read it; that coupling across SMs made the
+// kernel slower than two blocks that each stream alone (PERF.md, PR 8), so
+// the kernels run with 1. chip_breakdown.py's `cluster_multicast` builds 2.
+constexpr int CLUSTER = 1;
 constexpr int PANEL = TB * KC;          // bf16 of one swizzled [64, 64] panel (8 KB)
 constexpr int MAX_SMEM = 232448;        // 227 KB, the opt-in limit of sm_90
 
@@ -278,7 +285,7 @@ __device__ __forceinline__ void embed_pad(__nv_bfloat16* emb, int in_dim, int in
 // NTHREADS threads; embed(emb, ray0) writes the [64, in_pad] bf16 network
 // input into emb in swizzled panels (zeros past B and past the input's
 // columns). HS stores hs through maps.hs. Called by a kernel of NTHREADS
-// threads in clusters of 2, with `smem` its dynamic shared memory of
+// threads in clusters of CLUSTER, with `smem` its dynamic shared memory of
 // layout(in_pad, 2 NT, global_residual).total bytes.
 template <int NT, bool HS, class Embed>
 __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
@@ -300,16 +307,21 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);                // the loading thread's arrive, plus the bytes
-      mbar_init(&empty[s], 2 * NTHREADS / 32);  // every consumer warp of both blocks
+      mbar_init(&empty[s], CLUSTER * NTHREADS / 32);  // every warp of the cluster
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cluster_sync();  // both blocks' barriers exist before any copy or remote arrival
+  // the barriers exist (in every block of the cluster) before any copy or
+  // remote arrival
+  if (CLUSTER > 1)
+    cluster_sync();
+  else
+    __syncthreads();
 
   // ---- the loads: thread 0 streams every chunk of the head and the body,
-  // its block's half of the rows multicast to both blocks, S chunks ahead
-  // of the products
-  const unsigned rank = cluster_rank();
+  // S chunks ahead of the products (in a cluster, its block's half of the
+  // rows, multicast to both blocks)
+  const unsigned rank = CLUSTER > 1 ? cluster_rank() : 0;
   const int total = head_chunks + 2 * nb * NCH;
   auto issue = [&](int n) {
     if (n >= total) return;
@@ -318,10 +330,15 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
     const bool head = n < head_chunks;
     const int k = head ? n : (n - head_chunks) % NCH;
     const int layer = head ? 0 : (n - head_chunks) / NCH;
+    const CUtensorMap* map = head ? &maps.head : &maps.body;
     mbar_arrive_expect_tx(&full[s], WP * KC * 2);
-    tma_box_multicast(ring + (size_t)s * WP * KC + rank * NT * KC,
-                      head ? &maps.head : &maps.body, k * KC, rank * NT, layer, &full[s],
-                      0x3);
+    for (int r = rank; r < 2; r += CLUSTER) {
+      __nv_bfloat16* dst = ring + (size_t)s * WP * KC + r * NT * KC;
+      if (CLUSTER > 1)
+        tma_box_multicast(dst, map, k * KC, r * NT, layer, &full[s], (1 << CLUSTER) - 1);
+      else
+        tma_box(dst, map, k * KC, r * NT, layer, &full[s]);
+    }
   };
   if (tid == 0)
     for (int n = 0; n < S; ++n) issue(n);
@@ -335,13 +352,15 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
   for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
   int c = 0;  // chunks consumed
 
-  // frees the stage of chunk c in both blocks, once this warp's products
-  // have read it; thread 0 then loads chunk c + S into it
+  // frees the stage of chunk `read` (in every block of the cluster) once
+  // this warp's products have read it; thread 0 then loads chunk read + S
   auto release = [&](int read) {
     __syncwarp();
     if (lane == 0) {
-      mbar_arrive_cluster(&empty[read % S], 0);
-      mbar_arrive_cluster(&empty[read % S], 1);
+      if (CLUSTER > 1)
+        for (int r = 0; r < CLUSTER; ++r) mbar_arrive_cluster(&empty[read % S], r);
+      else
+        mbar_arrive(&empty[read % S]);
     }
     if (tid == 0) issue(read + S);
   };
@@ -370,7 +389,8 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
   // hs[blk] = the a tile, by one thread: a 64-column panel a box
   auto store_hs = [&](int blk) {
     if (HS && tid == 0) {
-      for (int q = 0; q * 64 < W; ++q) tma_store_box(&maps.hs, a + q * PANEL, 64 * q, (int)ray0, blk);
+      for (int q = 0; q * 64 < W; ++q)
+        tma_store_box(&maps.hs, a + q * PANEL, 64 * q, (int)ray0, blk);
       bulk_commit();
     }
   };
@@ -479,7 +499,7 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
       p.out[ray * p.out_dim + j] = 1.0f / (1.0f + expf(-(sum + p.tail_b[j])));
   }
   if (HS && tid == 0) bulk_wait();
-  cluster_sync();
+  if (CLUSTER > 1) cluster_sync();  // the partner's remote arrivals land before this block exits
 }
 
 // Shape checks of the tile, for the launchers.
@@ -500,14 +520,14 @@ inline bool weight_maps(Maps* m, const void* head_w, const void* body_w, int in_
 }
 
 // Launches kernel<NT> (a forward_tile kernel) with NT = round_up64(W) / 2
-// on ceil(B / 64) tiles rounded up to whole clusters of 2; returns
+// on ceil(B / 64) tiles rounded up to whole clusters; returns
 // cudaGetLastError().
 template <template <int> class K, class Arg>
 int launch_tile(const Maps& maps, const Arg& arg, int B, int in_pad, int W, bool h0,
                 cudaStream_t stream) {
   const size_t smem = layout(in_pad, round_up64(W), h0).total;
   const unsigned tiles = (unsigned)((B + TB - 1) / TB);
-  const unsigned grid = (tiles + 1) / 2 * 2;
+  const unsigned grid = (tiles + CLUSTER - 1) / CLUSTER * CLUSTER;
   switch (round_up64(W)) {
     case 64: return K<32>::launch(maps, arg, grid, smem, stream);
     case 128: return K<64>::launch(maps, arg, grid, smem, stream);
