@@ -17,8 +17,9 @@ edited in the wgmma tile it includes (csrc/r2l_wgmma.cuh):
                kernels measured slower than and left off
   release_early  each stage freed as soon as its own products are read
                (instead of after the next chunk's products are issued)
-  no_loads     no TMA weight copies (each stage completes on the producer's
-               arrival alone): the products, epilogues and layer barriers
+  no_loads     no TMA weight copies (each stage completes on the loading
+               thread's arrival alone): the products, epilogues and layer
+               barriers
   no_products  no wgmma: the weight stream, epilogues and layer barriers
 
 train_fwd: csrc/r2l_train.cu's forward (the same tile, storing hs) at the

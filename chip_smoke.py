@@ -114,9 +114,10 @@ Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. --phases runs the named phases only (each
 with the phases it reads from: main needs kernel, train train_kernel, ...)
-and then prints the kernels line of those phases and no "ok" line. Weights are random, made from --seed: the
-student's with each block's second linear scaled by 0.1 so that the 88-layer
-output is not saturated by the sigmoid; the teacher's lecun-normal kernels
+and then prints the kernels line of those phases and no "ok" line.
+Weights are random, made from --seed: the student's with each block's
+second linear scaled by 0.1 so that the 88-layer output is not saturated
+by the sigmoid; the teacher's lecun-normal kernels
 (normal, std 1/sqrt(fan_in)) and normal biases of std 0.01, a bf16 NeRFMLP
 (no teacher checkpoint is in the repository). Imports nothing of JAX.
 """
@@ -124,6 +125,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import json
 import math
 import re
@@ -371,8 +373,6 @@ def phase_build(sm: Smoke) -> None:
                 print(f"  ptxas {name}: {line.strip()}")
     # the two forward kernels on the wgmma tile, one line an instantiation
     # (NT output columns a warpgroup; W256 is NT 128)
-    import ctypes
-
     for name, kernel, fn in (("r2l_forward", "r2l_forward_kernel", "r2l_forward_smem_bytes"),
                              ("r2l_train", "r2l_train_fwd_kernel", "r2l_train_fwd_smem_bytes")):
         cur, props = None, {}
@@ -469,7 +469,7 @@ def phase_kernel(sm: Smoke) -> None:
             ragged[(B, use_res)] = (got - want).abs().max().item()
     print("kernel: ragged batches, max |kernel - plain| (B, use_residual): "
           + " ".join(f"{k[0]}/{int(k[1])} {v:.3g}" for k, v in ragged.items())
-          + f"; two calls bit for bit: True", flush=True)
+          + "; two calls bit for bit: True", flush=True)
     if not max(ragged.values()) <= KERNEL_TOL:
         fail(f"kernel differs from its plain version by {max(ragged.values())} at a "
              "ragged batch")

@@ -41,9 +41,10 @@
 //
 // Bound (W256 D88, 98,304 rays, need_dx off): forward 5,894,912 MAC a ray
 // (1.159 TFLOP, 1.172 ms at 989 TFLOP/s dense bf16) plus 2.2 GB of hs
-// stores, bound by operations; its design is r2l_wgmma.cuh's. This pass: 3 x 43 x 65,536 MAC a ray plus the
-// tail (1.663 TFLOP, 1.68 ms) against 2.2 GB of hs read and 6.8 GB of
-// operands written (2.69 ms at 3.35 TB/s): bound by bytes. The whole
+// stores, bound by operations; its design is r2l_wgmma.cuh's. Pass 1: 3 x
+// 43 x 65,536 MAC a ray plus the tail (1.663 TFLOP, 1.68 ms) against 2.2 GB
+// of hs read and 6.8 GB of operands written (2.69 ms at 3.35 TB/s): bound
+// by bytes. The whole
 // backward's operations (14,350,592 MAC a ray, 2.853 ms) are the two
 // passes' together.
 //

@@ -29,7 +29,7 @@
 //     168 registers a thread in every branch (setmaxnreg moves registers at
 //     run time but ptxas allocated the consumers within 168 and spilled
 //     their sums, PERF.md); with 256 threads each has 255.
-//   * wgmma for the products. Two consumer warpgroups share the tile's 64
+//   * wgmma for the products. The block's two warpgroups share the tile's 64
 //     rays: warpgroup g owns output columns [g NT, g NT + NT), NT = Wp / 2,
 //     of every layer and issues wgmma.mma_async m64nNTk16 (bf16 in, f32
 //     out), A the activation tile in shared memory, B the ring stage, both
