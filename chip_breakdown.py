@@ -11,12 +11,15 @@ and times each with CUDA events at the main path's shape (W256 D88).
 serve: csrc/r2l_forward.cu on the rays of one 400x400 frame, its variants
 edited in the wgmma tile it includes (csrc/r2l_wgmma.cuh):
   shipped      the kernel as the port runs it
-  cluster_multicast  the tile in clusters of two blocks (CLUSTER = 2): each
-               block loads half of every chunk and multicasts it to both,
-               and a stage waits for both blocks' warps: the design the
-               kernels measured slower than and left off
   release_early  each stage freed as soon as its own products are read
                (instead of after the next chunk's products are issued)
+  two_boxes    each weight chunk loaded as two TMA boxes of Wp / 2 rows
+               instead of one of Wp rows
+  loader_nowait  the loading thread (thread 0, in warp 0 of warpgroup 0)
+               loads a chunk only once its stage is free, found by a test
+               that does not wait, and defers it otherwise, up to the wait
+               for that chunk's own copy: warp 0 no longer stalls on the
+               slowest warp of the other warpgroup at every chunk
   no_loads     no TMA weight copies (each stage completes on the loading
                thread's arrival alone): the products, epilogues and layer
                barriers
@@ -24,7 +27,7 @@ edited in the wgmma tile it includes (csrc/r2l_wgmma.cuh):
 
 train_fwd: csrc/r2l_train.cu's forward (the same tile, storing hs) at the
 training step's 98,304 rays, the global residual on, variants as serve's:
-  shipped, cluster_multicast, release_early, no_loads, no_products, and
+  shipped, two_boxes, release_early, loader_nowait, no_loads, no_products, and
   no_hs_stores no TMA stores of hs: the forward alone
 
 serve_int8: csrc/r2l_int8.cu with static activation scales (from
@@ -89,18 +92,42 @@ import chip_smoke as cs
 
 _WG = "r2l_wgmma.cuh"
 _WG_ISSUE = """    mbar_arrive_expect_tx(&full[s], WP * KC * 2);
-    for (int r = rank; r < 2; r += CLUSTER) {
-      __nv_bfloat16* dst = ring + (size_t)s * WP * KC + r * NT * KC;
-      if (CLUSTER > 1)
-        tma_box_multicast(dst, map, k * KC, r * NT, layer, &full[s], (1 << CLUSTER) - 1);
-      else
-        tma_box(dst, map, k * KC, r * NT, layer, &full[s]);
-    }
+    tma_box(ring + (size_t)s * WP * KC, map, k * KC, 0, layer, &full[s]);
 """
-_WG_PRODUCTS = "        Wgmma<NT>::run(acc, da + 2 * k, db + 2 * k, kc + k);\n"
+_WG_PRODUCTS = "        Wgmma<NT>::run(acc, da + 2 * k, db + 2 * k, carry || kc + k > 0);\n"
 _WG_HS = "tma_store_box(&maps.hs, a + q * PANEL, 64 * q, (int)ray0, blk);"
+_WG_RELEASE = """    if (lane == 0) mbar_arrive(&empty[read % S]);
+    if (tid == 0) issue(read + S);
+  };
+"""
+_WG_FULL_WAIT = "      mbar_wait(&full[s], (c / S) & 1);\n"
 _WG_VARIANTS = {
-    "cluster_multicast": [(_WG, "constexpr int CLUSTER = 1;", "constexpr int CLUSTER = 2;")],
+    "two_boxes": [(_WG, _WG_ISSUE, """    mbar_arrive_expect_tx(&full[s], WP * KC * 2);
+    for (int r = 0; r < 2; ++r)
+      tma_box(ring + (size_t)s * WP * KC + r * NT * KC, map, k * KC, r * NT, layer, &full[s]);
+"""), (_WG, "  const unsigned rows = (unsigned)round_up64(W);",
+                "  const unsigned rows = (unsigned)(round_up64(W) / 2);")],
+    "loader_nowait": [
+        (_WG, _WG_RELEASE, """    if (lane == 0) mbar_arrive(&empty[read % S]);
+    if (tid == 0)
+      while (next <= read + S && next < total && stage_free(next)) issue(next++);
+  };
+"""),
+        (_WG, "  int c = 0;  // chunks consumed\n", """  int c = 0;  // chunks consumed
+  int next = S;  // thread 0: the next chunk to load
+  auto stage_free = [&](int n) {
+    unsigned done;
+    asm volatile(
+        "{\\n .reg .pred p;\\n mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\\n"
+        " selp.u32 %0, 1, 0, p;\\n}\\n"
+        : "=r"(done)
+        : "r"(tma_smem_addr(&empty[n % S])), "r"(((n / S) & 1) ^ 1)
+        : "memory");
+    return done != 0;
+  };
+"""),
+        (_WG, _WG_FULL_WAIT, "      if (tid == 0)\n        while (next <= c) issue(next++);\n"
+         + _WG_FULL_WAIT)],
     "release_early": [(_WG, """      wgmma_commit();
       if (kc > 0) {
         wgmma_wait<1>();  // the chunk before this one has been read

@@ -14,8 +14,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
   trig          the fast_sincos device helper (csrc/trig.cuh) against its
                 plain torch version over |y| <= 4e3.
   kernel        the fused R2L kernel at W256 D88, n_sample 16, L 10, B 8192
-                and the ragged B 1, 37, 64, 65, 192 (a tile or a cluster's
-                second block partly or wholly empty), both use_residual
+                and the ragged B 1, 37, 64, 65, 192 (the last 64-ray tile
+                partly filled, or whole), both use_residual
                 settings, against r2l_forward_fused_ref; two calls bit for
                 bit.
   main          r2l_render_image for 3 pose_spherical poses at 400x400
@@ -144,9 +144,8 @@ NEAR, FAR = 2.0, 6.0
 FRAME_H = FRAME_W = 400
 FOCAL = 0.5 * FRAME_W / 0.4142135623730951   # 45-degree field of view
 KERNEL_B = 8192
-# Batches that leave a 64-ray tile, or the second block of a cluster of two
-# tiles, partly or wholly empty: one ray, part of a tile, one tile, one ray
-# past it, three tiles (an odd count)
+# Batches at the edges of the 64-ray tile: one ray, part of a tile, one
+# tile, one ray past it, three tiles
 RAGGED_B = (1, 37, 64, 65, 192)
 NOISE_B = 2048
 TRIG_N = 1 << 22
@@ -372,7 +371,8 @@ def phase_build(sm: Smoke) -> None:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     # the two forward kernels on the wgmma tile, one line an instantiation
-    # (NT output columns a warpgroup; W256 is NT 128)
+    # (NT output columns a warpgroup, W256 is NT 128; PARTS=1 runs the head
+    # of an input wider than the embed's room in parts)
     for name, kernel, fn in (("r2l_forward", "r2l_forward_kernel", "r2l_forward_smem_bytes"),
                              ("r2l_train", "r2l_train_fwd_kernel", "r2l_train_fwd_smem_bytes")):
         cur, props = None, {}
@@ -386,9 +386,9 @@ def phase_build(sm: Smoke) -> None:
         getattr(lib, fn).restype = ctypes.c_longlong
         smem = getattr(lib, fn)(1024, WIDTH)
         for cur, lines in sorted(props.items()):
-            nt = re.search(r"ILi(\d+)E", cur)
-            print(f"build: {kernel}<NT={nt.group(1) if nt else '?'}>: "
-                  + "; ".join(lines), flush=True)
+            nt = re.search(r"ILi(\d+)ELb([01])E", cur)
+            name_args = f"NT={nt.group(1)}, PARTS={nt.group(2)}" if nt else "?"
+            print(f"build: {kernel}<{name_args}>: " + "; ".join(lines), flush=True)
         print(f"build: {kernel} dynamic shared memory at W{WIDTH}, in_pad 1024: {smem} "
               f"bytes", flush=True)
 
@@ -454,7 +454,7 @@ def phase_kernel(sm: Smoke) -> None:
                                   use_global_residual=use_res)
         if not torch.equal(got, again):
             fail("two kernel calls on the same rays differ in their bits")
-    # batches that leave a tile, or a cluster's second block, empty
+    # batches at the tile's edges
     ragged = {}
     for B in RAGGED_B:
         for use_res in (False, True):
@@ -857,8 +857,8 @@ def phase_train_kernel(sm: Smoke) -> None:
                          + " ".join(f"{k} {v:.3g}" for k, v in e.items())
                          + (f" dx {e_dx:.3g}" if need_dx else ""))
             print(line, flush=True)
-    # the forward at batches that leave a tile or a cluster's block empty,
-    # and two forward calls bit for bit
+    # the forward at batches at the tile's edges, and two forward calls bit
+    # for bit
     for B in RAGGED_B[:1] + RAGGED_B[2:] + (KERNEL_B,):
         x, _ = _train_inputs(sm, B)
         for use_res in (False, True):

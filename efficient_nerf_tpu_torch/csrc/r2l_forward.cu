@@ -22,9 +22,8 @@
 // (csrc/r2l_wgmma.cuh, shared with the training forward) keeps the
 // activations on chip through all 88 layers and streams the weights from L2
 // by TMA into a 3-stage ring under wgmma products from two warpgroups, and
-// no block barrier waits on a weight chunk (a cluster that shares each
-// chunk between two blocks measured slower: r2l_wgmma.cuh, CLUSTER).
-// This file holds the embed of the rays and the launch.
+// no block barrier waits on a weight chunk. This file holds the rays'
+// points and the launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <string.h>
@@ -36,44 +35,32 @@ namespace {
 using namespace enerf;
 
 struct Args {
-  wg::Net net;
+  wg::Net net;                     // K = 3 n_sample point coordinates a ray, embedded
   const float* rays_o;             // [B, 3]
   const float* rays_d;             // [B, 3]
   const float* z;                  // [n_sample] depths
-  int n_sample, L;
 };
 
-template <int NT>
-__global__ void __cluster_dims__(wg::CLUSTER, 1, 1) __launch_bounds__(wg::NTHREADS, 1)
+template <int NT, bool PARTS>
+__global__ void __launch_bounds__(wg::NTHREADS, 1)
     r2l_forward_kernel(const __grid_constant__ wg::Maps maps, const Args p) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  const wg::Net net = p.net;
   const float *rays_o = p.rays_o, *rays_d = p.rays_d, *z = p.z;
-  const int K = 3 * p.n_sample, L = p.L, B = net.B, in_pad = net.in_pad;
-  // the doubling embed of the tile's points o + z_s d (zeros past B)
-  wg::forward_tile<NT, false>(maps, net, smem, [=](__nv_bfloat16* emb, long long ray0) {
-    for (int idx = threadIdx.x; idx < wg::TB * K; idx += wg::NTHREADS) {
-      const int row = idx / K, m = idx % K;   // m = s * 3 + c
-      const long long ray = ray0 + row;
-      float o = 0.0f, d = 0.0f;
-      if (ray < B) {
-        o = rays_o[ray * 3 + m % 3];
-        d = rays_d[ray * 3 + m % 3];
-      }
-      wg::embed_point(emb, row, m, __fadd_rn(o, __fmul_rn(z[m / 3], d)), K, L);
-    }
-    wg::embed_pad(emb, K * (2 * L + 1), in_pad);
+  // coordinate m = s * 3 + c of the ray's points o + z_s d
+  wg::forward_tile<NT, false, PARTS>(maps, p.net, smem, [=](long long ray, int m) {
+    return __fadd_rn(rays_o[ray * 3 + m % 3], __fmul_rn(z[m / 3], rays_d[ray * 3 + m % 3]));
   });
 }
 
 template <int NT>
 struct Kernel {
   static int launch(const wg::Maps& maps, const Args& p, unsigned grid, size_t smem,
-                    cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(
-        r2l_forward_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                    bool parts, cudaStream_t stream) {
+    auto kernel = parts ? r2l_forward_kernel<NT, true> : r2l_forward_kernel<NT, false>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    r2l_forward_kernel<NT><<<grid, wg::NTHREADS, smem, stream>>>(maps, p);
+    kernel<<<grid, wg::NTHREADS, smem, stream>>>(maps, p);
     return (int)cudaGetLastError();
   }
 };
@@ -81,7 +68,8 @@ struct Kernel {
 }  // namespace
 
 // Bytes of dynamic shared memory one block needs (with the global
-// residual's h0); above 232448 the shape is not supported.
+// residual's h0); above 232448 the shape is not supported. A wide input
+// does not raise it: the head then runs in parts.
 extern "C" long long r2l_forward_smem_bytes(int in_pad, int W) {
   return (long long)wg::layout(in_pad, wg::round_up64(W), true).total;
 }
@@ -106,23 +94,11 @@ extern "C" int r2l_forward_launch(const float* rays_o, const float* rays_d,
   if (!wg::weight_maps(&maps, head_w, body_w, in_pad, W, n_block))
     return (int)cudaErrorInvalidValue;
   Args p;
-  p.net.head_b = head_b;
-  p.net.body_b = body_b;
-  p.net.tail_w = static_cast<const __nv_bfloat16*>(tail_w);
-  p.net.tail_b = tail_b;
-  p.net.out = out;
-  p.net.B = B;
-  p.net.in_pad = in_pad;
-  p.net.W = W;
-  p.net.n_block = n_block;
-  p.net.out_dim = out_dim;
-  p.net.global_residual = global_residual;
-  p.net.res_scale = res_scale;
+  p.net = wg::make_net(head_b, body_b, tail_w, tail_b, out, B, 3 * n_sample, L, in_pad, W,
+                       n_block, out_dim, res_scale, global_residual);
   p.rays_o = rays_o;
   p.rays_d = rays_d;
   p.z = z;
-  p.n_sample = n_sample;
-  p.L = L;
   return wg::launch_tile<Kernel>(maps, p, B, in_pad, W, global_residual != 0,
                                  (cudaStream_t)stream);
 }

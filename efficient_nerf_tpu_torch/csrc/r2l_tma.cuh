@@ -3,8 +3,7 @@
 // (r2l_wgrad.cu) and the wgmma forward tile (r2l_wgmma.cuh).
 //
 // Device side: mbarrier init / arrive / expect_tx / wait (with a trap on a
-// lost arrival), cluster-wide arrivals through mapa, 3-D TMA loads (plain
-// and multicast to a cluster) and stores. Host side: cuTensorMapEncodeTiled,
+// lost arrival), 3-D TMA loads and stores. Host side: cuTensorMapEncodeTiled,
 // looked up through the CUDA runtime's entry-point query (the libraries
 // link no libcuda), and a 3-D bf16 map with the 128-byte swizzle.
 #pragma once
@@ -36,19 +35,6 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* b, unsigned byte
                : "memory");
 }
 
-// Arrives on the barrier at b's offset in block `cta` of the cluster (this
-// block's own when cta is its rank). The arrival releases at the block's
-// scope only: it says that this thread's reads of a stage are done, which
-// needs no fence across the cluster (a .release.cluster arrival, a fence on
-// every arrival, made the clustered forward 1.9 times as slow, PERF.md).
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* b, unsigned cta) {
-  unsigned remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(tma_smem_addr(b)), "r"(cta));
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
-}
-
 // Waits for the phase of parity `parity` to complete. A wait of about ten
 // seconds means a lost copy or arrival: trap, so that the launch fails
 // instead of hanging the card.
@@ -67,18 +53,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
   }
 }
 
-// ---- clusters
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every thread of every block of the cluster arrives and waits.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
 // ---- TMA
 // One box of a 3-D tensor map at (c0, c1, c2) into this block's shared
 // memory, completing on `bar`.
@@ -88,19 +62,6 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int c
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(tma_smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(tma_smem_addr(bar))
-      : "memory");
-}
-
-// The same box landed at dst's offset in every block of `mask` in the
-// cluster, each completing on the barrier at bar's offset in that block.
-__device__ __forceinline__ void tma_box_multicast(void* dst, const CUtensorMap* map, int c0,
-                                                  int c1, int c2, uint64_t* bar,
-                                                  unsigned short mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(tma_smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(tma_smem_addr(bar)),
-      "h"(mask)
       : "memory");
 }
 

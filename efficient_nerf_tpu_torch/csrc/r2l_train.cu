@@ -79,9 +79,8 @@ struct Shape {
 };
 
 struct FwdArgs {
-  wg::Net net;
+  wg::Net net;                     // K = x_cols, L = embed_L
   const float* x;                  // [B, x_cols]
-  int x_cols, embed_L;
 };
 
 struct BwdArgs {
@@ -139,18 +138,9 @@ __device__ void embed_tile(const float* x, long long ray0, const Shape& s,
     for (int idx = tid; idx < TB * K; idx += NTHREADS) {
       const int row = idx / K, m = idx % K;
       const long long ray = ray0 + row;
-      const float pt = ray < s.B ? x[ray * K + m] : 0.0f;
-      float sn, cs;
-      fast_sincos(pt, sn, cs, 9);
       __nv_bfloat16* e = emb + (size_t)row * lde;
-      for (int j = 0; j < L; ++j) {
-        e[j * K + m] = __float2bfloat16_rn(sn);
-        e[(L + j) * K + m] = __float2bfloat16_rn(cs);
-        const float s2 = __fmul_rn(__fmul_rn(2.0f, sn), cs);
-        cs = __fsub_rn(1.0f, __fmul_rn(__fmul_rn(2.0f, sn), sn));
-        sn = s2;
-      }
-      e[2 * L * K + m] = __float2bfloat16_rn(pt);
+      wg::embed_point(ray < s.B ? x[ray * K + m] : 0.0f, m, K, L,
+                      [=](int col, float v) { e[col] = __float2bfloat16_rn(v); });
     }
   } else {
     for (int idx = tid; idx < TB * K; idx += NTHREADS) {
@@ -165,38 +155,27 @@ __device__ void embed_tile(const float* x, long long ray0, const Shape& s,
     emb[(size_t)(idx / n_pad) * lde + in_dim + idx % n_pad] = __float2bfloat16_rn(0.0f);
 }
 
-template <int NT>
-__global__ void __cluster_dims__(wg::CLUSTER, 1, 1) __launch_bounds__(wg::NTHREADS, 1)
+template <int NT, bool PARTS>
+__global__ void __launch_bounds__(wg::NTHREADS, 1)
     r2l_train_fwd_kernel(const __grid_constant__ wg::Maps maps, const FwdArgs p) {
   extern __shared__ __align__(128) unsigned char fwd_smem[];  // aligned to 1024 inside
-  const wg::Net net = p.net;
   const float* x = p.x;
-  const int K = p.x_cols, L = p.embed_L, B = net.B, in_pad = net.in_pad;
-  // the [64, in_pad] network input of the tile: the doubling embed of the
-  // [B, K] points (embed_L > 0) or the given rows (embed_L = 0); zeros
-  // past B and past the input's columns
-  wg::forward_tile<NT, true>(maps, net, fwd_smem, [=](__nv_bfloat16* emb, long long ray0) {
-    for (int idx = threadIdx.x; idx < wg::TB * K; idx += wg::NTHREADS) {
-      const int row = idx / K, m = idx % K;
-      const long long ray = ray0 + row;
-      const float v = ray < B ? x[ray * K + m] : 0.0f;
-      if (L > 0)
-        wg::embed_point(emb, row, m, v, K, L);
-      else
-        emb[wg::swz(row, m)] = __float2bfloat16_rn(v);
-    }
-    wg::embed_pad(emb, L > 0 ? K * (2 * L + 1) : K, in_pad);
-  });
+  const int K = p.net.K;
+  // the [B, K] points (embed_L > 0), which the tile embeds, or the given
+  // rows (embed_L = 0)
+  wg::forward_tile<NT, true, PARTS>(maps, p.net, fwd_smem,
+                             [=](long long ray, int m) { return x[ray * K + m]; });
 }
 
 template <int NT>
 struct FwdKernel {
   static int launch(const wg::Maps& maps, const FwdArgs& p, unsigned grid, size_t smem,
-                    cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(
-        r2l_train_fwd_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                    bool parts, cudaStream_t stream) {
+    auto kernel = parts ? r2l_train_fwd_kernel<NT, true> : r2l_train_fwd_kernel<NT, false>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    r2l_train_fwd_kernel<NT><<<grid, wg::NTHREADS, smem, stream>>>(maps, p);
+    kernel<<<grid, wg::NTHREADS, smem, stream>>>(maps, p);
     return (int)cudaGetLastError();
   }
 };
@@ -595,21 +574,9 @@ extern "C" int r2l_train_fwd_launch(const float* x, const void* head_w, const fl
       !encode(encoder(), &maps.hs, hs, W, B, n_block + 1, 2LL * W, 2LL * W * B, wg::TB))
     return (int)cudaErrorInvalidValue;
   FwdArgs p;
-  p.net.head_b = head_b;
-  p.net.body_b = body_b;
-  p.net.tail_w = static_cast<const __nv_bfloat16*>(tail_w);
-  p.net.tail_b = tail_b;
-  p.net.out = out;
-  p.net.B = B;
-  p.net.in_pad = in_pad;
-  p.net.W = W;
-  p.net.n_block = n_block;
-  p.net.out_dim = out_dim;
-  p.net.global_residual = global_residual;
-  p.net.res_scale = res_scale;
+  p.net = wg::make_net(head_b, body_b, tail_w, tail_b, out, B, x_cols, embed_L, in_pad, W,
+                       n_block, out_dim, res_scale, global_residual);
   p.x = x;
-  p.x_cols = x_cols;
-  p.embed_L = embed_L;
   return wg::launch_tile<FwdKernel>(maps, p, B, in_pad, W, global_residual != 0,
                                     (cudaStream_t)stream);
 }

@@ -19,7 +19,7 @@
 // 160,000-ray frame. The design:
 //   * A TMA weight ring with no block barrier. One thread loads each [Wp,
 //     64] weight chunk (Wp = W rounded up to 64; 64 contraction columns =
-//     one 128-byte swizzle row) with cp.async.bulk.tensor from 3-D tensor
+//     one 128-byte swizzle row) with one cp.async.bulk.tensor from 3-D tensor
 //     maps over head_w [W, in_pad] and body_w [2 n_block][W][W], into a ring
 //     of S stages, each guarded by a full and an empty mbarrier, S chunks
 //     ahead of the products. Rows and columns past W land as zeros, so a
@@ -28,7 +28,10 @@
 //     384 threads, three warps on each SM sub-partition, which caps ptxas at
 //     168 registers a thread in every branch (setmaxnreg moves registers at
 //     run time but ptxas allocated the consumers within 168 and spilled
-//     their sums, PERF.md); with 256 threads each has 255.
+//     their sums, PERF.md); with 256 threads each has 255. It waits for a
+//     stage to be free before its own next product: a loader that defers a
+//     load whose stage is not yet free, and so stalls less, starved the
+//     ring and measured slower (PERF.md).
 //   * wgmma for the products. The block's two warpgroups share the tile's 64
 //     rays: warpgroup g owns output columns [g NT, g NT + NT), NT = Wp / 2,
 //     of every layer and issues wgmma.mma_async m64nNTk16 (bf16 in, f32
@@ -39,14 +42,11 @@
 //     the swizzled layout that the next layer's A descriptor reads. The
 //     block meets at one barrier per layer, where the epilogue's writes
 //     must precede the next layer's reads.
-//   * Optionally (CLUSTER = 2), a cluster of two blocks halves the L2
-//     stream: each block's loading thread loads half the rows of every
-//     chunk and multicasts them to both blocks; a stage is freed when the
-//     warps of both blocks have arrived on its empty barrier (remote
-//     arrivals through mapa). A block past the last ray (an odd tile count,
-//     or B < 64) runs the whole stream on zero rays and stores nothing, so
-//     its partner never waits on it in vain. Measured slower than blocks
-//     that stream alone, so off (CLUSTER below).
+//   * No cluster: each block streams every chunk alone. Two blocks that
+//     share each chunk by multicast read half the weights from L2, but a
+//     stage is then freed only when the warps of both have read it, and
+//     three stages cannot hide that coupling across SMs: measured slower
+//     (PERF.md).
 //   * hs (training): after the head and each odd layer, the a tile *is*
 //     bf16(h) = hs[blk]; one thread stores it with TMA (one box a 64-column
 //     panel; rows past B are not written) and waits for the store to have
@@ -55,7 +55,12 @@
 // Shared memory (W = 256, in_pad = 1024): the ring, S x 32 KB; a and a2,
 // 32 KB each, and h0 (f32, 64 KB, each thread's own values), which the
 // embed (64 x in_pad bf16, 128 KB) overlays during the head: 224 KB, and
-// the barriers.
+// the barriers. A wider input (in_pad above 1024 at W = 256, above 1408 at
+// W = 128) runs the head in parts (PARTS): the embed's columns that fit,
+// their products, then the next columns over the same space, the sums
+// carried in registers. PARTS is a template parameter, not a test at run
+// time: the column test in every embed store slowed the one-part tile by 3%
+// (PERF.md).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -72,53 +77,78 @@ constexpr int TB = 64;                  // rays a tile: one wgmma M
 constexpr int NTHREADS = 256;           // two warpgroups
 constexpr int KC = 64;                  // contraction columns of a chunk (128 bytes)
 constexpr int S = 3;                    // ring stages
-// Blocks a cluster. With 2, each block loads half of every weight chunk and
-// multicasts it to both, halving the L2 stream, and a stage is freed when
-// the warps of both blocks have read it; that coupling across SMs made the
-// kernel slower than two blocks that each stream alone (PERF.md, PR 8), so
-// the kernels run with 1. chip_breakdown.py's `cluster_multicast` builds 2.
-constexpr int CLUSTER = 1;
 constexpr int PANEL = TB * KC;          // bf16 of one swizzled [64, 64] panel (8 KB)
 constexpr int MAX_SMEM = 232448;        // 227 KB, the opt-in limit of sm_90
 
 // Tensor maps: the weights as [layer][out][in] (head: one layer), read in
-// boxes of 64 input columns x NT output rows; hs as [block][ray][col],
+// boxes of 64 input columns x Wp output rows; hs as [block][ray][col],
 // written in boxes of 64 columns x 64 rays.
 struct Maps {
   CUtensorMap head, body, hs;
 };
 
-// The tile's operands besides the weights that TMA streams.
+// The tile's operands besides the weights that TMA streams. The network
+// input is K point coordinates a ray: their doubling embed (L > 0) or the
+// coordinates themselves (L = 0), zero-padded to in_pad columns.
 struct Net {
   const float* head_b;             // [W]
   const float* body_b;             // [n_block, 2, W]
   const __nv_bfloat16* tail_w;     // [out_dim, W]
   const float* tail_b;             // [out_dim]
   float* out;                      // [B, out_dim]
-  int B, in_pad, W, n_block, out_dim, global_residual;
+  int B, K, L, in_pad, W, n_block, out_dim, global_residual;
   float res_scale;
 };
 
+// The launchers' one way to fill a Net.
+inline Net make_net(const float* head_b, const float* body_b, const void* tail_w,
+                    const float* tail_b, float* out, int B, int K, int L, int in_pad, int W,
+                    int n_block, int out_dim, float res_scale, int global_residual) {
+  Net n;
+  n.head_b = head_b;
+  n.body_b = body_b;
+  n.tail_w = static_cast<const __nv_bfloat16*>(tail_w);
+  n.tail_b = tail_b;
+  n.out = out;
+  n.B = B;
+  n.K = K;
+  n.L = L;
+  n.in_pad = in_pad;
+  n.W = W;
+  n.n_block = n_block;
+  n.out_dim = out_dim;
+  n.global_residual = global_residual;
+  n.res_scale = res_scale;
+  return n;
+}
+
 struct Layout {
   size_t ring, a, a2, h0, emb, bars, total;
+  int emb_cols;                    // embed columns a part of the head: all in_pad if they fit
 };
 
 __host__ __device__ inline int round_up64(int x) { return (x + 63) / 64 * 64; }
 
 // Byte offsets from a 1024-aligned base; `total` includes the slack that
-// aligns the dynamic shared memory to 1024 (the swizzle's period).
+// aligns the dynamic shared memory to 1024 (the swizzle's period). The
+// embed takes what the ring and the barriers leave, at most in_pad columns.
 __host__ __device__ inline Layout layout(int in_pad, int Wp, bool h0) {
   const size_t stage = (size_t)Wp * KC * 2, act = (size_t)TB * Wp * 2;
   const size_t acts = 2 * act + (h0 ? (size_t)TB * Wp * 4 : 0);
-  const size_t emb = (size_t)TB * in_pad * 2;
+  const size_t bars = 2 * S * sizeof(uint64_t), slack = 1024, panel = (size_t)PANEL * 2;
+  const size_t room = MAX_SMEM - S * stage - bars - slack;
+  size_t panels = (size_t)in_pad / KC;
+  if (panels * panel > room) panels = room / panel;
+  const size_t emb = panels * panel;
   Layout l;
   l.ring = 0;
   l.a = S * stage;
   l.a2 = l.a + act;
   l.h0 = l.a2 + act;
   l.emb = l.a;
+  l.emb_cols = (int)panels * KC;
   l.bars = l.a + (acts > emb ? acts : emb);
-  l.total = l.bars + 2 * S * sizeof(uint64_t) + 1024;
+  l.total = l.bars + bars + slack;
   return l;
 }
 
@@ -256,40 +286,33 @@ struct Wgmma<128> {
   }
 };
 
-// The doubling embed of one point coordinate p of tile row `row` (column m
-// of K): [sin_0..sin_{L-1} | cos_0..cos_{L-1} | p] in K-column blocks, by
-// fast_sincos once and L - 1 double-angle steps, rounded as the plain
+// The doubling embed of point coordinate pt, column m of K: store(col, v)
+// receives [sin_0..sin_{L-1} | cos_0..cos_{L-1} | pt] in K-column blocks,
+// by fast_sincos once and L - 1 double-angle steps, rounded as the plain
 // versions round them.
-__device__ __forceinline__ void embed_point(__nv_bfloat16* emb, int row, int m, float pt,
-                                            int K, int L) {
+template <class Store>
+__device__ __forceinline__ void embed_point(float pt, int m, int K, int L, Store store) {
   float s, c;
   fast_sincos(pt, s, c, 9);
   for (int j = 0; j < L; ++j) {
-    emb[swz(row, j * K + m)] = __float2bfloat16_rn(s);
-    emb[swz(row, (L + j) * K + m)] = __float2bfloat16_rn(c);
+    store(j * K + m, s);
+    store((L + j) * K + m, c);
     const float s2 = __fmul_rn(__fmul_rn(2.0f, s), c);
     c = __fsub_rn(1.0f, __fmul_rn(__fmul_rn(2.0f, s), s));
     s = s2;
   }
-  emb[swz(row, 2 * L * K + m)] = __float2bfloat16_rn(pt);
-}
-
-// Zeros in columns in_dim .. in_pad - 1 of the embed.
-__device__ __forceinline__ void embed_pad(__nv_bfloat16* emb, int in_dim, int in_pad) {
-  const int n_pad = in_pad - in_dim;
-  for (int idx = threadIdx.x; idx < TB * n_pad; idx += NTHREADS)
-    emb[swz(idx / n_pad, in_dim + idx % n_pad)] = __float2bfloat16_rn(0.0f);
+  store(2 * L * K + m, pt);
 }
 
 // The forward of rays ray0 .. ray0 + 63 (blockIdx.x's tile) by the block's
-// NTHREADS threads; embed(emb, ray0) writes the [64, in_pad] bf16 network
-// input into emb in swizzled panels (zeros past B and past the input's
-// columns). HS stores hs through maps.hs. Called by a kernel of NTHREADS
-// threads in clusters of CLUSTER, with `smem` its dynamic shared memory of
-// layout(in_pad, 2 NT, global_residual).total bytes.
-template <int NT, bool HS, class Embed>
+// NTHREADS threads; point(ray, m) is coordinate m of ray's network input
+// (ray < B), which the tile embeds. HS stores hs through maps.hs; PARTS
+// runs the head in parts (layout's emb_cols < in_pad). Called by a kernel of
+// NTHREADS threads with `smem` its dynamic shared memory of layout(in_pad,
+// 2 NT, global_residual).total bytes.
+template <int NT, bool HS, bool PARTS, class Point>
 __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
-                                             unsigned char* smem_raw, Embed embed) {
+                                             unsigned char* smem_raw, Point point) {
   constexpr int WP = 2 * NT, NCH = WP / KC, NA = NT / 2;
   unsigned char* smem = smem_raw + ((1024 - (tma_smem_addr(smem_raw) & 1023)) & 1023);
   const bool gr = p.global_residual != 0;
@@ -307,21 +330,14 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);                // the loading thread's arrive, plus the bytes
-      mbar_init(&empty[s], CLUSTER * NTHREADS / 32);  // every warp of the cluster
+      mbar_init(&empty[s], NTHREADS / 32);   // every warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the barriers exist (in every block of the cluster) before any copy or
-  // remote arrival
-  if (CLUSTER > 1)
-    cluster_sync();
-  else
-    __syncthreads();
+  __syncthreads();  // the barriers exist before any copy or arrival
 
   // ---- the loads: thread 0 streams every chunk of the head and the body,
-  // S chunks ahead of the products (in a cluster, its block's half of the
-  // rows, multicast to both blocks)
-  const unsigned rank = CLUSTER > 1 ? cluster_rank() : 0;
+  // S chunks ahead of the products
   const int total = head_chunks + 2 * nb * NCH;
   auto issue = [&](int n) {
     if (n >= total) return;
@@ -332,13 +348,7 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
     const int layer = head ? 0 : (n - head_chunks) / NCH;
     const CUtensorMap* map = head ? &maps.head : &maps.body;
     mbar_arrive_expect_tx(&full[s], WP * KC * 2);
-    for (int r = rank; r < 2; r += CLUSTER) {
-      __nv_bfloat16* dst = ring + (size_t)s * WP * KC + r * NT * KC;
-      if (CLUSTER > 1)
-        tma_box_multicast(dst, map, k * KC, r * NT, layer, &full[s], (1 << CLUSTER) - 1);
-      else
-        tma_box(dst, map, k * KC, r * NT, layer, &full[s]);
-    }
+    tma_box(ring + (size_t)s * WP * KC, map, k * KC, 0, layer, &full[s]);
   };
   if (tid == 0)
     for (int n = 0; n < S; ++n) issue(n);
@@ -352,20 +362,16 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
   for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
   int c = 0;  // chunks consumed
 
-  // frees the stage of chunk `read` (in every block of the cluster) once
-  // this warp's products have read it; thread 0 then loads chunk read + S
+  // frees the stage of chunk `read` once this warp's products have read it;
+  // thread 0 then loads chunk read + S
   auto release = [&](int read) {
     __syncwarp();
-    if (lane == 0) {
-      if (CLUSTER > 1)
-        for (int r = 0; r < CLUSTER; ++r) mbar_arrive_cluster(&empty[read % S], r);
-      else
-        mbar_arrive(&empty[read % S]);
-    }
+    if (lane == 0) mbar_arrive(&empty[read % S]);
     if (tid == 0) issue(read + S);
   };
-  // acc = X[64, 64 n] @ (the next n chunks)^T, X in swizzled panels
-  auto products = [&](const __nv_bfloat16* X, int n) {
+  // acc (+)= X[64, 64 n] @ (the next n chunks)^T, X in swizzled panels; the
+  // sums start from acc with `carry`, else from zero
+  auto products = [&](const __nv_bfloat16* X, int n, bool carry) {
     for (int kc = 0; kc < n; ++kc, ++c) {
       const int s = c % S;
       mbar_wait(&full[s], (c / S) & 1);
@@ -374,7 +380,7 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < KC / 16; ++k)
-        Wgmma<NT>::run(acc, da + 2 * k, db + 2 * k, kc + k);
+        Wgmma<NT>::run(acc, da + 2 * k, db + 2 * k, carry || kc + k > 0);
       wgmma_commit();
       if (kc > 0) {
         wgmma_wait<1>();  // the chunk before this one has been read
@@ -415,11 +421,41 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
     }
   };
 
-  // ---- the embed, then the head + relu into the residual stream h
-  embed(emb, ray0);
+  // columns lo .. lo + n - 1 of the tile's [64, in_pad] bf16 network input
+  // into emb's swizzled panels: zeros past B and past the input's columns
+  auto embed = [&](int lo, int n) {
+    const int K = p.K, L = p.L, in_dim = L > 0 ? K * (2 * L + 1) : K;
+    for (int idx = tid; idx < TB * K; idx += NTHREADS) {
+      const int row = idx / K, m = idx % K;
+      const long long ray = ray0 + row;
+      const float v = ray < p.B ? point(ray, m) : 0.0f;
+      auto store = [&](int col, float e) {
+        if (!PARTS || (col >= lo && col < lo + n)) emb[swz(row, col - lo)] = __float2bfloat16_rn(e);
+      };
+      if (L > 0)
+        embed_point(v, m, K, L, store);
+      else
+        store(m, v);
+    }
+    const int z0 = in_dim > lo ? in_dim : lo, n_pad = lo + n - z0;
+    for (int idx = tid; idx < TB * n_pad; idx += NTHREADS)
+      emb[swz(idx / n_pad, z0 - lo + idx % n_pad)] = __float2bfloat16_rn(0.0f);
+  };
+
+  // ---- the embed and the head, then relu into the residual stream h. In
+  // parts, the next columns over the same space once the products of the
+  // part before have read it, their products added to the same sums
+  embed(0, lay.emb_cols);
   end_layer();
   load_bias(p.head_b);
-  products(emb, head_chunks);
+  products(emb, lay.emb_cols / KC, false);
+  for (int lo = lay.emb_cols; PARTS && lo < p.in_pad; lo += lay.emb_cols) {
+    const int n = p.in_pad - lo < lay.emb_cols ? p.in_pad - lo : lay.emb_cols;
+    __syncthreads();
+    embed(lo, n);
+    end_layer();
+    products(emb, n / KC, true);
+  }
   __syncthreads();  // every head product has read the embed, which a, a2 and h0 overlay
 #pragma unroll
   for (int j = 0; j < NT / 8; ++j) {
@@ -447,7 +483,7 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
   for (int l = 0; l < 2 * nb; ++l) {
     const bool odd = l & 1;
     load_bias(p.body_b + (size_t)l * W);
-    products(odd ? a2 : a, NCH);
+    products(odd ? a2 : a, NCH, false);
 #pragma unroll
     for (int j = 0; j < NT / 8; ++j) {
       const int col = col0 + 8 * j;
@@ -499,7 +535,6 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
       p.out[ray * p.out_dim + j] = 1.0f / (1.0f + expf(-(sum + p.tail_b[j])));
   }
   if (HS && tid == 0) bulk_wait();
-  if (CLUSTER > 1) cluster_sync();  // the partner's remote arrivals land before this block exits
 }
 
 // Shape checks of the tile, for the launchers.
@@ -509,30 +544,31 @@ inline bool tile_ok(int in_pad, int W, int n_block, int out_dim, bool h0) {
 }
 
 // The weights' tensor maps (head_w [W, in_pad], body_w [2 n_block, W, W]
-// bf16) in boxes of 64 columns x Wp / 2 rows.
+// bf16) in boxes of 64 columns x Wp rows.
 inline bool weight_maps(Maps* m, const void* head_w, const void* body_w, int in_pad, int W,
                         int n_block) {
   EncodeTiled fn = encoder();
-  const unsigned rows = (unsigned)(round_up64(W) / 2);
+  const unsigned rows = (unsigned)round_up64(W);
   return fn != nullptr &&
          encode(fn, &m->head, head_w, in_pad, W, 1, 2LL * in_pad, 2LL * in_pad * W, rows) &&
          encode(fn, &m->body, body_w, W, W, 2LL * n_block, 2LL * W, 2LL * W * W, rows);
 }
 
-// Launches kernel<NT> (a forward_tile kernel) with NT = round_up64(W) / 2
-// on ceil(B / 64) tiles rounded up to whole clusters; returns
-// cudaGetLastError().
+// Launches K<NT>'s forward_tile kernel with NT = round_up64(W) / 2 on
+// ceil(B / 64) tiles, its head in parts where the input is wider than the
+// embed's room; returns cudaGetLastError().
 template <template <int> class K, class Arg>
 int launch_tile(const Maps& maps, const Arg& arg, int B, int in_pad, int W, bool h0,
                 cudaStream_t stream) {
-  const size_t smem = layout(in_pad, round_up64(W), h0).total;
-  const unsigned tiles = (unsigned)((B + TB - 1) / TB);
-  const unsigned grid = (tiles + CLUSTER - 1) / CLUSTER * CLUSTER;
+  const Layout lay = layout(in_pad, round_up64(W), h0);
+  const size_t smem = lay.total;
+  const bool parts = lay.emb_cols < in_pad;
+  const unsigned grid = (unsigned)((B + TB - 1) / TB);
   switch (round_up64(W)) {
-    case 64: return K<32>::launch(maps, arg, grid, smem, stream);
-    case 128: return K<64>::launch(maps, arg, grid, smem, stream);
-    case 192: return K<96>::launch(maps, arg, grid, smem, stream);
-    case 256: return K<128>::launch(maps, arg, grid, smem, stream);
+    case 64: return K<32>::launch(maps, arg, grid, smem, parts, stream);
+    case 128: return K<64>::launch(maps, arg, grid, smem, parts, stream);
+    case 192: return K<96>::launch(maps, arg, grid, smem, parts, stream);
+    case 256: return K<128>::launch(maps, arg, grid, smem, parts, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -16,11 +16,14 @@ from efficient_nerf_tpu_torch.ops import r2l_forward as fwd
 N_SAMPLE, L, DEPTH, WIDTH = 4, 10, 6, 64
 IN_DIM = N_SAMPLE * 3 * (2 * L + 1)   # 252: not a multiple of 16, so padded
 B = 40                                 # not a multiple of any tile
-# Batches that leave the card's 64-ray tile, or the second block of a
-# cluster of two tiles, partly or wholly empty: one ray, part of a tile, one
-# tile, one ray past it, three tiles (an odd count), and many
+# Batches at the edges of the card's 64-ray tile: one ray, part of a tile,
+# one tile, one ray past it, three tiles, and many
 RAGGED_B = (1, 37, 64, 65, 192)
 CARD_B = RAGGED_B + (8192,)
+# Inputs wider than the card's shared memory holds beside the weight ring
+# at once (1024 embed columns at W256, 1408 at W128), so that its head runs
+# in parts: (width, n_sample) at L 10, in_pad 1280 and 1536
+WIDE = ((256, 20), (128, 24), (256, 24))
 # f32 operands on both sides; the double-angle embed carries ~2^L ulp
 # (~1e-4) of phase error that the net may amplify: the precedent of
 # tests/test_ops.py:64 for the same kernel in interpret mode
@@ -34,18 +37,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _setup(use_residual, rng, width=WIDTH, depth=DEPTH):
+def _setup(use_residual, rng, width=WIDTH, depth=DEPTH, n_sample=N_SAMPLE):
     # flax is imported here, not at the top, so that the card tests below
     # also collect on a GPU host that has jax but not flax
     from efficient_nerf_tpu.models import R2LNet as JaxR2LNet
 
-    jm = JaxR2LNet(input_dim=IN_DIM, depth=depth, width=width,
+    in_dim = n_sample * 3 * (2 * L + 1)
+    jm = JaxR2LNet(input_dim=in_dim, depth=depth, width=width,
                    use_residual=use_residual)
-    p = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, IN_DIM)))["params"]
+    p = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, in_dim)))["params"]
     params = jax.tree_util.tree_map(
         lambda v: (np.asarray(v) + rng.normal(scale=0.02, size=v.shape)
                    ).astype(np.float32), p)
-    tm = R2LNet(IN_DIM, depth, width, use_residual=use_residual
+    tm = R2LNet(in_dim, depth, width, use_residual=use_residual
                 ).load_jax_params(params)
     o = rng.normal(size=(B, 3)).astype(np.float32)
     d = rng.normal(size=(B, 3)).astype(np.float32)
@@ -73,8 +77,8 @@ def test_plain_version_matches_pallas_interpret(use_residual, rng):
 @pytest.mark.parametrize("n_rays", RAGGED_B)
 @pytest.mark.parametrize("use_residual", [False, True])
 def test_plain_version_matches_pallas_interpret_ragged(use_residual, n_rays, rng):
-    """The contract the card tests hold the kernel to, at the batches that
-    leave a tile or a cluster's block empty."""
+    """The contract the card tests hold the kernel to, at the batches at
+    the tile's edges."""
     _, params, tm, _, _ = _setup(use_residual, rng)
     o = rng.normal(size=(n_rays, 3)).astype(np.float32)
     d = rng.normal(size=(n_rays, 3)).astype(np.float32)
@@ -88,6 +92,24 @@ def test_plain_version_matches_pallas_interpret_ragged(use_residual, n_rays, rng
                                 2.0, 6.0, N_SAMPLE, L,
                                 use_global_residual=use_residual).numpy()
     assert got.shape == (n_rays, 3)
+    np.testing.assert_allclose(got, want, atol=TOL)
+
+
+@pytest.mark.parametrize("n_sample", sorted({n for _, n in WIDE}))
+def test_plain_version_matches_pallas_interpret_wide_input(n_sample, rng):
+    """The contract the card tests hold the kernel to at inputs whose head
+    the card runs in parts."""
+    _, params, tm, o, d = _setup(True, rng, n_sample=n_sample)
+    want = np.asarray(jfwd.r2l_forward_fused(
+        params, jnp.asarray(o), jnp.asarray(d), 2.0, 6.0, n_sample, L,
+        dtype=jnp.float32, interpret=True, fast_embed=True, tile_b=16,
+        use_global_residual=True))
+    packed = fwd.pack_r2l_weights(tm.state_dict(), n_sample, L,
+                                  dtype=torch.float32)
+    assert packed["head_w"].shape[1] == -(-n_sample * 3 * (2 * L + 1) // 64) * 64
+    got = fwd.r2l_forward_fused(packed, torch.from_numpy(o), torch.from_numpy(d),
+                                2.0, 6.0, n_sample, L,
+                                use_global_residual=True).numpy()
     np.testing.assert_allclose(got, want, atol=TOL)
 
 
@@ -147,10 +169,10 @@ def test_pack_rejects_other_profiles(rng):
         fwd.r2l_forward_fused(packed, o, o, 2.0, 6.0, N_SAMPLE, L - 1)
 
 
-def _card_model(rng, width, depth, use_residual, dev):
+def _card_model(rng, width, depth, use_residual, dev, n_sample=N_SAMPLE):
     # lecun-normal kernels with each block's second linear times 0.1, small
     # biases: the outputs stay clear of the sigmoid's flat ends (chip_smoke.py)
-    tm = R2LNet(IN_DIM, depth, width, use_residual=use_residual)
+    tm = R2LNet(n_sample * 3 * (2 * L + 1), depth, width, use_residual=use_residual)
     with torch.no_grad():
         for name, v in tm.named_parameters():
             scale = 0.01 if name.endswith("bias") else v.shape[-1] ** -0.5
@@ -159,21 +181,21 @@ def _card_model(rng, width, depth, use_residual, dev):
             v.copy_(torch.from_numpy(
                 rng.normal(scale=scale, size=tuple(v.shape)).astype(np.float32)))
     return fwd.pack_r2l_weights({k: v.to(dev) for k, v in tm.state_dict().items()},
-                                N_SAMPLE, L)
+                                n_sample, L)
 
 
-def _card_check(packed, n_rays, use_residual, dev, rng):
+def _card_check(packed, n_rays, use_residual, dev, rng, n_sample=N_SAMPLE):
     ro = torch.from_numpy(rng.normal(size=(n_rays, 3)).astype(np.float32)).to(dev)
     rd = torch.from_numpy(rng.normal(size=(n_rays, 3)).astype(np.float32)).to(dev)
     launches = fwd.r2l_forward_fused.launches
-    got = fwd.r2l_forward_fused(packed, ro, rd, 2.0, 6.0, N_SAMPLE, L,
+    got = fwd.r2l_forward_fused(packed, ro, rd, 2.0, 6.0, n_sample, L,
                                 use_global_residual=use_residual)
-    again = fwd.r2l_forward_fused(packed, ro, rd, 2.0, 6.0, N_SAMPLE, L,
+    again = fwd.r2l_forward_fused(packed, ro, rd, 2.0, 6.0, n_sample, L,
                                   use_global_residual=use_residual)
     torch.cuda.synchronize()
     assert fwd.r2l_forward_fused.launches == launches + 2
     assert torch.equal(got, again)  # no atomics, no order that changes
-    want = fwd.r2l_forward_fused_ref(packed, ro, rd, 2.0, 6.0, N_SAMPLE, L,
+    want = fwd.r2l_forward_fused_ref(packed, ro, rd, 2.0, 6.0, n_sample, L,
                                      use_global_residual=use_residual)
     # same bf16 operands and f32 epilogues; only the summation order differs,
     # and a one-ulp difference can flip a bf16 rounding: chip_smoke.py's
@@ -197,3 +219,14 @@ def test_kernel_pads_other_widths(width, cuda_device, rng):
     warpgroup widths."""
     packed = _card_model(rng, width, 6, True, cuda_device)
     _card_check(packed, 65, True, cuda_device, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,n_sample", WIDE)
+@pytest.mark.parametrize("use_residual", [False, True])
+def test_kernel_runs_wide_inputs_in_parts(use_residual, width, n_sample, cuda_device,
+                                          rng):
+    """Inputs of 1280 and 1536 columns, whose embed the kernel writes and
+    contracts in parts with the head's sums carried across them."""
+    packed = _card_model(rng, width, 6, use_residual, cuda_device, n_sample)
+    _card_check(packed, 192, use_residual, cuda_device, rng, n_sample)

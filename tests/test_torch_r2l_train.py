@@ -31,11 +31,14 @@ TOL_GRAD = {0: 1e-5, 10: 5e-4}
 # a cotangent, and that carries through the blocks.
 TOL_BF16_OUT = 1e-2
 TOL_BF16_GRAD = 3e-2
-# Batches that leave the card's 64-ray tile, or the second block of a
-# cluster of two tiles, partly or wholly empty: one ray, part of a tile, one
-# tile, one ray past it, three tiles (an odd count), and many
+# Batches at the edges of the card's 64-ray tile: one ray, part of a tile,
+# one tile, one ray past it, three tiles, and many
 RAGGED_B = (1, 37, 64, 65, 192)
 CARD_B = RAGGED_B + (8192,)
+# Inputs wider than the card's shared memory holds beside the forward's
+# weight ring at once (1024 embed columns at W256, 1408 at W128), so that
+# its head runs in parts: (width, n_sample) at L 10, in_pad 1280 and 1536
+WIDE = ((256, 20), (128, 24), (256, 24))
 
 
 @pytest.fixture
@@ -46,24 +49,26 @@ def cuda_device():
 
 
 def _setup(rng, *, grs=False, res_scale=1.0, embed_L=10, dtype=np.float32,
-           depth=DEPTH, width=WIDTH):
+           depth=DEPTH, width=WIDTH, n_sample=N_SAMPLE):
     # flax is imported here, not at the top, so that the card tests below
     # also collect on a GPU host that has jax but not flax
     from efficient_nerf_tpu.models import R2LNet as JaxR2LNet
 
-    jm = JaxR2LNet(input_dim=IN_DIM, depth=depth, width=width,
+    k = 3 * n_sample
+    in_dim = k * (2 * L + 1)
+    jm = JaxR2LNet(input_dim=in_dim, depth=depth, width=width,
                    res_scale=res_scale, use_residual=grs, dtype=jnp.float32)
-    p = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, IN_DIM)))["params"]
+    p = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, in_dim)))["params"]
     params = jax.tree_util.tree_map(
         lambda v: (np.asarray(v) + rng.normal(scale=0.02, size=v.shape)
                    ).astype(np.float32), p)
-    tm = R2LNet(IN_DIM, depth, width, res_scale=res_scale, use_residual=grs,
+    tm = R2LNet(in_dim, depth, width, res_scale=res_scale, use_residual=grs,
                 dtype=torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
                 ).load_jax_params(params)
     if embed_L:
-        x = (rng.normal(size=(B, K)) * 3.0).astype(np.float32)
+        x = (rng.normal(size=(B, k)) * 3.0).astype(np.float32)
     else:
-        x = rng.normal(size=(B, IN_DIM)).astype(np.float32)
+        x = rng.normal(size=(B, in_dim)).astype(np.float32)
     dout = rng.normal(size=(B, 3)).astype(np.float32)
     return params, tm, x, dout
 
@@ -154,8 +159,8 @@ def test_passes_match_pallas_interpret_bf16(embed_L, need_dx, rng):
 @pytest.mark.parametrize("n_rays", RAGGED_B)
 def test_forward_matches_pallas_interpret_ragged(n_rays, rng):
     """The training forward's plain version (what the card's kernel is held
-    to) against the Pallas forward at the batches that leave a tile or a
-    cluster's block empty, f32 operands."""
+    to) against the Pallas forward at the batches at the tile's edges, f32
+    operands."""
     params, tm, _, _ = _setup(rng, grs=True, res_scale=0.5)
     x = (rng.normal(size=(n_rays, K)) * 3.0).astype(np.float32)
     want = np.asarray(jtrain.r2l_train_apply(
@@ -165,6 +170,21 @@ def test_forward_matches_pallas_interpret_ragged(n_rays, rng):
     out, hs = rt.r2l_train_fwd(packed, torch.from_numpy(x), res_scale=0.5,
                                use_global_residual=True)
     assert out.shape == (n_rays, 3) and hs.shape == ((DEPTH - 2) // 2 + 1, n_rays, WIDTH)
+    np.testing.assert_allclose(out.numpy(), want, atol=TOL_OUT[L], rtol=0)
+
+
+@pytest.mark.parametrize("n_sample", sorted({n for _, n in WIDE}))
+def test_forward_matches_pallas_interpret_wide_input(n_sample, rng):
+    """The training forward's plain version against the Pallas forward at
+    inputs whose head the card's kernel runs in parts, f32 operands."""
+    params, tm, x, _ = _setup(rng, grs=True, res_scale=0.5, n_sample=n_sample)
+    want = np.asarray(jtrain.r2l_train_apply(
+        params, jnp.asarray(x), res_scale=0.5, use_global_residual=True, tile_b=16,
+        tile_b_bwd=32, dtype=jnp.float32, embed_L=L, need_dx=False, interpret=True))
+    packed = rt.pack_r2l_train_weights(rt._model_params(tm), L, torch.float32)
+    assert packed["head_w"].shape[1] > 1024
+    out, _ = rt.r2l_train_fwd(packed, torch.from_numpy(x), res_scale=0.5,
+                              use_global_residual=True)
     np.testing.assert_allclose(out.numpy(), want, atol=TOL_OUT[L], rtol=0)
 
 
@@ -330,10 +350,10 @@ def test_other_profiles_and_inputs_raise(rng):
     assert not fused_r2l_train_available("cpu")
 
 
-def _random_model(rng, depth, grs=False, dtype=torch.float32, width=256):
+def _random_model(rng, depth, grs=False, dtype=torch.float32, width=256, in_dim=IN_DIM):
     # lecun-normal kernels with each block's second linear times 0.1, small
     # biases: the outputs stay clear of the sigmoid's flat ends (chip_smoke.py)
-    tm = R2LNet(IN_DIM, depth, width, use_residual=grs, dtype=dtype)
+    tm = R2LNet(in_dim, depth, width, use_residual=grs, dtype=dtype)
     with torch.no_grad():
         for name, v in tm.named_parameters():
             scale = 0.01 if name.endswith("bias") else v.shape[-1] ** -0.5
@@ -370,8 +390,8 @@ def test_kernels_match_plain_versions(grs, embed_L, cuda_device, rng):
         assert err <= tol, (name, err.item())
 
 
-def _forward_check(packed, n_rays, grs, dev, rng):
-    x = torch.from_numpy((rng.normal(size=(n_rays, K)) * 3.0).astype(np.float32)).to(dev)
+def _forward_check(packed, n_rays, grs, dev, rng, k=K):
+    x = torch.from_numpy((rng.normal(size=(n_rays, k)) * 3.0).astype(np.float32)).to(dev)
     launches = rt.r2l_train_fwd.launches
     out, hs = rt.r2l_train_fwd(packed, x, use_global_residual=grs)
     out2, hs2 = rt.r2l_train_fwd(packed, x, use_global_residual=grs)
@@ -390,7 +410,7 @@ def _forward_check(packed, n_rays, grs, dev, rng):
 @pytest.mark.parametrize("grs", [False, True])
 def test_forward_kernel_ragged_batches(grs, n_rays, cuda_device, rng):
     """out and every row of hs (stored by TMA, rows past B clipped) at the
-    batches that leave a tile or a cluster's second block empty."""
+    batches at the tile's edges."""
     tm = _random_model(rng, 12, grs).to(cuda_device)
     _forward_check(rt.pack_r2l_train_weights(rt._model_params(tm), 10), n_rays, grs,
                    cuda_device, rng)
@@ -403,6 +423,19 @@ def test_forward_kernel_other_widths(width, cuda_device, rng):
     tm = _random_model(rng, 6, True, width=width).to(cuda_device)
     _forward_check(rt.pack_r2l_train_weights(rt._model_params(tm), 10), 65, True,
                    cuda_device, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,n_sample", WIDE)
+@pytest.mark.parametrize("embed_L", [0, 10])
+def test_forward_kernel_wide_inputs(embed_L, width, n_sample, cuda_device, rng):
+    """Inputs of 1280 and 1536 columns, embedded in the kernel (embed_L
+    10) or given as rows (embed_L 0), which the kernel contracts in parts
+    with the head's sums carried across them."""
+    k = 3 * n_sample
+    tm = _random_model(rng, 6, True, width=width, in_dim=k * 21).to(cuda_device)
+    _forward_check(rt.pack_r2l_train_weights(rt._model_params(tm), embed_L), 192, True,
+                   cuda_device, rng, k if embed_L else k * 21)
 
 
 @pytest.mark.cuda
