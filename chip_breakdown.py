@@ -2,7 +2,7 @@
 """Where a fused kernel's time goes, on one CUDA card.
 
     python3 chip_breakdown.py [--seed N]
-        [--kernel serve|train_fwd|serve_int8|train_bwd|teacher|teacher_int8]
+        [--kernel serve|train_fwd|serve_int8|train_bwd|teacher|teacher_int8|frame]
 
 Builds the kernel as shipped and variants of it made by replacing a few
 statements each, all with nvcc in parallel into build/kernels/breakdown/,
@@ -58,14 +58,34 @@ and pass 2, csrc/r2l_wgrad.cu, on the shipped pass 1's scratch:
 
 teacher: the teacher's field eval of csrc/nerf_forward.cu (W256 D8, L 10/4)
 on a fine-pass chunk, 32,768 rays of one 400x400 frame at 192 sorted depths,
-its variants edited in the tile code it includes (csrc/nerf_field.cuh):
+its variants edited in the wgmma field tile it includes (csrc/nerf_wgmma.cuh):
   shipped      the kernel as the port runs it
-  no_loads     no weight copies: the products, epilogues and barriers alone
-  no_products  no mma.sync or ldmatrix: the weight stream, embed, epilogues
-               and barriers
+  no_loads     no TMA weight copies (each stage completes on the loading
+               thread's arrival alone): the products, embed and epilogues
+  no_products  no wgmma: the weight stream, embed and epilogues
   no_trig      the embed without fast_sin (y + phase passes through)
-  no_views     no view branch: neither the per-ray direction products nor
-               the view layer's product and epilogue (rgb is left unset)
+  no_views     no view-layer products and no per-ray direction rows (the
+               rgb head's epilogue stays, on zero sums)
+  no_epilogues no epilogue arithmetic or stores (relu, feature, view and
+               rgb head); the warpgroup barriers stay
+  block_barrier  a block barrier before every epilogue, as the mma.sync
+               tile had: the two warpgroups meet at every layer, so one's
+               epilogue no longer runs under the other's products
+  ring_2       a 2-stage weight ring instead of as many as fit (4 at W256)
+  one_tile_a_block  one block per 128-point tile instead of persistent
+               blocks (the ring starts empty at every tile)
+  no_trap      no trap on a lost copy (the ring's waits still time out)
+  no_bias      the body and feature epilogues without their biases (no
+               bias loads from shared memory)
+  no_cvt       the epilogues' bf16 conversions replaced by an integer xor of
+               the two f32 words (the same data flow, no conversion)
+
+frame: the whole-ray kernel of csrc/nerf_frame.cu (the same tile) on 32,768
+rays of the same frame at 64 + 128 samples, white background:
+  shipped      the kernel as the port runs it
+  no_glue      no composite, inverse CDF, merge or output (the fine pass
+               runs on depths left in shared memory)
+  no_products  no wgmma: the weight stream, embed, epilogues and glue
 
 teacher_int8: the int8 field eval of csrc/nerf_int8.cu on the same fine
 chunk, static scales from calibrate_nerf_int8 on its first 1024 points:
@@ -165,13 +185,30 @@ _FIRST_LEVELS = """  const int a = (int)fminf(fmaxf(rintf(x), -127.0f), 127.0f);
   const int b = (int)fminf(fmaxf(rintf(y), -127.0f), 127.0f);
   *reinterpret_cast<unsigned short*>(p) = (unsigned short)((a & 0xff) | ((b & 0xff) << 8));"""
 _T_LOAD = "cp_async16(dst + r * LDS_B + piece * 16, src + (size_t)r * sg.ldw + piece * 16);"
-_T_PRODUCTS = "    if (n0 < sg.n) {\n      const unsigned char* st = t.ring"
-_T_TRIG = "v = fast_sin(__fadd_rn(y, phase), 7);"
-_T_VIEWS_SEG = "  seg(views_h_w, 2 * W, W / 2, 1, depth + 1);\n"
-_T_VIEWS_RAYS = "for (int idx = threadIdx.x; idx < nr * f.half; idx += NTHREADS) {"
 _T8_PRODUCTS = "for (int kk = 0; kk < CHUNK_B; kk += 32) {"
 _T8_EPI = "    const int L = sg.layer;\n    if (L == 0) {"
 _FIELD = "nerf_field.cuh"
+_NW = "nerf_wgmma.cuh"
+_NW_ISSUE = """  mbar_arrive_expect_tx(bar, rows * KC * 2);
+  tma_box(dst, map, col * KC, 0, layer, bar);
+"""
+_NW_PRODUCTS = "      wg::Wgmma<N>::run(acc, da + 2 * j, db + 2 * j, carry || kc + j > 0);\n"
+_NW_TRIG = "v = grp == 0 ? xv : fast_sin(__fadd_rn(__fmul_rn(xv, freq), phase), 7);"
+_NW_CHUNKS = "  return 2 * (s.in_pad / KC) + (s.depth + 1) * (s.W / KC);"
+_NW_VIEWS = "  products_rs<HALF, W>(accv, a, st, sm, k);\n"
+_NW_EPI = "  for (int m = 0; m < 8; ++m) {\n    const Slot<W> b(bias, t, m);"
+_NW_EPI_HEAD = "  const int t = threadIdx.x % 4;\n#pragma unroll\n  for (int m = 0; m < 8; ++m) {"
+_NW_EPI_VIEW = "  for (int mc = 0; mc < (HALF < KC ? HALF / 8 : 8); ++mc) {"
+_NW_TRAP = "  if (lost) __trap();  // a lost copy fails the launch instead of hanging the card\n"
+_NW_BIAS = "      const float2 bp = b.pair(pn);"
+_NW_CVT = """  unsigned r;
+  if (RELU)"""
+_F_VIEW_ROWS = "      nw::view_rows(hvd, nr, half, p.s.ev, p.m.views_d_w, tw, 128,"
+_F_GRID = "  const unsigned grid = (unsigned)(tiles < resident ? tiles : resident);"
+_FR_GLUE_C = ("      for (int r = warp; r < R; r += nw::NTHREADS / 32) {\n        float res[6];\n"
+              "        float* w =")
+_FR_GLUE_F = ("    for (int r = warp; r < R; r += nw::NTHREADS / 32) {\n      float res[6];\n"
+              "      composite_warp(")
 # kernel: (file built, {variant: [(file edited, old, new), ...]}); the
 # shipped variant has no edits
 KERNELS = {
@@ -208,11 +245,20 @@ KERNELS = {
     }),
     "teacher": ("nerf_forward.cu", {
         "shipped": [],
-        "no_loads": [(_FIELD, _T_LOAD, "")],
-        "no_products": [(_FIELD, _T_PRODUCTS, _T_PRODUCTS.replace("(n0 < sg.n)", "(false)"))],
-        "no_trig": [(_FIELD, _T_TRIG, "v = __fadd_rn(y, phase);")],
-        "no_views": [(_FIELD, _T_VIEWS_SEG, ""),
-                     (_FIELD, _T_VIEWS_RAYS, _T_VIEWS_RAYS.replace("nr * f.half", "0"))],
+        "no_loads": [(_NW, _NW_ISSUE, "  mbar_arrive(bar);\n")],
+        "no_products": [(_NW, _NW_PRODUCTS, "")],
+        "no_trig": [(_NW, _NW_TRIG, "v = grp == 0 ? xv : __fadd_rn(__fmul_rn(xv, freq), phase);")],
+        "no_views": [(_NW, _NW_CHUNKS, _NW_CHUNKS.replace("(s.depth + 1)", "s.depth")),
+                     (_NW, _NW_VIEWS, "  for (int i = 0; i < HALF / 2; ++i) accv[i] = 0.0f;\n"),
+                     ("nerf_forward.cu", _F_VIEW_ROWS, _F_VIEW_ROWS.replace("nr,", "0,"))],
+        "no_epilogues": [(_NW, _NW_EPI, _NW_EPI.replace("m < 8", "m < 0")),
+                         (_NW, _NW_EPI_VIEW, _NW_EPI_VIEW.replace("mc < (HALF", "mc < 0 * (HALF"))],
+        "block_barrier": [(_NW, _NW_EPI_HEAD, "  __syncthreads();\n" + _NW_EPI_HEAD)],
+        "ring_2": [(_NW, "constexpr int MAX_STAGES = 8;", "constexpr int MAX_STAGES = 2;")],
+        "one_tile_a_block": [("nerf_forward.cu", _F_GRID, "  const unsigned grid = (unsigned)tiles;")],
+        "no_trap": [(_NW, _NW_TRAP, "")],
+        "no_bias": [(_NW, _NW_BIAS, _NW_BIAS.replace("b.pair(pn)", "make_float2(0.0f, 0.0f)"))],
+        "no_cvt": [(_NW, _NW_CVT, "  unsigned r = __float_as_uint(lo) ^ __float_as_uint(hi);\n  if (false)")],
     }),
     "teacher_int8": ("nerf_int8.cu", {
         "shipped": [],
@@ -222,7 +268,26 @@ KERNELS = {
                           _T8_EPI.replace("    if (L == 0) {", "    if (L <= D) return;\n"
                                                               "    if (L == 0) {"))],
     }),
+    "frame": ("nerf_frame.cu", {
+        "shipped": [],
+        "no_glue": [("nerf_frame.cu", _FR_GLUE_C, _FR_GLUE_C.replace("r < R", "r < 0")),
+                    ("nerf_frame.cu", _FR_GLUE_F, _FR_GLUE_F.replace("r < R", "r < 0"))],
+        "no_products": [(_NW, _NW_PRODUCTS, "")],
+    }),
 }
+
+
+def variant_sources(edits, csrc):
+    """{file: edited text} of a variant's edits, each applied to the text the
+    edits before it left; raises unless each edit's old text occurs exactly
+    once there (a variant whose text no longer matches its source)."""
+    texts = {}
+    for fname, old, new in edits:
+        text = texts.get(fname) or (csrc / fname).read_text()
+        if text.count(old) != 1:
+            raise ValueError(f"its statement is {text.count(old)} times in {fname}, not once")
+        texts[fname] = text.replace(old, new)
+    return texts
 
 
 def _build(name, edited, source, out_dir, nvcc, flags, csrc):
@@ -525,10 +590,57 @@ def _teacher_int8_runner(torch, dev, seed):
     return n * S, bound_ms, cs.INT8_TEACHER_TOL, make_run, error
 
 
+def _frame_runner(torch, dev, seed):
+    import ctypes as ct
+
+    from efficient_nerf_tpu_torch.core.poses import pose_spherical
+    from efficient_nerf_tpu_torch.core.rays import get_rays
+    from efficient_nerf_tpu_torch.ops import nerf_forward as nf
+    from efficient_nerf_tpu_torch.ops import nerf_frame as fr
+
+    model = cs.teacher_model(seed, torch, dev)
+    packed = nf.pack_nerf_weights(model.state_dict(), dtype=torch.bfloat16)
+    n, S_c, S_f = cs.T_CHUNK, cs.T_SAMPLES, cs.T_IMPORTANCE
+    ro, rd = get_rays(cs.FRAME_H, cs.FRAME_W, cs.T_FOCAL,
+                      pose_spherical(-30.0, -30.0, 4.0)[:3, :4], device=dev)
+    ro, rd = ro.reshape(-1, 3)[:n].contiguous(), rd.reshape(-1, 3)[:n].contiguous()
+    vd = (rd / rd.norm(dim=-1, keepdim=True)).contiguous()
+    args = (packed, None, ro, rd, vd, cs.NEAR, cs.FAR, S_c, S_f, cs.T_L, cs.T_LV)
+    want = [t.reshape(n, -1) for t in fr.nerf_render_rays_fused_ref(*args, white_bkgd=True)[:4]]
+    z, bins, u = fr._consts(cs.NEAR, cs.FAR, S_c, S_f, False, dev)
+    dirs = nf.embed_dirs(vd, cs.T_LV)
+    out = torch.empty((n, fr.OUT_CH), device=dev)
+    weights = (ct.c_void_p * 13)(*[packed[k].data_ptr() for k in nf._OPERANDS + ("out_b",)])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def make_run(lib):
+        fn = lib.nerf_frame_launch
+        restype, argtypes = fr._SIGNATURES["nerf_frame_launch"]
+        fn.restype, fn.argtypes = restype, list(argtypes)
+        w = ct.cast(weights, ct.c_void_p)
+        return lambda: fn(ro.data_ptr(), rd.data_ptr(), dirs.data_ptr(), z.data_ptr(),
+                          bins.data_ptr(), u.data_ptr(), out.data_ptr(), None, None, n,
+                          fr._rays_per_block(S_c), S_c, S_f, 1, w, w, packed["in_ch"],
+                          packed["in_pad"], packed["in_ch_views"], packed["width"],
+                          packed["depth"], packed["skip"], packed["skip"], stream)
+
+    def error():
+        # rgb, acc and depth against FRAME_TOL, at the share of rays that
+        # chip_smoke.py lets exceed it: 1 at the tolerance
+        got = {"rgb": out[:, 0:3], "acc": out[:, 4:5], "depth": out[:, 5:6]}
+        ref = {"rgb": want[0], "acc": want[2][:, :1], "depth": want[3][:, :1]}
+        return max((got[k] - ref[k]).abs().nan_to_num(0.0).amax(-1)
+                   .quantile(1 - cs.FRAME_SHARE).item() / cs.FRAME_TOL[k] for k in got)
+
+    flops = nf.nerf_forward_flops(packed, n * S_c, n) + nf.nerf_forward_flops(packed, n * (S_c + S_f), n)
+    bound_ms = flops / cs.H100_BF16_FLOPS * 1e3
+    return n, bound_ms, 1.0, make_run, error
+
+
 RUNNERS = {"serve": _serve_runner, "train_fwd": _train_fwd_runner,
            "serve_int8": _serve_int8_runner,
            "train_bwd": _train_bwd_runner, "teacher": _teacher_runner,
-           "teacher_int8": _teacher_int8_runner}
+           "teacher_int8": _teacher_int8_runner, "frame": _frame_runner}
 
 
 def main() -> None:
@@ -549,13 +661,10 @@ def main() -> None:
         # a variant is its edits, or (the file it builds, its edits)
         source, edits = edits if isinstance(edits, tuple) else (default_source, edits)
         built_from[name] = source
-        texts = {}
-        for fname, old, new in edits:
-            text = texts.get(fname) or (build.CSRC / fname).read_text()
-            if text.count(old) != 1:
-                cs.fail(f"variant {name}: its statement is not once in {fname}")
-            texts[fname] = text.replace(old, new)
-        sources[name] = texts
+        try:
+            sources[name] = variant_sources(edits, build.CSRC)
+        except ValueError as e:
+            cs.fail(f"variant {name}: {e}")
     out_dir = build.BUILD_DIR / "breakdown" / args.kernel
     out_dir.mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(len(sources)) as ex:

@@ -64,7 +64,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 256 x 192 and a ragged 37 x 64 and 37 x 192 (one case
                 channel-major), against nerf_forward_fused_ref as max |k - p|
                 / max |p| for sigma and for rgb, beside the noise of the plain
-                version on the CPU against on the card; the inverse-CDF
+                version on the CPU against on the card; at the main path's
+                chunk shapes, 32,768 x 64 and 32,768 x 192, the same check,
+                two calls bit for bit, and the time beside the bound; the
+                wgmma tile's registers and spills (ptxas), shared memory and
+                weight-ring stages; the inverse-CDF
                 kernel on 32,768 rays of a coarse pass's own weights with
                 degenerate rows (all-zero weights, a single spike, a CDF
                 total that rounds above 1) against sample_pdf_det_fused_ref,
@@ -105,7 +109,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 random rays and on a 32,768-ray chunk (share of rays beyond
                 FRAME_TOL), its fine depths against sample_pdf_det_fused on
                 the kernel's own coarse weights, bit for bit; its time at the
-                chunk beside its bound and its plain version.
+                chunk beside its bound, its plain version and the composed
+                path's kernels (teacher phase); the tile's registers and
+                spills, shared memory and weight-ring stages.
   teacher_frame render_image with frame_fused=True for the 3 frames (1
                 whole-ray launch and no other teacher kernel per chunk); the
                 frame against the composed kernel path's frame of the
@@ -320,6 +326,34 @@ def rel_err(got, want) -> float:
     return ((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
+def ptxas_report(name: str, kernel: str):
+    """{instantiation: [ptxas lines]} of `kernel`'s instantiations in the
+    build log of csrc/<name>.cu: registers, spill bytes, shared memory."""
+    from efficient_nerf_tpu_torch.ops import _build
+
+    cur, props = None, {}
+    for line in _build.build_log(name).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+        elif cur and kernel in cur and ("spill" in line or "Used" in line):
+            props.setdefault(cur, []).append(line.strip())
+    return props
+
+
+def print_tile(label: str, name: str, kernel: str, sizes):
+    """Prints the field tile's registers and spills (one line an
+    instantiation, W its width) and, for each (what, smem bytes, stages) of
+    `sizes`, its dynamic shared memory and weight-ring stages."""
+    for cur, lines in sorted(ptxas_report(name, kernel).items()):
+        w = re.search(r"ILi(\d+)EE", cur)
+        print(f"{label}: {kernel}<W={w.group(1) if w else '?'}>: " + "; ".join(lines),
+              flush=True)
+    for what, smem, stages in sizes:
+        print(f"{label}: {kernel} at {what}: {smem} bytes of dynamic shared memory, "
+              f"{stages} weight-ring stages of {T_WIDTH * 64 * 2} bytes", flush=True)
+
+
 class Smoke:
     """The state the phases share: the card, the imports, the weights, the
     rays and the {"kernels": [...]} entries."""
@@ -375,13 +409,7 @@ def phase_build(sm: Smoke) -> None:
     # of an input wider than the embed's room in parts)
     for name, kernel, fn in (("r2l_forward", "r2l_forward_kernel", "r2l_forward_smem_bytes"),
                              ("r2l_train", "r2l_train_fwd_kernel", "r2l_train_fwd_smem_bytes")):
-        cur, props = None, {}
-        for line in _build.build_log(name).splitlines():
-            m = re.search(r"Function properties for (\S+)", line)
-            if m:
-                cur = m.group(1)
-            elif cur and kernel in cur and ("spill" in line or "Used" in line):
-                props.setdefault(cur, []).append(line.strip())
+        props = ptxas_report(name, kernel)
         lib = ctypes.CDLL(str(_build.library_path(name)))
         getattr(lib, fn).restype = ctypes.c_longlong
         smem = getattr(lib, fn)(1024, WIDTH)
@@ -1224,8 +1252,9 @@ def _field_errors(got, want):
 def phase_teacher_kernel(sm: Smoke) -> None:
     from efficient_nerf_tpu_torch.core.sampling import linear_zvals
     from efficient_nerf_tpu_torch.core.volume import raw2outputs
+    from efficient_nerf_tpu_torch.ops import _build
     from efficient_nerf_tpu_torch.ops.nerf_forward import (
-        nerf_forward_fused, nerf_forward_fused_ref, pack_nerf_weights)
+        nerf_forward_flops, nerf_forward_fused, nerf_forward_fused_ref, pack_nerf_weights)
     from efficient_nerf_tpu_torch.ops.sample_pdf import (
         sample_pdf_det_fused, sample_pdf_det_fused_ref)
 
@@ -1268,6 +1297,33 @@ def phase_teacher_kernel(sm: Smoke) -> None:
           f"{k_e['sigma']:.3g}, rgb {k_e['rgb']:.3g}", flush=True)
     if not max(worst["sigma"], worst["rgb"]) <= TEACHER_TOL:
         fail(f"field-eval kernel differs from its plain version by {worst}")
+
+    # the main path's chunk shapes (16,384 and 49,152 tiles): the kernel
+    # against its plain version, two calls bit for bit, and its time
+    # beside its bound
+    lib = ctypes.CDLL(str(_build.library_path("nerf_forward")))
+    lib.nerf_forward_smem_bytes.restype = ctypes.c_longlong
+    sizes = []
+    for S in (T_SAMPLES, T_SAMPLES + T_IMPORTANCE):
+        pts, dirs = points(T_CHUNK, S)
+        got = nerf_forward_fused(packed, pts, dirs, T_L, T_LV)
+        again = nerf_forward_fused(packed, pts, dirs, T_L, T_LV)
+        e = _field_errors(got, nerf_forward_fused_ref(packed, pts, dirs, T_L, T_LV))
+        same = bool(torch.equal(got, again))
+        del got, again
+        torch.cuda.empty_cache()
+        ms = cuda_ms(torch, lambda: nerf_forward_fused(packed, pts, dirs, T_L, T_LV), 5)
+        b = bound(nerf_forward_flops(packed, T_CHUNK * S, T_CHUNK), T_CHUNK * S * 28 + T_CHUNK * 12)
+        print(f"teacher_kernel: nerf_forward_fused {T_CHUNK} x {S}: sigma {e['sigma']:.3g}, rgb "
+              f"{e['rgb']:.3g} of max |plain| (tol {TEACHER_TOL:g}); max abs {e['abs']:.3g}; two "
+              f"calls bit for bit: {same}; {ms:.3f} ms against a bound of {b[0]:.3f} ms "
+              f"({b[1]}) -> {b[0] / ms * 100:.1f}%", flush=True)
+        if not max(e["sigma"], e["rgb"]) <= TEACHER_TOL or not same:
+            fail(f"field-eval kernel at {T_CHUNK} x {S}: errors {e}, bit for bit {same}")
+        worst = {k: max(worst[k], v) for k, v in e.items()}
+        sizes.append((f"S={S}", lib.nerf_forward_smem_bytes(64, T_WIDTH, T_DEPTH, S),
+                      lib.nerf_forward_ring_stages(64, T_WIDTH, T_DEPTH, S)))
+    print_tile("teacher_kernel", "nerf_forward", "nerf_forward_kernel", sizes)
 
     # the sampler on a coarse pass's own weights at the chunk's 32,768 rays
     n = T_CHUNK
@@ -1861,6 +1917,7 @@ FRAME_FIELDS = ("rgb", "disp", "acc", "depth", "rgb0", "disp0", "acc0", "z_std")
 
 
 def phase_frame_kernel(sm: Smoke) -> None:
+    from efficient_nerf_tpu_torch.ops import _build
     from efficient_nerf_tpu_torch.ops import nerf_frame as fr
     from efficient_nerf_tpu_torch.ops.nerf_forward import nerf_forward_flops
     from efficient_nerf_tpu_torch.ops.sample_pdf import sample_pdf_det_fused
@@ -1925,10 +1982,22 @@ def phase_frame_kernel(sm: Smoke) -> None:
                   if torch.is_tensor(packed[k]))
     # o, d and the embedded directions in; the 12 floats of the fields out
     b = bound(flops, n * (6 + 3 * (2 * T_LV + 1)) * 4 + n * 12 * 4 + w_bytes)
+    composed = [sm.entries[k]["ms"] for k in ("nerf_forward_fused", "sample_pdf_det_fused")
+                if k in sm.entries]
     print(f"frame_kernel: nerf_render_rays_fused at a {n}-ray chunk: {ms:.3f} ms, bound "
           f"{b[0]:.3f} ms ({flops / 1e12:.3f} TFLOP, {b[1]}) -> {b[0] / ms * 100:.1f}% of the "
           f"bound; plain version {plain_ms:.3f} ms (not a yardstick); no single torch call "
-          f"computes it", flush=True)
+          f"computes it; the composed path's kernels (field eval coarse + fine, sampler; "
+          f"teacher phase) "
+          + (f"{sum(composed):.3f} ms" if len(composed) == 2 else "not measured in this run"),
+          flush=True)
+    lib = ctypes.CDLL(str(_build.library_path("nerf_frame")))
+    lib.nerf_frame_smem_bytes.restype = ctypes.c_longlong
+    R = fr._rays_per_block(T_SAMPLES)
+    print_tile("frame_kernel", "nerf_frame", "nerf_frame_kernel", [
+        (f"R={R}, {T_SAMPLES} + {T_IMPORTANCE} samples",
+         lib.nerf_frame_smem_bytes(64, T_WIDTH, T_DEPTH, R, T_SAMPLES, T_IMPORTANCE),
+         lib.nerf_frame_ring_stages(64, T_WIDTH, T_DEPTH, R, T_SAMPLES, T_IMPORTANCE))])
     sm.entries["nerf_render_rays_fused"] = {
         "name": "nerf_render_rays_fused", "route": "cuda",
         "source": "efficient_nerf_tpu_torch/csrc/nerf_frame.cu",

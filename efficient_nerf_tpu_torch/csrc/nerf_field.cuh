@@ -1,7 +1,7 @@
-// The teacher field eval over one tile of TM = 128 points, shared by the
-// field-eval kernel (nerf_forward.cu), its W8A8 twin (nerf_int8.cu) and the
-// whole-ray kernel (nerf_frame.cu). The field is the reference NeRF MLP with
-// the viewdir branch:
+// The teacher field eval over one tile of TM = 128 points on mma.sync, the
+// tile of the W8A8 field-eval kernel (nerf_int8.cu); the bf16 field-eval and
+// whole-ray kernels run the wgmma tile of nerf_wgmma.cuh. The field is the
+// reference NeRF MLP with the viewdir branch:
 //
 //   point x -> embed [x, sin(2^0 x), cos(2^0 x), ...] (63-d at L 10): y = x 2^l
 //              exact in f32, then fast_sin(y + phase) of trig.cuh (degree 7)
@@ -393,30 +393,6 @@ __device__ __forceinline__ void field_raw(const Field& f, const Tile& t, int row
     for (int c = 0; c < 3; ++c) out(row, c, rgb[c] + f.out_b[c]);
     out(row, 3, alpha + f.out_b[3]);
   }
-}
-
-// The bf16 model's segments, in stream order: layer 0 on the embed, the body
-// layers (the one after the skip as its hidden product, then its embed
-// product), the feature head, the view layer. Weights are nn.Linear's
-// [out, in] layout, bf16: pts0_w and skip_x_w [W, in_pad] (zero past in_ch),
-// body_w [D-1, W, W], feat_w [W, W], views_h_w [W/2, W].
-inline int bf16_segments(Seg* segs, const void* pts0_w, const void* body_w, const void* skip_x_w,
-                         const void* feat_w, const void* views_h_w, int in_pad, int W, int depth,
-                         int skip) {
-  typedef const unsigned char* BP;
-  int n = 0;
-  auto seg = [&](const void* w, int k_bytes, int rows, int src, int layer) {
-    segs[n++] = Seg{static_cast<BP>(w), k_bytes, k_bytes / CHUNK_B, rows, src, layer, 0, 0};
-  };
-  seg(pts0_w, 2 * in_pad, W, 0, 0);
-  for (int i = 1; i < depth; ++i) {
-    const bool after_skip = i == skip + 1;
-    seg(static_cast<BP>(body_w) + (size_t)(i - 1) * W * W * 2, 2 * W, W, 1, after_skip ? -1 : i);
-    if (after_skip) seg(skip_x_w, 2 * in_pad, W, 0, i);
-  }
-  seg(feat_w, 2 * W, W, 1, depth);
-  seg(views_h_w, 2 * W, W / 2, 1, depth + 1);
-  return n;
 }
 
 // Rays a tile of TM consecutive points can touch at S samples a ray.

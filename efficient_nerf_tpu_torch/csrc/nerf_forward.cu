@@ -4,10 +4,10 @@
 // Replaces efficient_nerf_tpu/ops/pallas/nerf_forward.py::nerf_forward_fused
 // (:314, its pallas_call at :410; the kernel body is _kernel :174-292), with
 // the same fusion boundary: points and per-ray embedded directions go in, raw
-// comes out, and no activation reaches device memory. One thread block takes
-// a tile of TM = 128 consecutive points (point = ray * S + sample, so a tile
-// may straddle rays) end to end, through the field of nerf_field.cuh (embed,
-// 8 layers with the skip, alpha and feature heads, view layer, rgb head).
+// comes out, and no activation reaches device memory. Each tile of TM = 128
+// consecutive points (point = ray * S + sample, so a tile may straddle rays)
+// runs end to end through the field of nerf_wgmma.cuh (embed, 8 layers with
+// the skip, alpha and feature heads, view layer, rgb head).
 //
 // Precision contract of the Pallas kernel: every product takes bf16 operands
 // and sums in f32; the inner biases are bf16 values (pack_nerf_weights rounds
@@ -18,15 +18,18 @@
 // Bound: 589,952 multiply-adds a point at W256 D8 (63x256 + 7x256^2 + 63x256
 // skip rows + 256 alpha + 256^2 feature + 256x128 view + 128x3 rgb), 1.18
 // MFLOP, against 12 bytes of point in and 16 of raw out: bound by tensor-core
-// operations (a 400x400 frame at 64 + 192 samples is 48.3 TFLOP). The design
-// (nerf_field.cuh): mma.sync m16n8k16 bf16 -> f32 from 8 warps, the 1.19 MB of
-// bf16 weights streamed from L2 as one continuous cp.async stream over all 11
-// products, about 127 FLOP per byte of L2 at 128-point tiles; the activation
-// tile overwritten in place; the heads summed from registers.
-//
-// wgmma, TMA, warp specialisation and clusters that share one weight stream
-// are later work.
-#include "nerf_field.cuh"
+// operations (2.502 ms for a 32,768-ray chunk at 64 samples, 7.506 at 192, at
+// 989 TFLOP/s). Second to it is the weight stream: each 128-point tile reads
+// the 1.17 MB of bf16 weights from L2, 58 GB for a fine chunk. The design
+// (nerf_wgmma.cuh): wgmma from two warpgroups that split the tile's rows, so
+// that one's epilogues run under the other's products; the weights by TMA
+// into a ring that neither warpgroup waits on to load; persistent blocks
+// (one per SM at W256), so that the ring streams on from tile to tile. This
+// file holds each warpgroup's rows' points, view rows and raw, and the
+// launch.
+#include <string.h>
+
+#include "nerf_wgmma.cuh"
 
 namespace {
 
@@ -38,51 +41,112 @@ struct Args {
   const float* dirs;                // [N, ev] f32 embedded view directions
   float* out;                       // raw of point p, channel c at p * o_pt + c * o_c
   long long o_pt, o_c, P;
-  int S, nr_max;
-  Field f;
+  int S, nr_wg;                     // samples a ray; rays a warpgroup's rows can touch
+  nw::Shape s;
+  nw::Model m;
 };
 
-// __grid_constant__: the epilogues and the segment table take the parameter's
-// address without a local copy of it
-__global__ void __launch_bounds__(NTHREADS, 1)
-    nerf_forward_kernel(const __grid_constant__ Args p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Field& f = p.f;
-  const Tile t = field_tile(smem, field_layout(f.in_pad, f.W, f.half, p.nr_max));
-  const long long p0 = (long long)blockIdx.x * TM;
-  const long long p_end = p0 + TM < p.P ? p0 + TM : p.P;
-  const long long r0 = p0 / p.S;
-  const int nr = (int)((p_end - 1) / p.S - r0) + 1;
-  const int rows = (int)(p_end - p0);
-
-  embed_tile(t.X, f.in_ch, f.in_pad, rows,
-             [&](int row, int c) { return p.pts[(p0 + row) * p.s_pt + c * p.s_c]; });
-  view_rays(t.hvd, nr, f, [&](int ri) { return p.dirs + (r0 + ri) * f.ev; });
-  for (int row = threadIdx.x; row < TM; row += NTHREADS) {
-    const long long r = (p0 + row < p_end ? p0 + row : p_end - 1) / p.S;
-    t.rowray[row] = (int)(r - r0);
+// One warpgroup's rows of a tile: points p0 .. p0 + rows - 1, their view
+// rows from ray r0 on.
+struct Rows {
+  const Args* p;
+  long long p0, r0;
+  int rows;
+  const float* hvd;
+  __device__ float pt(int row, int c) const { return p->pts[(p0 + row) * p->s_pt + c * p->s_c]; }
+  __device__ const float* hv(int row) const {
+    if (rows <= 0) return hvd;
+    const long long q = p0 + (row < rows ? row : rows - 1);
+    return hvd + (q / p->S - r0) * (p->s.W / 2);
   }
-  // (the stream's first barrier orders these writes before their reads)
-  field_products<false>(f, t, [&](const Seg& sg, TileFrag& acc) {
-    bf16_epilogue(f, t, sg.layer, acc);
-  });
-  field_raw(f, t, rows, [&](int row, int c, float v) {
-    p.out[(p0 + row) * p.o_pt + c * p.o_c] = v;
-  });
+  __device__ void out(int row, int c, float v) const {
+    p->out[(p0 + row) * p->o_pt + c * p->o_c] = v;
+  }
+};
+
+// Rays that 64 consecutive points can touch at S samples a ray.
+__host__ __device__ inline int rays_per_rows(int S) {
+  const int r = (nw::ROWS - 1) / S + 2;
+  return r < nw::ROWS ? r : nw::ROWS;
+}
+
+__host__ __device__ inline nw::Layout forward_layout(const nw::Shape& s, int S) {
+  return nw::layout(s, (size_t)2 * rays_per_rows(S) * (s.W / 2) * 4, 0);
+}
+
+// __grid_constant__: the tile takes the tensor maps' and the model's
+// addresses without a local copy of them
+template <int W>
+__global__ void __launch_bounds__(nw::NTHREADS, 1)
+    nerf_forward_kernel(const __grid_constant__ Args p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const nw::Smem sm = nw::smem_of(smem_raw, forward_layout(p.s, p.S));
+  const long long tiles = (p.P + nw::TM - 1) / nw::TM;
+  const int nt = (int)((tiles - blockIdx.x + gridDim.x - 1) / gridDim.x);  // this block's
+  nw::Stream st;
+  st.m0 = st.m1 = &p.m;
+  st.s = p.s;
+  st.cpt = nw::chunks_per_tile(p.s);
+  st.period = st.split = nt;
+  st.total = nt * st.cpt;
+  nw::load_consts(p.m, p.s, sm, threadIdx.x, nw::NTHREADS);
+  nw::ring_start(st, sm);  // (its block barrier orders load_consts's writes)
+
+  const int wgi = threadIdx.x / 128, tw = threadIdx.x % 128, half = W / 2;
+  float* hvd = sm.hvd + (size_t)wgi * p.nr_wg * half;
+  nw::Cursor k = {0, 0, 0u};
+  for (int i = 0; i < nt; ++i) {
+    Rows src;
+    src.p = &p;
+    src.p0 = (blockIdx.x + (long long)i * gridDim.x) * nw::TM + nw::ROWS * wgi;
+    const long long left = p.P - src.p0;
+    src.rows = left <= 0 ? 0 : left < nw::ROWS ? (int)left : nw::ROWS;
+    src.r0 = src.p0 / p.S;
+    src.hvd = hvd;
+    nw::bar_wg(wgi);  // the last tile's view epilogue has read the view rows
+    if (src.rows > 0) {
+      const int nr = (int)((src.p0 + src.rows - 1) / p.S - src.r0) + 1;
+      nw::view_rows(hvd, nr, half, p.s.ev, p.m.views_d_w, tw, 128,
+                    [&](int ri) { return p.dirs + (src.r0 + ri) * p.s.ev; });
+    }
+    // (the embed's warpgroup barrier orders these writes before their reads)
+    nw::field_tile<W>(p.m, st, sm, k, src);
+  }
+}
+
+template <int W>
+int launch(const Args& a, size_t smem, cudaStream_t stream) {
+  auto kernel = nerf_forward_kernel<W>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (a.P + nw::TM - 1) / nw::TM;
+  const int resident = nw::resident_blocks(kernel, smem);
+  if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
+  const unsigned grid = (unsigned)(tiles < resident ? tiles : resident);
+  kernel<<<grid, nw::NTHREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Bytes of dynamic shared memory one block needs; above 232448 the shape is
 // not supported.
-extern "C" long long nerf_forward_smem_bytes(int in_pad, int W, int S) {
-  return (long long)field_layout(in_pad, W, W / 2, rays_per_tile(S)).total;
+extern "C" long long nerf_forward_smem_bytes(int in_pad, int W, int depth, int S) {
+  const nw::Shape s = {in_pad, in_pad, 1, W, depth};
+  const nw::Layout l = forward_layout(s, S);
+  return (long long)(l.ns >= 2 && l.total <= (size_t)nw::MAX_SMEM ? l.total : nw::MAX_SMEM + 1);
+}
+
+// The weight ring's stages at that shape.
+extern "C" int nerf_forward_ring_stages(int in_pad, int W, int depth, int S) {
+  const nw::Shape s = {in_pad, in_pad, 1, W, depth};
+  return forward_layout(s, S).ns;
 }
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 = ok).
 // Shapes are checked by the Python wrapper; the checks here guard the
-// kernel's own assumptions. Weights are nn.Linear's [out, in] layout, bf16
-// (bf16_segments).
+// kernel's own assumptions. Weights are nn.Linear's [out, in] layout, bf16.
 extern "C" int nerf_forward_launch(
     const float* pts, long long s_pt, long long s_c, const float* dirs,
     const void* pts0_w, const void* pts0_b, const void* body_w, const void* body_b,
@@ -92,16 +156,15 @@ extern "C" int nerf_forward_launch(
     long long o_pt, long long o_c, long long P, int S, int in_ch, int in_pad,
     int ev, int W, int depth, int skip, void* stream) {
   if (P <= 0) return 0;
-  const int half = W / 2, nr_max = rays_per_tile(S);
-  const size_t smem = field_layout(in_pad, W, half, nr_max).total;
-  if (!field_shape_ok(in_ch, in_pad, ev, W, depth, skip) || S < 1 || smem > (size_t)MAX_SMEM)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      nerf_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-
-  typedef const __nv_bfloat16* BP;
   Args a;
+  memset(&a, 0, sizeof(a));
+  a.s = nw::Shape{in_ch, in_pad, ev, W, depth};
+  const size_t smem = (size_t)nerf_forward_smem_bytes(in_pad, W, depth, S);
+  if (!nw::shape_ok(a.s, skip) || S < 1 || smem > (size_t)nw::MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  const void* w[13] = {pts0_w, pts0_b, body_w, body_b, skip_x_w, feat_w, feat_b,
+                       views_h_w, views_d_w, views_b, rgb_w, alpha_w, out_b};
+  if (!nw::make_model(&a.m, w, a.s, skip)) return (int)cudaErrorInvalidValue;
   a.pts = pts;
   a.s_pt = s_pt;
   a.s_c = s_c;
@@ -111,26 +174,13 @@ extern "C" int nerf_forward_launch(
   a.o_c = o_c;
   a.P = P;
   a.S = S;
-  a.nr_max = nr_max;
-  Field& f = a.f;
-  f.pts0_b = static_cast<BP>(pts0_b);
-  f.body_b = static_cast<BP>(body_b);
-  f.feat_b = static_cast<BP>(feat_b);
-  f.views_d_w = static_cast<BP>(views_d_w);
-  f.views_b = static_cast<BP>(views_b);
-  f.rgb_w = static_cast<BP>(rgb_w);
-  f.alpha_w = static_cast<BP>(alpha_w);
-  f.out_b = out_b;
-  f.in_ch = in_ch;
-  f.in_pad = in_pad;
-  f.ev = ev;
-  f.W = W;
-  f.half = half;
-  f.depth = depth;
-  f.n_segs = bf16_segments(f.segs, pts0_w, body_w, skip_x_w, feat_w, views_h_w, in_pad, W,
-                           depth, skip);
-
-  const unsigned blocks = (unsigned)((P + TM - 1) / TM);
-  nerf_forward_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  a.nr_wg = rays_per_rows(S);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (W) {
+    case 64: return launch<64>(a, smem, st);
+    case 128: return launch<128>(a, smem, st);
+    case 192: return launch<192>(a, smem, st);
+    case 256: return launch<256>(a, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

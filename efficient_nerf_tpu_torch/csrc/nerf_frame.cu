@@ -6,36 +6,44 @@
 // its fusion boundary: rays, their embedded view directions and the constant
 // depths go in, rgb, disp, acc, depth, rgb0, disp0, acc0 and z_std come out,
 // and nothing between (points, raw fields, weights, fine depths) reaches
-// device memory. One block takes R rays (R even: at 64 coarse samples two
-// rays fill one 128-point tile, and at 192 they fill three):
+// device memory. A block takes groups of R rays (R even: at 64 coarse
+// samples two rays fill one 128-point tile, and at 192 they fill three),
+// one after another (persistent blocks, one per SM at W256):
 //
 //   1. points o + z d, one rounding each (__fmul_rn, then __fadd_rn: the
 //      composed path's separate multiply and add; an FMA would move a point
 //      by an ulp, which the 2^9 frequency of the embed amplifies);
 //   2. the coarse field at the S_c constant depths, tile by tile through
-//      nerf_field.cuh (the bf16 field of nerf_forward.cu), into a shared
-//      raw [R, S_c, 4];
-//   3. the composite, one thread a ray: dists x |d| with a 1e10 last
-//      interval, alpha = 1 - exp(-relu(sigma) dist), the transmittance as a
-//      sequential exclusive product of 1 - alpha + 1e-10, sigmoid rgb, the
-//      white background, disp = 1 / max(1e-10, depth / acc), NaN where acc
-//      is 0 (as torch.maximum keeps a NaN);
-//   4. the inverse CDF of the interior weights (pdf_walk of sample_pdf.cuh,
-//      bit for bit the sampler kernel's walk) and z_std (ddof 0);
-//   5. a serial two-pointer merge of the sorted coarse and fine depths: the
-//      sorted list that the Pallas kernel's bitonic network gives (a lane
-//      trick of the TPU);
+//      the tile of nerf_wgmma.cuh (the field-eval kernel's, nerf_forward.cu),
+//      into a shared raw [R, S_c, 4];
+//   3. the composite, one warp a ray: each lane takes S / 32 consecutive
+//      samples (dists x |d| with a 1e10 last interval, alpha = 1 - exp(
+//      -relu(sigma) dist), sigmoid rgb), the transmittance is the exclusive
+//      product of 1 - alpha + 1e-10 (within a lane in order, across lanes by
+//      a shuffle scan), the sums are shuffle sums; the white background,
+//      disp = 1 / max(1e-10, depth / acc), NaN where acc is 0 (as
+//      torch.maximum keeps a NaN);
+//   4. the inverse CDF of the interior weights: the CDF summed in the
+//      sampler's order, then the levels spread over the lanes (pdf_level of
+//      sample_pdf.cuh, bit for bit the sampler kernel's walk), and z_std
+//      (ddof 0);
+//   5. the merge of the sorted coarse and fine depths by rank: each depth's
+//      place is its index plus the count of the other list's depths before
+//      it (coarse first on a tie, as a two-pointer merge takes them): the
+//      sorted list that the Pallas kernel's bitonic network gives;
 //   6. the fine field at the S_c + S_f merged depths, with the fine model's
 //      weights; 7. its composite; 8. the eight fields.
 //
-// The per-ray glue keeps its state in shared memory (raw, weights, depths,
-// the coarse results): the field's tile already takes all 255 registers.
-//
 // Bound: the two field evals' operations, as the field-eval kernel's (10.008
 // ms a 32,768-ray chunk at W256 D8, 64 + 128 samples, 48.87 ms a 400x400
-// frame); about 150 bytes a ray in and 48 out. The glue is O(S) a ray on one
-// thread, small beside the 4 tiles of field eval a block runs at R = 2.
-#include "nerf_field.cuh"
+// frame); about 150 bytes a ray in and 48 out. The weight stream runs on
+// from the coarse tiles into the fine ones and into the next group's (the
+// ring loads the next model's first chunks while the glue runs); the glue is
+// O(S) a ray spread over a warp, small beside the 4 tiles of field eval a
+// group takes at R = 2.
+#include <string.h>
+
+#include "nerf_wgmma.cuh"
 #include "sample_pdf.cuh"
 
 namespace {
@@ -43,6 +51,7 @@ namespace {
 using namespace enerf;
 
 constexpr int OUT_CH = 12;  // rgb(3) disp acc depth rgb0(3) disp0 acc0 z_std
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
   const float* rays_o;   // [N, 3]
@@ -56,18 +65,19 @@ struct Args {
   float* taps_z;         // [N, S_f] fine depths, or null
   long long N;
   int R, S_c, S_f, white_bkgd;
-  Field fc, ff;          // coarse and fine models (the same shapes)
+  nw::Shape s;
+  nw::Model fc, ff;      // coarse and fine models (the same shapes)
 };
 
-// Offsets (bytes) of the glue's arrays after the tile's shared memory.
+// Offsets (bytes) of the glue's arrays in the tile's extra region.
 struct Glue {
-  size_t o, d, nd, zc, bins, u, zall, raw, wc, zf, res, total;
+  size_t o, d, nd, zc, bins, u, zall, raw, wc, zf, cdf, res, total;
 };
 
-__host__ __device__ inline Glue glue_layout(size_t base, int R, int S_c, int S_f) {
+__host__ __device__ inline Glue glue_layout(int R, int S_c, int S_f) {
   const size_t S = (size_t)S_c + S_f;
   Glue g;
-  g.o = base;
+  g.o = 0;
   g.d = g.o + (size_t)R * 3 * 4;
   g.nd = g.d + (size_t)R * 3 * 4;
   g.zc = g.nd + (size_t)R * 4;
@@ -77,24 +87,51 @@ __host__ __device__ inline Glue glue_layout(size_t base, int R, int S_c, int S_f
   g.raw = g.zall + (size_t)R * S * 4;
   g.wc = g.raw + (size_t)R * S * 4 * 4;
   g.zf = g.wc + (size_t)R * S_c * 4;
-  g.res = g.zf + (size_t)R * S_f * 4;
+  g.cdf = g.zf + (size_t)R * S_f * 4;
+  g.res = g.cdf + (size_t)R * S_c * 4;
   g.total = g.res + (size_t)R * OUT_CH * 4;
   return g;
+}
+
+__host__ __device__ inline nw::Layout frame_layout(const nw::Shape& s, int R, int S_c, int S_f) {
+  return nw::layout(s, (size_t)R * (s.W / 2) * 4, glue_layout(R, S_c, S_f).total);
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
 }
 
-// One ray's composite: raw [S][4] at depths z [S] -> res = (rgb, disp, acc,
-// depth); the weights into w when it is not null.
-__device__ void composite(const float* raw, const float* z, int S, float normd, bool white,
-                          float* w, float (&res)[6]) {
-  float T = 1.0f, acc = 0.0f, dep = 0.0f, rgb[3] = {0.0f, 0.0f, 0.0f};
-  for (int s = 0; s < S; ++s) {
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+// One ray's composite by one warp: raw [S][4] at depths z [S] -> res = (rgb,
+// disp, acc, depth) in every lane; the weights into w when it is not null.
+__device__ void composite_warp(const float* raw, const float* z, int S, float normd, bool white,
+                               float* w, float (&res)[6]) {
+  const int lane = threadIdx.x % 32, per = (S + 31) / 32;
+  const int lo = lane * per < S ? lane * per : S, hi = lo + per < S ? lo + per : S;
+  auto alpha_of = [&](int s) {
     const float dz = s + 1 < S ? __fsub_rn(z[s + 1], z[s]) : 1e10f;
     const float sigma = fmaxf(raw[4 * s + 3], 0.0f);
-    const float alpha = __fsub_rn(1.0f, expf(__fmul_rn(-sigma, __fmul_rn(dz, normd))));
+    return __fsub_rn(1.0f, expf(__fmul_rn(-sigma, __fmul_rn(dz, normd))));
+  };
+  float prod = 1.0f;
+  for (int s = lo; s < hi; ++s) prod = __fmul_rn(prod, __fadd_rn(__fsub_rn(1.0f, alpha_of(s)), 1e-10f));
+  // the transmittance before this lane's samples: the product of the lanes
+  // before it
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float v = __shfl_up_sync(FULL, prod, off);
+    if (lane >= off) prod = __fmul_rn(v, prod);
+  }
+  float T = __shfl_up_sync(FULL, prod, 1);
+  if (lane == 0) T = 1.0f;
+  float acc = 0.0f, dep = 0.0f, rgb[3] = {0.0f, 0.0f, 0.0f};
+  for (int s = lo; s < hi; ++s) {
+    const float alpha = alpha_of(s);
     const float ws = __fmul_rn(alpha, T);
     T = __fmul_rn(T, __fadd_rn(__fsub_rn(1.0f, alpha), 1e-10f));
     if (w) w[s] = ws;
@@ -102,6 +139,9 @@ __device__ void composite(const float* raw, const float* z, int S, float normd, 
     dep = __fadd_rn(dep, __fmul_rn(ws, z[s]));
     acc = __fadd_rn(acc, ws);
   }
+  for (int c = 0; c < 3; ++c) rgb[c] = warp_sum(rgb[c]);
+  dep = warp_sum(dep);
+  acc = warp_sum(acc);
   const float ratio = __fdiv_rn(dep, acc);
   const float m = ratio != ratio ? ratio : fmaxf(1e-10f, ratio);
   for (int c = 0; c < 3; ++c) res[c] = white ? __fadd_rn(rgb[c], __fsub_rn(1.0f, acc)) : rgb[c];
@@ -110,148 +150,233 @@ __device__ void composite(const float* raw, const float* z, int S, float normd, 
   res[5] = dep;
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
+// Count of the n sorted values v[i] < x (below) or <= x (!below).
+__device__ __forceinline__ int rank_in(const float* v, int n, float x, bool below) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (below ? v[mid] < x : v[mid] <= x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// One warpgroup's rows of a pass's tile: points p0 .. p0 + rows - 1 of the
+// block's R rays at S_p depths each (z + r * z_stride holds ray r's).
+struct Rows {
+  const float *so, *sd, *z, *hvd;
+  float* raw;
+  int p0, rows, S_p, z_stride, half;
+  __device__ float pt(int row, int c) const {
+    const int q = p0 + row, r = q / S_p;
+    return __fadd_rn(so[r * 3 + c], __fmul_rn(sd[r * 3 + c], z[r * z_stride + q % S_p]));
+  }
+  __device__ const float* hv(int row) const {
+    if (rows <= 0) return hvd;
+    return hvd + ((p0 + (row < rows ? row : rows - 1)) / S_p) * half;
+  }
+  __device__ void out(int row, int c, float v) const { raw[(p0 + row) * 4 + c] = v; }
+};
+
+template <int W>
+__global__ void __launch_bounds__(nw::NTHREADS, 1)
     nerf_frame_kernel(const __grid_constant__ Args p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int R = p.R, S_c = p.S_c, S_f = p.S_f, S = S_c + S_f;
-  const Layout lay = field_layout(p.fc.in_pad, p.fc.W, p.fc.half, R);
-  const Tile t = field_tile(smem, lay);
-  const Glue gl = glue_layout(lay.total, R, S_c, S_f);
-  float* so = reinterpret_cast<float*>(smem + gl.o);
-  float* sd = reinterpret_cast<float*>(smem + gl.d);
-  float* snd = reinterpret_cast<float*>(smem + gl.nd);
-  float* szc = reinterpret_cast<float*>(smem + gl.zc);
-  float* sbins = reinterpret_cast<float*>(smem + gl.bins);
-  float* su = reinterpret_cast<float*>(smem + gl.u);
-  float* szall = reinterpret_cast<float*>(smem + gl.zall);
-  float* sraw = reinterpret_cast<float*>(smem + gl.raw);
-  float* swc = reinterpret_cast<float*>(smem + gl.wc);
-  float* szf = reinterpret_cast<float*>(smem + gl.zf);
-  float* sres = reinterpret_cast<float*>(smem + gl.res);
-  const int tid = threadIdx.x;
-  const long long ray0 = (long long)blockIdx.x * R;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int R = p.R, S_c = p.S_c, S_f = p.S_f, S = S_c + S_f, half = W / 2;
+  const nw::Smem sm = nw::smem_of(smem_raw, frame_layout(p.s, R, S_c, S_f));
+  const Glue gl = glue_layout(R, S_c, S_f);
+  float* so = reinterpret_cast<float*>(sm.extra + gl.o);
+  float* sd = reinterpret_cast<float*>(sm.extra + gl.d);
+  float* snd = reinterpret_cast<float*>(sm.extra + gl.nd);
+  float* szc = reinterpret_cast<float*>(sm.extra + gl.zc);
+  float* sbins = reinterpret_cast<float*>(sm.extra + gl.bins);
+  float* su = reinterpret_cast<float*>(sm.extra + gl.u);
+  float* szall = reinterpret_cast<float*>(sm.extra + gl.zall);
+  float* sraw = reinterpret_cast<float*>(sm.extra + gl.raw);
+  float* swc = reinterpret_cast<float*>(sm.extra + gl.wc);
+  float* szf = reinterpret_cast<float*>(sm.extra + gl.zf);
+  float* scdf = reinterpret_cast<float*>(sm.extra + gl.cdf);
+  float* sres = reinterpret_cast<float*>(sm.extra + gl.res);
+  const int tid = threadIdx.x, wgi = tid / 128, warp = tid / 32, lane = tid % 32;
+  const long long groups = (p.N + R - 1) / R;
+  const int ng = (int)((groups - blockIdx.x + gridDim.x - 1) / gridDim.x);  // this block's
 
-  // the block's rays; a ragged block's missing rays are unit-z rays from the
-  // origin (the Pallas wrapper's pad rays), computed and never written
-  for (int r = tid; r < R; r += NTHREADS) {
-    const long long ray = ray0 + r;
-    float d[3] = {0.0f, 0.0f, 1.0f};
-    for (int c = 0; c < 3; ++c) {
-      so[r * 3 + c] = ray < p.N ? p.rays_o[ray * 3 + c] : 0.0f;
-      if (ray < p.N) d[c] = p.rays_d[ray * 3 + c];
-      sd[r * 3 + c] = d[c];
-    }
-    snd[r] = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(d[0], d[0]), __fmul_rn(d[1], d[1])),
-                                  __fmul_rn(d[2], d[2])));
-  }
-  for (int i = tid; i < S_c; i += NTHREADS) szc[i] = p.zc[i];
-  for (int i = tid; i < S_c - 1; i += NTHREADS) sbins[i] = p.bins[i];
-  for (int i = tid; i < S_f; i += NTHREADS) su[i] = p.u[i];
-  __syncthreads();
+  // the weight stream: each ray group's coarse tiles, then its fine tiles
+  const int ntc = (R * S_c + nw::TM - 1) / nw::TM, ntf = (R * S + nw::TM - 1) / nw::TM;
+  nw::Stream st;
+  st.m0 = &p.fc;
+  st.m1 = &p.ff;
+  st.s = p.s;
+  st.cpt = nw::chunks_per_tile(p.s);
+  st.period = ntc + ntf;
+  st.split = ntc;
+  st.total = ng * st.period * st.cpt;
+  nw::ring_start(st, sm);
+  for (int i = tid; i < S_c; i += nw::NTHREADS) szc[i] = p.zc[i];
+  for (int i = tid; i < S_c - 1; i += nw::NTHREADS) sbins[i] = p.bins[i];
+  for (int i = tid; i < S_f; i += nw::NTHREADS) su[i] = p.u[i];
+  nw::Cursor k = {0, 0, 0u};
 
-  const long long last = p.N - 1;
-  auto dir = [&](int ri) {
-    const long long ray = ray0 + ri < p.N ? ray0 + ri : last;
-    return p.dirs + ray * p.fc.ev;
-  };
-  // one field eval over the block's rays at S_p depths each (z + r * z_stride
-  // holds ray r's) -> sraw [R, S_p, 4]
-  auto pass = [&](const Field& f, int S_p, const float* z, int z_stride) {
-    view_rays(t.hvd, R, f, dir);
-    const int P = R * S_p;
-    for (int p0 = 0; p0 < P; p0 += TM) {
-      const int rows = P - p0 < TM ? P - p0 : TM;
-      for (int row = tid; row < TM; row += NTHREADS)
-        t.rowray[row] = (p0 + (row < rows ? row : rows - 1)) / S_p;
-      embed_tile(t.X, f.in_ch, f.in_pad, rows, [&](int row, int c) {
-        const int pt = p0 + row, r = pt / S_p;
-        return __fadd_rn(so[r * 3 + c], __fmul_rn(sd[r * 3 + c], z[r * z_stride + pt % S_p]));
-      });
-      field_products<false>(f, t, [&](const Seg& sg, TileFrag& acc) {
-        bf16_epilogue(f, t, sg.layer, acc);
-      });
-      field_raw(f, t, rows, [&](int row, int c, float v) { sraw[(p0 + row) * 4 + c] = v; });
-      __syncthreads();  // the partial sums are read before the next embed
+  for (int gi = 0; gi < ng; ++gi) {
+    const long long ray0 = (blockIdx.x + (long long)gi * gridDim.x) * R;
+    // the group's rays; a ragged group's missing rays are unit-z rays from
+    // the origin (the Pallas wrapper's pad rays), computed and never written
+    for (int r = tid; r < R; r += nw::NTHREADS) {
+      const long long ray = ray0 + r;
+      float d[3] = {0.0f, 0.0f, 1.0f};
+      for (int c = 0; c < 3; ++c) {
+        so[r * 3 + c] = ray < p.N ? p.rays_o[ray * 3 + c] : 0.0f;
+        if (ray < p.N) d[c] = p.rays_d[ray * 3 + c];
+        sd[r * 3 + c] = d[c];
+      }
+      snd[r] = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(d[0], d[0]), __fmul_rn(d[1], d[1])),
+                                    __fmul_rn(d[2], d[2])));
     }
-  };
+    const long long last = p.N - 1;
+    auto dir = [&](int ri) {
+      const long long ray = ray0 + ri < p.N ? ray0 + ri : last;
+      return p.dirs + ray * p.s.ev;
+    };
+    nw::view_rows(sm.hvd, R, half, p.s.ev, p.fc.views_d_w, tid, nw::NTHREADS, dir);
+    nw::load_consts(p.fc, p.s, sm, tid, nw::NTHREADS);
+    __syncthreads();
 
-  pass(p.fc, S_c, szc, 0);
-  // coarse composite, inverse CDF, z_std and merge: one thread a ray
-  for (int r = tid; r < R; r += NTHREADS) {
-    float res[6];
-    composite(sraw + (size_t)r * S_c * 4, szc, S_c, snd[r], p.white_bkgd, swc + r * S_c, res);
-    float* out = sres + r * OUT_CH;
-    for (int c = 0; c < 3; ++c) out[6 + c] = res[c];
-    out[9] = res[3];
-    out[10] = res[4];
-    float* zf = szf + r * S_f;
-    pdf_walk(sbins, swc + r * S_c + 1, S_c - 1, su, S_f, zf);
-    float sum = 0.0f, ss = 0.0f;
-    for (int j = 0; j < S_f; ++j) sum = __fadd_rn(sum, zf[j]);
-    const float mean = __fdiv_rn(sum, (float)S_f);
-    for (int j = 0; j < S_f; ++j) {
-      const float dz = __fsub_rn(zf[j], mean);
-      ss = __fadd_rn(ss, __fmul_rn(dz, dz));
+    // the coarse pass, its glue, the fine pass: one field eval over the
+    // group's rays at S_p depths each (z + r * z_stride holds ray r's) ->
+    // sraw [R, S_p, 4]
+    for (int fine = 0; fine < 2; ++fine) {
+      const int S_p = fine ? S : S_c, P = R * S_p;
+      for (int p0 = 0; p0 < P; p0 += nw::TM) {
+        Rows src;
+        src.so = so;
+        src.sd = sd;
+        src.z = fine ? szall : szc;
+        src.hvd = sm.hvd;
+        src.raw = sraw;
+        src.p0 = p0 + nw::ROWS * wgi;
+        src.rows = P - src.p0 <= 0 ? 0 : P - src.p0 < nw::ROWS ? P - src.p0 : nw::ROWS;
+        src.S_p = S_p;
+        src.z_stride = fine ? S : 0;
+        src.half = half;
+        nw::field_tile<W>(fine ? p.ff : p.fc, st, sm, k, src);
+      }
+      __syncthreads();
+      if (fine) break;
+      // the fine model's view rows and epilogue operands (the coarse pass
+      // has read its own)
+      nw::view_rows(sm.hvd, R, half, p.s.ev, p.ff.views_d_w, tid, nw::NTHREADS, dir);
+      nw::load_consts(p.ff, p.s, sm, tid, nw::NTHREADS);
+      // coarse composite, inverse CDF, z_std and merge: one warp a ray
+      for (int r = warp; r < R; r += nw::NTHREADS / 32) {
+        float res[6];
+        float* w = swc + r * S_c;
+        composite_warp(sraw + (size_t)r * S_c * 4, szc, S_c, snd[r], p.white_bkgd, w, res);
+        float* out = sres + r * OUT_CH;
+        if (lane == 0) {
+          for (int c = 0; c < 3; ++c) out[6 + c] = res[c];
+          out[9] = res[3];
+          out[10] = res[4];
+        }
+        __syncwarp();
+        // the interior weights' CDF, summed as pdf_walk sums it: every lane
+        // totals in order, the lanes divide, one lane accumulates in order
+        const int C = S_c - 1;
+        const float* wi = w + 1;
+        float* cdf = scdf + r * S_c;
+        float total = 0.0f;
+#pragma unroll 8
+        for (int i = 0; i < C - 1; ++i) total = __fadd_rn(total, __fadd_rn(wi[i], 1e-5f));
+        for (int i = lane; i < C - 1; i += 32) cdf[i] = __fdiv_rn(__fadd_rn(wi[i], 1e-5f), total);
+        __syncwarp();
+        if (lane == 0) {
+          float cdf_lo = 0.0f;
+#pragma unroll 8
+          for (int i = 0; i < C - 1; ++i) cdf[i] = cdf_lo = __fadd_rn(cdf_lo, cdf[i]);
+        }
+        __syncwarp();
+        float* zf = szf + r * S_f;
+        float sum = 0.0f;
+        for (int j = lane; j < S_f; j += 32) {
+          zf[j] = pdf_level(sbins, cdf, C, su[j]);
+          sum = __fadd_rn(sum, zf[j]);
+        }
+        const float mean = __fdiv_rn(warp_sum(sum), (float)S_f);
+        float ss = 0.0f;
+        for (int j = lane; j < S_f; j += 32) {
+          const float dz = __fsub_rn(zf[j], mean);
+          ss = __fadd_rn(ss, __fmul_rn(dz, dz));
+        }
+        ss = warp_sum(ss);
+        if (lane == 0) out[11] = __fsqrt_rn(__fdiv_rn(ss, (float)S_f));
+        __syncwarp();
+        // the merge by rank
+        float* za = szall + r * S;
+        for (int a = lane; a < S_c; a += 32) za[a + rank_in(zf, S_f, szc[a], true)] = szc[a];
+        for (int b = lane; b < S_f; b += 32) za[b + rank_in(szc, S_c, zf[b], false)] = zf[b];
+      }
+      __syncthreads();
     }
-    out[11] = __fsqrt_rn(__fdiv_rn(ss, (float)S_f));
-    float* za = szall + r * S;
-    for (int k = 0, a = 0, b = 0; k < S; ++k)
-      za[k] = (b >= S_f || (a < S_c && szc[a] <= zf[b])) ? szc[a++] : zf[b++];
-  }
-  __syncthreads();
 
-  pass(p.ff, S, szall, S);
-  for (int r = tid; r < R; r += NTHREADS) {
-    float res[6];
-    composite(sraw + (size_t)r * S * 4, szall + r * S, S, snd[r], p.white_bkgd, nullptr, res);
-    float* out = sres + r * OUT_CH;
-    for (int c = 0; c < 6; ++c) out[c] = res[c];
-    const long long ray = ray0 + r;
-    if (ray < p.N) {
-      for (int c = 0; c < OUT_CH; ++c) p.out[ray * OUT_CH + c] = out[c];
-      if (p.taps_w)
-        for (int s = 0; s < S_c; ++s) p.taps_w[ray * S_c + s] = swc[r * S_c + s];
-      if (p.taps_z)
-        for (int j = 0; j < S_f; ++j) p.taps_z[ray * S_f + j] = szf[r * S_f + j];
+    // the fine composite and the eight fields
+    for (int r = warp; r < R; r += nw::NTHREADS / 32) {
+      float res[6];
+      composite_warp(sraw + (size_t)r * S * 4, szall + r * S, S, snd[r], p.white_bkgd, nullptr,
+                     res);
+      float* out = sres + r * OUT_CH;
+      if (lane == 0)
+        for (int c = 0; c < 6; ++c) out[c] = res[c];
+      __syncwarp();
+      const long long ray = ray0 + r;
+      if (ray < p.N) {
+        if (lane < OUT_CH) p.out[ray * OUT_CH + lane] = out[lane];
+        if (p.taps_w)
+          for (int s = lane; s < S_c; s += 32) p.taps_w[ray * S_c + s] = swc[r * S_c + s];
+        if (p.taps_z)
+          for (int j = lane; j < S_f; j += 32) p.taps_z[ray * S_f + j] = szf[r * S_f + j];
+      }
     }
+    __syncthreads();  // the group's shared arrays are read before the next group's writes
   }
 }
 
-// One model's operands in ops/nerf_forward.py's _OPERANDS order (pts0_w,
-// pts0_b, body_w, body_b, skip_x_w, feat_w, feat_b, views_h_w, views_d_w,
-// views_b, rgb_w, alpha_w), then out_b.
-void fill_field(Field& f, const void* const* w, int in_ch, int in_pad, int ev, int W,
-                int depth, int skip) {
-  typedef const __nv_bfloat16* BP;
-  f.pts0_b = static_cast<BP>(w[1]);
-  f.body_b = static_cast<BP>(w[3]);
-  f.feat_b = static_cast<BP>(w[6]);
-  f.views_d_w = static_cast<BP>(w[8]);
-  f.views_b = static_cast<BP>(w[9]);
-  f.rgb_w = static_cast<BP>(w[10]);
-  f.alpha_w = static_cast<BP>(w[11]);
-  f.out_b = static_cast<const float*>(w[12]);
-  f.in_ch = in_ch;
-  f.in_pad = in_pad;
-  f.ev = ev;
-  f.W = W;
-  f.half = W / 2;
-  f.depth = depth;
-  f.n_segs = bf16_segments(f.segs, w[0], w[2], w[4], w[5], w[7], in_pad, W, depth, skip);
+template <int W>
+int launch(const Args& a, size_t smem, cudaStream_t stream) {
+  auto kernel = nerf_frame_kernel<W>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long groups = (a.N + a.R - 1) / a.R;
+  const int resident = nw::resident_blocks(kernel, smem);
+  if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
+  const unsigned grid = (unsigned)(groups < resident ? groups : resident);
+  kernel<<<grid, nw::NTHREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Bytes of dynamic shared memory one block of R rays needs; above 232448
 // the shape is not supported.
-extern "C" long long nerf_frame_smem_bytes(int in_pad, int W, int R, int S_c, int S_f) {
-  return (long long)glue_layout(field_layout(in_pad, W, W / 2, R).total, R, S_c, S_f).total;
+extern "C" long long nerf_frame_smem_bytes(int in_pad, int W, int depth, int R, int S_c,
+                                           int S_f) {
+  const nw::Shape s = {in_pad, in_pad, 1, W, depth};
+  const nw::Layout l = frame_layout(s, R, S_c, S_f);
+  return (long long)(l.ns >= 2 && l.total <= (size_t)nw::MAX_SMEM ? l.total : nw::MAX_SMEM + 1);
+}
+
+// The weight ring's stages at that shape.
+extern "C" int nerf_frame_ring_stages(int in_pad, int W, int depth, int R, int S_c, int S_f) {
+  const nw::Shape s = {in_pad, in_pad, 1, W, depth};
+  return frame_layout(s, R, S_c, S_f).ns;
 }
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 = ok).
-// wc, wf: the coarse and the fine model's 13 operands (fill_field's order),
-// with the same shapes; taps_w / taps_z null unless the caller asks for the
-// coarse weights and fine depths. Shapes are checked by the Python wrapper.
+// wc, wf: the coarse and the fine model's 13 operands (nw::make_model's
+// order), with the same shapes; taps_w / taps_z null unless the caller asks
+// for the coarse weights and fine depths. Shapes are checked by the Python
+// wrapper.
 extern "C" int nerf_frame_launch(const float* rays_o, const float* rays_d, const float* dirs,
                                  const float* zc, const float* bins, const float* u, float* out,
                                  float* taps_w, float* taps_z, long long N, int R, int S_c,
@@ -259,15 +384,15 @@ extern "C" int nerf_frame_launch(const float* rays_o, const float* rays_d, const
                                  const void* const* wf, int in_ch, int in_pad, int ev, int W,
                                  int depth, int skip_c, int skip_f, void* stream) {
   if (N <= 0) return 0;
-  const size_t smem = (size_t)nerf_frame_smem_bytes(in_pad, W, R, S_c, S_f);
-  if (!field_shape_ok(in_ch, in_pad, ev, W, depth, skip_c) ||
-      !field_shape_ok(in_ch, in_pad, ev, W, depth, skip_f) || R < 1 || R > NTHREADS ||
-      S_c < 3 || S_f < 1 || smem > (size_t)MAX_SMEM)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      nerf_frame_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   Args a;
+  memset(&a, 0, sizeof(a));
+  a.s = nw::Shape{in_ch, in_pad, ev, W, depth};
+  const size_t smem = (size_t)nerf_frame_smem_bytes(in_pad, W, depth, R, S_c, S_f);
+  if (!nw::shape_ok(a.s, skip_c) || !nw::shape_ok(a.s, skip_f) || R < 1 || S_c < 3 ||
+      S_f < 1 || smem > (size_t)nw::MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  if (!nw::make_model(&a.fc, wc, a.s, skip_c) || !nw::make_model(&a.ff, wf, a.s, skip_f))
+    return (int)cudaErrorInvalidValue;
   a.rays_o = rays_o;
   a.rays_d = rays_d;
   a.dirs = dirs;
@@ -282,9 +407,12 @@ extern "C" int nerf_frame_launch(const float* rays_o, const float* rays_d, const
   a.S_c = S_c;
   a.S_f = S_f;
   a.white_bkgd = white_bkgd;
-  fill_field(a.fc, wc, in_ch, in_pad, ev, W, depth, skip_c);
-  fill_field(a.ff, wf, in_ch, in_pad, ev, W, depth, skip_f);
-  const unsigned blocks = (unsigned)((N + R - 1) / R);
-  nerf_frame_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (W) {
+    case 64: return launch<64>(a, smem, st);
+    case 128: return launch<128>(a, smem, st);
+    case 192: return launch<192>(a, smem, st);
+    case 256: return launch<256>(a, smem, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,6 +1,7 @@
-// The deterministic inverse CDF of one ray, shared by the sampler kernel
-// (sample_pdf.cu) and the whole-ray kernel (nerf_frame.cu), so that both draw
-// the same fine depths bit for bit from the same weights and levels.
+// The deterministic inverse CDF of one ray: the sampler kernel's walk
+// (sample_pdf.cu), and the same walk split by level for the whole-ray kernel
+// (nerf_frame.cu), so that both draw the same fine depths bit for bit from
+// the same weights and levels.
 //
 // The Pallas kernel tests every interval against every level and sums the
 // masked values. The intervals [cdf_lo, cdf_hi) are disjoint and in order, so
@@ -40,6 +41,31 @@ __device__ __forceinline__ void pdf_walk(const float* b, const float* w, int C, 
     cdf_lo = cdf_hi;
   }
   for (; j < n; ++j) o[j] = top;  // u >= cdf_last: the tail (and u >= 1)
+}
+
+// pdf_walk's sample for one level u, given the CDF as the walk accumulates
+// it: cdf[i] is its cdf_hi of interval i (the pdfs summed in order from 0),
+// for the C - 1 intervals of the C edges b. Over sorted levels the walk
+// gives level u the first interval with u < cdf_hi; a binary search finds
+// the same interval, and the same operations give the same value, so levels
+// can be spread over threads.
+__device__ __forceinline__ float pdf_level(const float* b, const float* cdf, int C, float u) {
+  const int nw = C - 1;
+  int lo = 0, hi = nw;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (u < cdf[mid])
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  if (lo == nw || u >= 1.0f) return b[C - 1];  // the tail, and the top level
+  const float cdf_lo = lo > 0 ? cdf[lo - 1] : 0.0f;
+  float denom = __fsub_rn(cdf[lo], cdf_lo);
+  if (denom < 1e-5f) denom = 1.0f;
+  const float b_lo = b[lo], span = __fsub_rn(b[lo + 1], b_lo);
+  return cdf_lo <= u ? __fadd_rn(b_lo, __fmul_rn(__fdiv_rn(__fsub_rn(u, cdf_lo), denom), span))
+                     : 0.0f;
 }
 
 }  // namespace enerf

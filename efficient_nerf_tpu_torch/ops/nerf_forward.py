@@ -46,15 +46,15 @@ __all__ = ["pack_nerf_weights", "nerf_embed_constants", "nerf_forward_fused",
 
 MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 IN_ALIGN = 64      # the kernel streams weights in chunks of 64 input columns
-WIDTH_ALIGN = 64   # each warp owns 32 output columns, of W and of W/2
-MAX_WIDTH = 256    # eight warps
-MAX_DEPTH = 13     # the kernel's table of product segments holds D + 3
+WIDTH_ALIGN = 64   # the tile's widths: 64, 128, 192, 256 (each a wgmma N, as is W/2)
+MAX_WIDTH = 256    # the widest wgmma N
+MAX_DEPTH = 13     # the tile's nw::MAX_DEPTH
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "nerf_forward_smem_bytes": (_L, (_I, _I, _I)),
+    "nerf_forward_smem_bytes": (_L, (_I, _I, _I, _I)),
     # (pts, s_pt, s_c, dirs, pts0_w, pts0_b, body_w, body_b, skip_x_w, feat_w,
     #  feat_b, views_h_w, views_d_w, views_b, rgb_w, alpha_w, out_b, out,
     #  o_pt, o_c, P, S, in_ch, in_pad, ev, W, depth, skip, stream)
@@ -292,8 +292,8 @@ def nerf_forward_fused(packed, pts: torch.Tensor, viewdirs: torch.Tensor,
     f32 (or [4, N, S] with cm). `packed` comes from `pack_nerf_weights`.
 
     On CUDA tensors this launches csrc/nerf_forward.cu (bf16 weights, f32
-    sums) or raises; it never falls back. CPU tensors run the plain version
-    `nerf_forward_fused_ref`.
+    sums; the wgmma tile of csrc/nerf_wgmma.cuh) or raises; it never falls
+    back. CPU tensors run the plain version `nerf_forward_fused_ref`.
     """
     _check_embed(packed, L, L_views)
     N, S = _as_points(pts, cm)
@@ -311,7 +311,7 @@ def nerf_forward_fused(packed, pts: torch.Tensor, viewdirs: torch.Tensor,
     W, depth, ob = packed["width"], packed["depth"], packed["out_b"]
     ic, ev, in_pad = packed["in_ch"], packed["in_ch_views"], packed["in_pad"]
     lib = load_kernels("nerf_forward", _SIGNATURES)
-    smem = lib.nerf_forward_smem_bytes(in_pad, W, S)
+    smem = lib.nerf_forward_smem_bytes(in_pad, W, depth, S)
     if smem > MAX_SMEM:
         raise ValueError(f"nerf_forward_fused: width {W}, input {in_pad}, S={S} "
                          f"needs {smem} B of shared memory per block (at most "

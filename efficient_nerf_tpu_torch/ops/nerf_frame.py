@@ -23,11 +23,14 @@ JAX package's own test shapes (tests/test_torch_nerf_frame.py):
   * the points are made as o + z d and then embedded, as the composed path
     makes them; the Pallas kernel distributes the embed over the sum (o F +
     z d F), which rounds differently by an ulp of the angle;
-  * the transmittance is a sequential exclusive product; the Pallas kernel's
-    is a parallel scan (`_exclusive_cumprod_lanes`, :101-115), about 1e-6
-    away;
-  * the kernel merges the sorted coarse and fine depths with two pointers
-    where the Pallas kernel runs a bitonic network: the same sorted list.
+  * the transmittance is an exclusive product taken in order within each
+    lane's run of samples and by a shuffle scan across the 32 lanes of the
+    ray's warp; the Pallas kernel's is another parallel scan
+    (`_exclusive_cumprod_lanes`, :101-115), about 1e-6 away;
+  * the kernel merges the sorted coarse and fine depths by rank (each
+    depth's place is its index plus the count of the other list's depths
+    before it, coarse first on a tie) where the Pallas kernel runs a bitonic
+    network: the same sorted list.
 The Pallas kernel's `diag` switches and its output channels 12-15 are taps
 for debugging the TPU kernel's stages and are left out; `taps=True` instead
 returns the coarse weights and the fine depths, so that a test can hold the
@@ -61,7 +64,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "nerf_frame_smem_bytes": (_L, (_I,) * 5),
+    "nerf_frame_smem_bytes": (_L, (_I,) * 6),
     # (rays_o, rays_d, dirs, zc, bins, u, out, taps_w, taps_z, N, R, S_c,
     #  S_f, white_bkgd, wc, wf, in_ch, in_pad, ev, W, depth, skip_c, skip_f,
     #  stream) -> cudaError_t
@@ -162,8 +165,8 @@ def nerf_render_rays_fused(packed_c, packed_f, rays_o: torch.Tensor, rays_d: tor
     with scalar near/far; with taps=True also the coarse weights [N,
     n_samples] and the fine depths [N, n_importance].
 
-    On CUDA tensors this launches csrc/nerf_frame.cu (bf16 weights) or
-    raises; it never falls back. CPU tensors run the plain version
+    On CUDA tensors this launches csrc/nerf_frame.cu (bf16 weights; the
+    wgmma tile of csrc/nerf_wgmma.cuh) or raises; it never falls back. CPU tensors run the plain version
     `nerf_render_rays_fused_ref`.
     """
     pf = packed_c if packed_f is None else packed_f
@@ -182,7 +185,7 @@ def nerf_render_rays_fused(packed_c, packed_f, rays_o: torch.Tensor, rays_d: tor
     W, depth, in_pad = packed_c["width"], packed_c["depth"], packed_c["in_pad"]
     R = _rays_per_block(n_samples)
     lib = load_kernels("nerf_frame", _SIGNATURES)
-    smem = lib.nerf_frame_smem_bytes(in_pad, W, R, n_samples, n_importance)
+    smem = lib.nerf_frame_smem_bytes(in_pad, W, depth, R, n_samples, n_importance)
     if smem > MAX_SMEM:
         raise ValueError(f"nerf_render_rays_fused: width {W}, {n_samples} + {n_importance} "
                          f"samples need {smem} B of shared memory per block (at most "

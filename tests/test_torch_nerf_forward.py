@@ -198,11 +198,11 @@ def test_flops_and_checks(rng):
         nf.pack_nerf_weights(tm.state_dict(), skip=5)
 
 
-def _card_teacher(rng, width=256, depth=8, L=L, LV=LV):
+def _card_teacher(rng, width=256, depth=8, L=L, LV=LV, skip=4):
     """A random teacher with lecun-normal kernels and small biases (the
     init chip_smoke.py states)."""
     tm = NeRFMLP(depth=depth, width=width, input_ch=3 * (2 * L + 1),
-                 input_ch_views=3 * (2 * LV + 1))
+                 input_ch_views=3 * (2 * LV + 1), skips=(skip,))
     with torch.no_grad():
         for name, v in tm.named_parameters():
             scale = 0.01 if name.endswith("bias") else v.shape[-1] ** -0.5
@@ -252,3 +252,55 @@ def test_kernel_matches_plain_version_other_shapes(width, depth, L_pts, L_dirs,
     torch.cuda.synchronize()
     err = ((got - want).abs().max() / want.abs().max()).item()
     assert err <= 2e-2, err
+
+
+def _card_error(packed, N, S, rng, cuda_device, cm=False, L_pts=L, L_dirs=LV):
+    """max |kernel - plain| / max |plain| on N x S random points (the raw
+    relative to its largest magnitude, chip_smoke.py's TEACHER_TOL measure)."""
+    pts, vd = _inputs(rng, N, S)
+    tp = torch.from_numpy(pts * 1.5).to(cuda_device)
+    if cm:
+        tp = tp.permute(2, 0, 1).contiguous()
+    tv = torch.from_numpy(vd).to(cuda_device)
+    got = nf.nerf_forward_fused(packed, tp, tv, L_pts, L_dirs, cm=cm)
+    want = nf.nerf_forward_fused_ref(packed, tp, tv, L_pts, L_dirs, cm=cm)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+# The wgmma tile's edges: 5 and 60 points (the second warpgroup has no row),
+# 100 (it has part of one), point counts that are not a multiple of 128,
+# tiles that straddle up to 64 rays (S = 1) or 4 (S = 37), and 1050 tiles,
+# which the persistent blocks take several each
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,S,cm", [(1, 5, False), (3, 20, False), (1, 100, True),
+                                    (7, 37, False), (200, 1, False), (333, 1, True),
+                                    (3, 64, False), (5, 192, True), (700, 192, False)])
+def test_tile_edges_match_plain_version(N, S, cm, cuda_device, rng):
+    packed = nf.pack_nerf_weights({k: v.to(cuda_device) for k, v in
+                                   _card_teacher(rng).state_dict().items()})
+    assert _card_error(packed, N, S, rng, cuda_device, cm) <= 2e-2
+
+
+# W128 and W192 (their own wgmma widths), another depth and skip at W256
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,depth,skip", [(128, 8, 4), (192, 8, 4), (256, 6, 2),
+                                              (128, 10, 7)])
+def test_tile_widths_and_depths_match_plain_version(width, depth, skip, cuda_device, rng):
+    tm = _card_teacher(rng, width, depth, skip=skip)
+    packed = nf.pack_nerf_weights({k: v.to(cuda_device) for k, v in tm.state_dict().items()},
+                                  skip=skip)
+    for N, S in ((37, 64), (9, 192)):
+        assert _card_error(packed, N, S, rng, cuda_device) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,S", [(37, 64), (300, 192)])
+def test_kernel_two_calls_same_bits(N, S, cuda_device, rng):
+    packed = nf.pack_nerf_weights({k: v.to(cuda_device) for k, v in
+                                   _card_teacher(rng).state_dict().items()})
+    pts, vd = _inputs(rng, N, S)
+    tp, tv = torch.from_numpy(pts).to(cuda_device), torch.from_numpy(vd).to(cuda_device)
+    first = nf.nerf_forward_fused(packed, tp, tv, L, LV)
+    assert torch.equal(first, nf.nerf_forward_fused(packed, tp, tv, L, LV))

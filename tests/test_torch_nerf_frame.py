@@ -148,8 +148,12 @@ def _card_teacher(rng, width=256):
     return tm
 
 
+# 37 and 333 rays (odd: a ragged last group; 167 groups of 2, more than one
+# a block) and other coarse / fine sample counts (R 42 at 3 coarse samples)
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_rays,width,S_c,S_f", [(37, 256, 64, 128), (20, 64, 16, 32)])
+@pytest.mark.parametrize("n_rays,width,S_c,S_f", [(37, 256, 64, 128), (20, 64, 16, 32),
+                                                  (333, 64, 64, 128), (13, 128, 3, 1),
+                                                  (29, 256, 32, 96), (1, 128, 64, 128)])
 def test_kernel_matches_plain_version(n_rays, width, S_c, S_f, cuda_device, rng):
     packed = nf.pack_nerf_weights({k: v.to(cuda_device) for k, v in
                                    _card_teacher(rng, width).state_dict().items()})
@@ -174,3 +178,19 @@ def test_kernel_matches_plain_version(n_rays, width, S_c, S_f, cuda_device, rng)
     zf = sp.sample_pdf_det_fused(bins.expand(n_rays, S_c - 1).contiguous(),
                                  got[8][:, 1:-1].contiguous(), S_f, levels=u)
     assert torch.equal(zf, got[9])
+
+
+@pytest.mark.cuda
+def test_kernel_two_calls_same_bits(cuda_device, rng):
+    packed = nf.pack_nerf_weights({k: v.to(cuda_device) for k, v in
+                                   _card_teacher(rng).state_dict().items()})
+    o = torch.from_numpy(rng.normal(size=(41, 3)).astype(np.float32) * 0.3)
+    o[:, 2] += 4.0
+    d = torch.from_numpy((rng.normal(size=(41, 3)) * 0.3 + [0, 0, -1]).astype(np.float32))
+    o, d = o.to(cuda_device), d.to(cuda_device)
+    vd = (d / d.norm(dim=-1, keepdim=True)).contiguous()
+    args = (packed, None, o, d, vd, 2.0, 6.0, 64, 128, 10, 4)
+    first = fr.nerf_render_rays_fused(*args, white_bkgd=True, taps=True)
+    again = fr.nerf_render_rays_fused(*args, white_bkgd=True, taps=True)
+    for a, b in zip(first, again):
+        assert torch.equal(a.nan_to_num(-1.0), b.nan_to_num(-1.0))
