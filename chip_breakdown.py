@@ -68,15 +68,17 @@ its variants edited in the wgmma field tile it includes (csrc/nerf_wgmma.cuh):
                rgb head's epilogue stays, on zero sums)
   no_epilogues no epilogue arithmetic or stores (relu, feature, view and
                rgb head); the warpgroup barriers stay
-  block_barrier  a block barrier before every epilogue, as the mma.sync
+  block_barrier  every warpgroup barrier a block barrier, as the mma.sync
                tile had: the two warpgroups meet at every layer, so one's
                epilogue no longer runs under the other's products
   ring_2       a 2-stage weight ring instead of as many as fit (4 at W256)
   one_tile_a_block  one block per 128-point tile instead of persistent
                blocks (the ring starts empty at every tile)
   no_trap      no trap on a lost copy (the ring's waits still time out)
-  no_bias      the body and feature epilogues without their biases (no
-               bias loads from shared memory)
+  no_fence     the body and feature epilogues without their proxy fence
+               (the next products may read stale activations)
+  no_stores    the body and feature epilogues without their stores of the
+               activations (computed, kept by a test that never holds)
   no_cvt       the epilogues' bf16 conversions replaced by an integer xor of
                the two f32 words (the same data flow, no conversion)
 
@@ -195,12 +197,13 @@ _NW_ISSUE = """  mbar_arrive_expect_tx(bar, rows * KC * 2);
 _NW_PRODUCTS = "      wg::Wgmma<N>::run(acc, da + 2 * j, db + 2 * j, carry || kc + j > 0);\n"
 _NW_TRIG = "v = grp == 0 ? xv : fast_sin(__fadd_rn(__fmul_rn(xv, freq), phase), 7);"
 _NW_CHUNKS = "  return 2 * (s.in_pad / KC) + (s.depth + 1) * (s.W / KC);"
-_NW_VIEWS = "  products_rs<HALF, W>(accv, a, st, sm, k);\n"
+_NW_VIEWS = "  products<HALF>(accv, act, W / KC, false, st, sm, k, lost);\n"
 _NW_EPI = "  for (int m = 0; m < 8; ++m) {\n    const Slot<W> b(bias, t, m);"
-_NW_EPI_HEAD = "  const int t = threadIdx.x % 4;\n#pragma unroll\n  for (int m = 0; m < 8; ++m) {"
+_NW_BAR = '  asm volatile("bar.sync %0, 128;\\n" ::"r"(1 + wgi) : "memory");'
+_NW_STORE = "        at[pn * PANEL / 2 + hf * 8 * KC / 2] = h;\n"
+_NW_FENCE = "  fence_proxy_async();  // the writes reach the next products' reads\n"
 _NW_EPI_VIEW = "  for (int mc = 0; mc < (HALF < KC ? HALF / 8 : 8); ++mc) {"
 _NW_TRAP = "  if (lost) __trap();  // a lost copy fails the launch instead of hanging the card\n"
-_NW_BIAS = "      const float2 bp = b.pair(pn);"
 _NW_CVT = """  unsigned r;
   if (RELU)"""
 _F_VIEW_ROWS = "      nw::view_rows(hvd, nr, half, p.s.ev, p.m.views_d_w, tw, 128,"
@@ -253,11 +256,12 @@ KERNELS = {
                      ("nerf_forward.cu", _F_VIEW_ROWS, _F_VIEW_ROWS.replace("nr,", "0,"))],
         "no_epilogues": [(_NW, _NW_EPI, _NW_EPI.replace("m < 8", "m < 0")),
                          (_NW, _NW_EPI_VIEW, _NW_EPI_VIEW.replace("mc < (HALF", "mc < 0 * (HALF"))],
-        "block_barrier": [(_NW, _NW_EPI_HEAD, "  __syncthreads();\n" + _NW_EPI_HEAD)],
+        "block_barrier": [(_NW, _NW_BAR, "  __syncthreads();")],
         "ring_2": [(_NW, "constexpr int MAX_STAGES = 8;", "constexpr int MAX_STAGES = 2;")],
         "one_tile_a_block": [("nerf_forward.cu", _F_GRID, "  const unsigned grid = (unsigned)tiles;")],
         "no_trap": [(_NW, _NW_TRAP, "")],
-        "no_bias": [(_NW, _NW_BIAS, _NW_BIAS.replace("b.pair(pn)", "make_float2(0.0f, 0.0f)"))],
+        "no_fence": [(_NW, _NW_FENCE, "")],
+        "no_stores": [(_NW, _NW_STORE, "        if (h == 0x7fc17fc1u) " + _NW_STORE.lstrip())],
         "no_cvt": [(_NW, _NW_CVT, "  unsigned r = __float_as_uint(lo) ^ __float_as_uint(hi);\n  if (false)")],
     }),
     "teacher_int8": ("nerf_int8.cu", {

@@ -6,8 +6,8 @@
 // its fusion boundary: rays, their embedded view directions and the constant
 // depths go in, rgb, disp, acc, depth, rgb0, disp0, acc0 and z_std come out,
 // and nothing between (points, raw fields, weights, fine depths) reaches
-// device memory. A block takes groups of R rays (R even: at 64 coarse
-// samples two rays fill one 128-point tile, and at 192 they fill three),
+// device memory. A block takes groups of R rays (the wrapper's R: an even
+// count whose coarse samples fill two 128-point tiles, 4 at 64 samples),
 // one after another (persistent blocks, one per SM at W256):
 //
 //   1. points o + z d, one rounding each (__fmul_rn, then __fadd_rn: the
@@ -39,8 +39,8 @@
 // frame); about 150 bytes a ray in and 48 out. The weight stream runs on
 // from the coarse tiles into the fine ones and into the next group's (the
 // ring loads the next model's first chunks while the glue runs); the glue is
-// O(S) a ray spread over a warp, small beside the 4 tiles of field eval a
-// group takes at R = 2.
+// O(S) a ray spread over a warp, small beside the 8 tiles of field eval a
+// group takes at R = 4.
 #include <string.h>
 
 #include "nerf_wgmma.cuh"
@@ -53,28 +53,12 @@ using namespace enerf;
 constexpr int OUT_CH = 12;  // rgb(3) disp acc depth rgb0(3) disp0 acc0 z_std
 constexpr unsigned FULL = 0xffffffffu;
 
-struct Args {
-  const float* rays_o;   // [N, 3]
-  const float* rays_d;   // [N, 3]
-  const float* dirs;     // [N, ev] embedded view directions
-  const float* zc;       // [S_c] coarse depths
-  const float* bins;     // [S_c - 1] their midpoints
-  const float* u;        // [S_f] levels
-  float* out;            // [N, OUT_CH]
-  float* taps_w;         // [N, S_c] coarse weights, or null
-  float* taps_z;         // [N, S_f] fine depths, or null
-  long long N;
-  int R, S_c, S_f, white_bkgd;
-  nw::Shape s;
-  nw::Model fc, ff;      // coarse and fine models (the same shapes)
-};
-
 // Offsets (bytes) of the glue's arrays in the tile's extra region.
 struct Glue {
   size_t o, d, nd, zc, bins, u, zall, raw, wc, zf, cdf, res, total;
 };
 
-__host__ __device__ inline Glue glue_layout(int R, int S_c, int S_f) {
+inline Glue glue_layout(int R, int S_c, int S_f) {
   const size_t S = (size_t)S_c + S_f;
   Glue g;
   g.o = 0;
@@ -93,7 +77,28 @@ __host__ __device__ inline Glue glue_layout(int R, int S_c, int S_f) {
   return g;
 }
 
-__host__ __device__ inline nw::Layout frame_layout(const nw::Shape& s, int R, int S_c, int S_f) {
+struct Args {
+  const float* rays_o;   // [N, 3]
+  const float* rays_d;   // [N, 3]
+  const float* dirs;     // [N, ev] embedded view directions
+  const float* zc;       // [S_c] coarse depths
+  const float* bins;     // [S_c - 1] their midpoints
+  const float* u;        // [S_f] levels
+  float* out;            // [N, OUT_CH]
+  float* taps_w;         // [N, S_c] coarse weights, or null
+  float* taps_z;         // [N, S_f] fine depths, or null
+  long long N;
+  int R, S_c, S_f, white_bkgd;
+  // the glue's and the tile's shared memory, made by the host and read from
+  // the parameters where used: across the field tiles this kernel's
+  // registers are full, and offsets computed on the device spilled (PERF.md)
+  Glue gl;
+  nw::Layout lay;
+  nw::Shape s;
+  nw::Model fc, ff;      // coarse and fine models (the same shapes)
+};
+
+inline nw::Layout frame_layout(const nw::Shape& s, int R, int S_c, int S_f) {
   return nw::layout(s, (size_t)R * (s.W / 2) * 4, glue_layout(R, S_c, S_f).total);
 }
 
@@ -185,20 +190,14 @@ __global__ void __launch_bounds__(nw::NTHREADS, 1)
     nerf_frame_kernel(const __grid_constant__ Args p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const int R = p.R, S_c = p.S_c, S_f = p.S_f, S = S_c + S_f, half = W / 2;
-  const nw::Smem sm = nw::smem_of(smem_raw, frame_layout(p.s, R, S_c, S_f));
-  const Glue gl = glue_layout(R, S_c, S_f);
-  float* so = reinterpret_cast<float*>(sm.extra + gl.o);
-  float* sd = reinterpret_cast<float*>(sm.extra + gl.d);
-  float* snd = reinterpret_cast<float*>(sm.extra + gl.nd);
-  float* szc = reinterpret_cast<float*>(sm.extra + gl.zc);
-  float* sbins = reinterpret_cast<float*>(sm.extra + gl.bins);
-  float* su = reinterpret_cast<float*>(sm.extra + gl.u);
-  float* szall = reinterpret_cast<float*>(sm.extra + gl.zall);
-  float* sraw = reinterpret_cast<float*>(sm.extra + gl.raw);
-  float* swc = reinterpret_cast<float*>(sm.extra + gl.wc);
-  float* szf = reinterpret_cast<float*>(sm.extra + gl.zf);
-  float* scdf = reinterpret_cast<float*>(sm.extra + gl.cdf);
-  float* sres = reinterpret_cast<float*>(sm.extra + gl.res);
+  const nw::Smem sm = nw::smem_of(smem_raw, p.lay);
+  unsigned char* const ex = sm.extra;
+#define GLUE(a) reinterpret_cast<float*>(ex + p.gl.a)
+  float *const so = GLUE(o), *const sd = GLUE(d), *const snd = GLUE(nd), *const szc = GLUE(zc);
+  float *const sbins = GLUE(bins), *const su = GLUE(u), *const szall = GLUE(zall);
+  float *const sraw = GLUE(raw), *const swc = GLUE(wc), *const szf = GLUE(zf);
+  float *const scdf = GLUE(cdf), *const sres = GLUE(res);
+#undef GLUE
   const int tid = threadIdx.x, wgi = tid / 128, warp = tid / 32, lane = tid % 32;
   const long long groups = (p.N + R - 1) / R;
   const int ng = (int)((groups - blockIdx.x + gridDim.x - 1) / gridDim.x);  // this block's
@@ -407,6 +406,8 @@ extern "C" int nerf_frame_launch(const float* rays_o, const float* rays_d, const
   a.S_c = S_c;
   a.S_f = S_f;
   a.white_bkgd = white_bkgd;
+  a.gl = glue_layout(R, S_c, S_f);
+  a.lay = frame_layout(a.s, R, S_c, S_f);
   cudaStream_t st = (cudaStream_t)stream;
   switch (W) {
     case 64: return launch<64>(a, smem, st);

@@ -25,23 +25,18 @@
 //   * Row-split warpgroups. A block is two warpgroups (256 threads), and
 //     warpgroup g owns rows [64 g, 64 g + 64) of the tile and every output
 //     column: it issues wgmma.mma_async m64nNk16 (bf16 in, f32 out; N = W
-//     for the body and the feature head, W / 2 for the view layer) with B
-//     the ring stage. Each warpgroup reads and writes only its own rows
-//     (embed, view rows, raw), so the two meet only in the weight ring, and
-//     one's epilogues can run under the other's products. A row's W columns
-//     lie in the 4 threads of a quad, so the alpha and rgb heads are quad
-//     shuffles in registers.
-//   * Activations in registers. The packed bf16 pairs of a layer's f32
-//     accumulators, in their order, are the next layer's A fragments (each
-//     warp's 16 rows of D are its 16 rows of A), so layers 1 .. D - 1, the
-//     feature head and the view layer take A from registers: no activation
-//     tile, no epilogue stores, proxy fences or barriers between layers. An
-//     epilogue is f32 bias adds and one cvt.rn.relu.bf16x2 a pair. Only the
-//     embed (layer 0 and the skip's rows) is A in shared memory, written
-//     once a tile. The first design kept the activations in a shared tile,
-//     as the mma.sync tile did: its epilogues took a third of the kernel
-//     (PERF.md).
-//   * A TMA weight ring of ns stages (as many as fit, up to MAX_STAGES: 6 at
+//     for the body and the feature head, W / 2 for the view layer), A its
+//     own 64 rows of the activation tile, B the ring stage. Each warpgroup
+//     reads and writes only its own rows (embed, activations, view rows,
+//     raw), so the epilogue that overwrites its tile in place needs
+//     wgmma.wait_group 0, then after its stores a generic-to-async proxy
+//     fence and a 128-thread named barrier, and no block barrier: the two
+//     warpgroups meet only in the weight ring. A row's W columns lie in the
+//     4 threads of a quad, so the alpha and rgb heads are quad shuffles in
+//     registers. An epilogue is f32 bias adds (the biases staged once in
+//     shared memory as f32, four columns a 16-byte load), one
+//     cvt.rn.relu.bf16x2 and one 4-byte store a pair.
+//   * A TMA weight ring of ns stages (as many as fit, up to MAX_STAGES: 4 at
 //     W256 beside the few view rows of 64 or more samples a ray; fewer where
 //     a tile straddles many rays), each a [W, 64] bf16 chunk: one box with the
 //     128-byte swizzle from 3-D tensor maps over pack_nerf_weights's own
@@ -53,18 +48,23 @@
 //     chunk ns ahead into it at once. So no thread waits for a stage to
 //     free: a loader that waits (r2l_wgmma.cuh's thread 0) would hold its
 //     warpgroup to the slower one, chunk by chunk, and a loader that defers
-//     a load starved PR 8's ring.
+//     a load starved r2l_wgmma.cuh's ring (PERF.md).
 //   * The stream runs on across tiles: the field-eval kernel's blocks are
 //     persistent (one per SM at W256, tiles blockIdx.x + i gridDim.x), and
 //     the whole-ray kernel's run from a ray group's coarse tiles into its
 //     fine ones and on into the next group's, so no tile starts on an empty
 //     ring.
+//   * Not here: activations in registers as the next layer's A fragments
+//     (wgmma with A from registers), which would drop the activation tile,
+//     its stores and barriers. At W256 a thread then holds 128 f32 sums and
+//     64 A registers; ptxas spilled and fenced every such wgmma, and the
+//     kernel measured slower (PERF.md; the code is in commit 2e585a6).
 //
-// Shared memory (W256, in_pad 64): the ring, ns x 32 KB; the embed as
-// swizzled [64, 64] panels, 16 KB (it stays until the skip layer has read
-// it); the points, 1.5 KB; the epilogues' f32 biases and head weights, 13 KB
-// at D8; the caller's view rows and extra region; the barriers. With ns = 6
-// and two rays' view rows: 225 KB.
+// Shared memory (W256, in_pad 64): the ring, ns x 32 KB; the activation tile
+// as swizzled [64, 64] panels, 64 KB; the embed, 16 KB (it stays until the
+// skip layer has read it); the points, 1.5 KB; the epilogues' f32 biases and
+// head weights, 13 KB at D8; the caller's view rows and extra region; the
+// barriers. With ns = 4 and two rays' view rows: 224 KB.
 #pragma once
 
 #include <cuda/atomic>
@@ -176,191 +176,6 @@ constexpr int MAX_STAGES = 8;
 constexpr int MAX_SMEM = 232448;     // 227 KB, the opt-in limit of sm_90
 constexpr int MAX_DEPTH = 13;
 
-// d (+)= A[64, 16] B[16, N]^T, m64nNk16 bf16 -> f32, A from registers: each
-// thread's a0 .. a3 hold the bf16 pairs of its rows g, g + 8 at columns 2 t,
-// 2 t + 1 and 2 t + 8, 2 t + 9 of the 16 (the mma.sync A fragment, warp w
-// of the warpgroup giving rows 16 w .. 16 w + 15), B the ring stage.
-template <int N>
-struct WgmmaRS;
-
-template <>
-struct WgmmaRS<32> {
-  static __device__ __forceinline__ void run(float (&d)[16], unsigned a0, unsigned a1,
-                                             unsigned a2, unsigned a3, uint64_t db,
-                                             int accumulate) {
-    asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-  }
-};
-
-template <>
-struct WgmmaRS<64> {
-  static __device__ __forceinline__ void run(float (&d)[32], unsigned a0, unsigned a1,
-                                             unsigned a2, unsigned a3, uint64_t db,
-                                             int accumulate) {
-    asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-  }
-};
-
-template <>
-struct WgmmaRS<96> {
-  static __device__ __forceinline__ void run(float (&d)[48], unsigned a0, unsigned a1,
-                                             unsigned a2, unsigned a3, uint64_t db,
-                                             int accumulate) {
-    asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %53, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47"
-      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-  }
-};
-
-template <>
-struct WgmmaRS<128> {
-  static __device__ __forceinline__ void run(float (&d)[64], unsigned a0, unsigned a1,
-                                             unsigned a2, unsigned a3, uint64_t db,
-                                             int accumulate) {
-    asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-  }
-};
-
-template <>
-struct WgmmaRS<192> {
-  static __device__ __forceinline__ void run(float (&d)[96], unsigned a0, unsigned a1,
-                                             unsigned a2, unsigned a3, uint64_t db,
-                                             int accumulate) {
-    asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %101, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-  }
-};
-
-template <>
-struct WgmmaRS<256> {
-  static __device__ __forceinline__ void run(float (&d)[128], unsigned a0, unsigned a1,
-                                             unsigned a2, unsigned a3, uint64_t db,
-                                             int accumulate) {
-    asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, "
-      "%115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
-      "%125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]),
-        "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]),
-        "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
-        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
-        "+f"(d[127])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
-  }
-};
-
 // One model: tensor maps over the weights that stream, [layer][out][in] read
 // in boxes of 64 input columns x all output rows, and the other operands
 // (bf16 unless noted).
@@ -390,10 +205,10 @@ __host__ __device__ inline size_t align16(size_t v) { return (v + 15) / 16 * 16;
 
 // Byte offsets from a 1024-aligned base; `total` includes the slack that
 // aligns the dynamic shared memory to 1024 (the swizzle's period). ns is
-// the most stages that fit, at most max_stages; below 2 the shape does not
+// the most stages that fit, at most MAX_STAGES; below 2 the shape does not
 // fit.
 struct Layout {
-  size_t ring, x, pts, consts, hvd, extra, full, freed, total;
+  size_t ring, act, x, pts, consts, hvd, extra, full, freed, total;
   int ns;
 };
 
@@ -414,20 +229,21 @@ __host__ __device__ inline int consts_words(const Shape& s) {
   return (s.depth + 2) * vec_words(s.W) + 4 * vec_words(s.W / 2);
 }
 
-__host__ __device__ inline Layout layout(const Shape& s, size_t hvd_bytes, size_t extra_bytes,
-                                         int max_stages = MAX_STAGES) {
-  const size_t stage = (size_t)s.W * KC * 2;
+__host__ __device__ inline Layout layout(const Shape& s, size_t hvd_bytes, size_t extra_bytes) {
+  const size_t stage = (size_t)s.W * KC * 2, act = (size_t)2 * ROWS * s.W * 2;
   const size_t x = (size_t)2 * ROWS * s.in_pad * 2, pts = (size_t)2 * ROWS * 3 * 4;
   const size_t consts = (size_t)consts_words(s) * 4;
-  const size_t rest = x + pts + consts + align16(hvd_bytes) + align16(extra_bytes) + 1024;
+  const size_t rest =
+      act + x + pts + consts + align16(hvd_bytes) + align16(extra_bytes) + 1024;
   const size_t per = stage + sizeof(uint64_t) + sizeof(unsigned);
   long long ns = rest < (size_t)MAX_SMEM ? (long long)((MAX_SMEM - rest) / per) : 0;
-  if (ns > max_stages) ns = max_stages;
+  if (ns > MAX_STAGES) ns = MAX_STAGES;
   if (ns < 2) ns = 2;  // reported too large below
   Layout l;
   l.ns = (int)ns;
   l.ring = 0;
-  l.x = ns * stage;
+  l.act = ns * stage;
+  l.x = l.act + act;
   l.pts = l.x + x;
   l.consts = l.pts + pts;
   l.hvd = l.consts + consts;
@@ -441,6 +257,7 @@ __host__ __device__ inline Layout layout(const Shape& s, size_t hvd_bytes, size_
 // The block's shared memory.
 struct Smem {
   __nv_bfloat16* ring;   // ns stages of [W, 64]
+  __nv_bfloat16* act;    // warpgroup g's W / 64 panels at g 64 W
   __nv_bfloat16* x;      // warpgroup g's in_pad / 64 panels at g 64 in_pad
   float* pts;            // warpgroup g's [64][3] at g 192
   unsigned* consts;      // the model's biases and head weights (load_consts)
@@ -455,6 +272,7 @@ __device__ __forceinline__ Smem smem_of(unsigned char* raw, const Layout& l) {
   unsigned char* base = raw + ((1024 - (tma_smem_addr(raw) & 1023)) & 1023);
   Smem m;
   m.ring = reinterpret_cast<__nv_bfloat16*>(base + l.ring);
+  m.act = reinterpret_cast<__nv_bfloat16*>(base + l.act);
   m.x = reinterpret_cast<__nv_bfloat16*>(base + l.x);
   m.pts = reinterpret_cast<float*>(base + l.pts);
   m.consts = reinterpret_cast<unsigned*>(base + l.consts);
@@ -626,9 +444,9 @@ __device__ __forceinline__ void release(const Stream& st, const Smem& sm, int c,
 
 // Waits for the phase of parity `parity` of a stage's full barrier. A wait
 // of about ten seconds means a lost copy: it sets `lost` and returns, and
-// the caller traps once no wgmma is in flight (ptxas injects a wait for the
-// accumulators before a trap that a wgmma in flight could reach, which cost
-// the products 12%, PERF.md).
+// the tile traps at its end, when no wgmma is in flight (ptxas injects a
+// wait for the accumulators before a trap that a wgmma in flight could
+// reach, which cost the products 12%, PERF.md).
 __device__ __forceinline__ void ring_wait(uint64_t* bar, unsigned parity, bool& lost) {
   const long long t0 = clock64();
   unsigned done = 0;
@@ -653,9 +471,8 @@ __device__ __forceinline__ void ring_wait(uint64_t* bar, unsigned parity, bool& 
 template <int N>
 __device__ __forceinline__ void products(float (&acc)[N / 2], const __nv_bfloat16* A, int nk,
                                          bool carry, const Stream& st, const Smem& sm,
-                                         Cursor& k) {
+                                         Cursor& k, bool& lost) {
   int prev_c = 0, prev_s = 0;
-  bool lost = false;
   for (int kc = 0; kc < nk; ++kc) {
     ring_wait(&sm.full[k.s], k.ph, lost);
     const uint64_t da = wg::desc(A + kc * PANEL);
@@ -678,74 +495,39 @@ __device__ __forceinline__ void products(float (&acc)[N / 2], const __nv_bfloat1
     }
   }
   wg::wgmma_wait<0>();
-  if (lost) __trap();  // a lost copy fails the launch instead of hanging the card
   release(st, sm, prev_c, prev_s);
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) wg::fence_reg(acc[i]);
 }
 
-// acc = a[64, K] @ (the stream's next K / 64 chunks)^T, a in registers:
-// a[4 q .. 4 q + 3] is the A fragment of columns 16 q .. 16 q + 15 (the
-// packed pairs of the accumulator that made them, in its order).
-template <int N, int K>
-__device__ __forceinline__ void products_rs(float (&acc)[N / 2], const unsigned (&a)[K / 4],
-                                            const Stream& st, const Smem& sm, Cursor& k) {
-  int prev_c = 0, prev_s = 0;
-  bool lost = false;
-#pragma unroll
-  for (int kc = 0; kc < K / KC; ++kc) {
-    ring_wait(&sm.full[k.s], k.ph, lost);
-    const uint64_t db = wg::desc(sm.ring + (size_t)k.s * st.s.W * KC);
-    wg::wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < KC / 16; ++j) {
-      const int q = 4 * kc + j;
-      WgmmaRS<N>::run(acc, a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3], db + 2 * j,
-                      kc + j > 0);
-    }
-    wg::wgmma_commit();
-    if (kc > 0) {
-      wg::wgmma_wait<1>();  // the chunk before this one has been read
-      release(st, sm, prev_c, prev_s);
-    }
-    prev_c = k.c;
-    prev_s = k.s;
-    ++k.c;
-    if (++k.s == sm.ns) {
-      k.s = 0;
-      k.ph ^= 1u;
-    }
-  }
-  wg::wgmma_wait<0>();
-  if (lost) __trap();
-  release(st, sm, prev_c, prev_s);
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) wg::fence_reg(acc[i]);
-}
-
-// a = bf16(acc + bias) (RELU: relu first), the next products' A
-// fragments; with ALPHA, also this thread's part of the alpha head on those
+// acc + bias -> this warpgroup's activation panels as bf16 (RELU: relu
+// first); with ALPHA, also this thread's part of the alpha head on those
 // bf16 values for its two rows. bias and alpha_w: W-column vectors of
-// load_consts. Accumulator pair i (rows g and g + 8 of the thread's warp in
-// turn, columns 8 j + 2 t, + 1 of block j = i / 2) is A register i.
+// load_consts. Thread (warp w, lane 4 g + t) holds rows 16 w + g and + 8,
+// and of each 16-byte chunk m of a panel's 128-byte rows the columns 2 t,
+// 2 t + 1; the 128-byte swizzle puts chunk m of those rows at chunk m ^ g.
 template <int W, bool RELU, bool ALPHA>
-__device__ __forceinline__ void epilogue(const float (&acc)[W / 2], unsigned (&a)[W / 4],
-                                         const float* bias, const float* alpha_w,
+__device__ __forceinline__ void epilogue(const float (&acc)[W / 2], const float* bias,
+                                         const float* alpha_w, __nv_bfloat16* act, int wgi,
                                          float (&ap)[2]) {
-  const int t = threadIdx.x % 4;
+  const int tw = threadIdx.x % 128, lane = threadIdx.x % 32, t = lane % 4, g = lane / 4;
+  unsigned* row0 = reinterpret_cast<unsigned*>(act + (16 * (tw / 32) + g) * KC + 2 * t);
+  // (no barrier first: once wgmma.wait_group 0 returns in any of its
+  // threads, the warpgroup's products have read the panels)
 #pragma unroll
   for (int m = 0; m < 8; ++m) {
     const Slot<W> b(bias, t, m);
     Slot<W> w = b;
     if (ALPHA) w = Slot<W>(alpha_w, t, m);
+    unsigned* at = row0 + ((m ^ g) << 2);  // chunk m of row r0, in 4-byte words
 #pragma unroll
     for (int pn = 0; pn < W / KC; ++pn) {
-      const int j = 8 * pn + m;
+      const int i = 4 * (8 * pn + m);
       const float2 bp = b.pair(pn);
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
-        const unsigned h = bf16x2<RELU>(acc[4 * j + 2 * hf] + bp.x, acc[4 * j + 2 * hf + 1] + bp.y);
-        a[2 * j + hf] = h;
+        const unsigned h = bf16x2<RELU>(acc[i + 2 * hf] + bp.x, acc[i + 2 * hf + 1] + bp.y);
+        at[pn * PANEL / 2 + hf * 8 * KC / 2] = h;
         if (ALPHA) {
           const float2 aw = w.pair(pn);
           ap[hf] += lo_f(h) * aw.x + hi_f(h) * aw.y;
@@ -753,6 +535,8 @@ __device__ __forceinline__ void epilogue(const float (&acc)[W / 2], unsigned (&a
       }
     }
   }
+  fence_proxy_async();  // the writes reach the next products' reads
+  bar_wg(wgi);
 }
 
 // sum of v over the 4 lanes of a quad (the threads of one accumulator row)
@@ -780,6 +564,7 @@ __device__ __forceinline__ void field_tile(const Model& m, const Stream& st, con
   const int kin = s.in_pad / KC, rows = src.rows, vw = vec_words(W);
   const float* consts = reinterpret_cast<const float*>(sm.consts);
   const float* heads = consts + (s.depth + 1) * vw;  // alpha_w, views_b, rgb_w
+  __nv_bfloat16* act = sm.act + (size_t)wgi * ROWS * W;
   __nv_bfloat16* x = sm.x + (size_t)wgi * ROWS * s.in_pad;
   float* pts = sm.pts + wgi * ROWS * 3;
 
@@ -805,32 +590,32 @@ __device__ __forceinline__ void field_tile(const Model& m, const Stream& st, con
   fence_proxy_async();
   bar_wg(wgi);
 
-  // ---- layer 0 on the embed, then the body on the last layer's
-  // activations in registers (layer skip + 1 adds the embed's products to
-  // the same sums), the alpha head from the last body layer's epilogue
+  // ---- layer 0, the body (the skip's embed rows into the same sums), the
+  // alpha head from the last body layer's epilogue
   float acc[W / 2];
-  unsigned a[W / 4];
   float ap[2] = {0.0f, 0.0f};
-  products<W>(acc, x, kin, false, st, sm, k);
-  epilogue<W, true, false>(acc, a, consts, heads, ap);
+  bool lost = false;
+  products<W>(acc, x, kin, false, st, sm, k, lost);
+  epilogue<W, true, false>(acc, consts, heads, act, wgi, ap);
   for (int i = 1; i < s.depth; ++i) {
-    products_rs<W, W>(acc, a, st, sm, k);
-    if (i == m.skip + 1) products<W>(acc, x, kin, true, st, sm, k);
+    products<W>(acc, act, W / KC, false, st, sm, k, lost);
+    if (i == m.skip + 1) products<W>(acc, x, kin, true, st, sm, k, lost);
     if (i == s.depth - 1)
-      epilogue<W, true, true>(acc, a, consts + i * vw, heads, ap);
+      epilogue<W, true, true>(acc, consts + i * vw, heads, act, wgi, ap);
     else
-      epilogue<W, true, false>(acc, a, consts + i * vw, heads, ap);
+      epilogue<W, true, false>(acc, consts + i * vw, heads, act, wgi, ap);
   }
   const float alpha[2] = {quad_sum(ap[0]), quad_sum(ap[1])};
 
   // ---- the feature head: bf16(acc + b), no relu
-  products_rs<W, W>(acc, a, st, sm, k);
-  epilogue<W, false, false>(acc, a, consts + s.depth * vw, heads, ap);
+  products<W>(acc, act, W / KC, false, st, sm, k, lost);
+  epilogue<W, false, false>(acc, consts + s.depth * vw, heads, act, wgi, ap);
 
   // ---- the view layer, then the rgb head; raw out by the quad (lane t of
   // a row's quad stores channel t)
   float accv[HALF / 2];
-  products_rs<HALF, W>(accv, a, st, sm, k);
+  products<HALF>(accv, act, W / KC, false, st, sm, k, lost);
+  if (lost) __trap();  // a lost copy fails the launch instead of hanging the card
   const float* hvr[2] = {src.hv(r0), src.hv(r0 + 8)};
   const float* views_b = heads + vw;
   float rp[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};

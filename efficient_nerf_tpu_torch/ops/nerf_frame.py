@@ -147,8 +147,11 @@ def nerf_render_rays_fused_ref(packed_c, packed_f, rays_o: torch.Tensor, rays_d:
 
 
 def _rays_per_block(n_samples: int) -> int:
-    """Rays a block: an even count whose coarse samples fill a tile."""
-    return max(2, TM // n_samples // 2 * 2)
+    """Rays a group of the kernel's blocks: an even count whose coarse samples
+    fill two tiles (at 64 samples, four rays: 2 coarse and 6 fine tiles a
+    group, which spreads a group's glue and its passes' ends over twice the
+    rays of one tile's worth)."""
+    return max(2, 2 * TM // n_samples // 2 * 2)
 
 
 def nerf_render_rays_fused(packed_c, packed_f, rays_o: torch.Tensor, rays_d: torch.Tensor,

@@ -133,7 +133,7 @@ def test_mismatched_architectures_and_shapes_raise(rng):
     assert z.dtype == bins.dtype == u.dtype == np.float32
     np.testing.assert_array_equal(z, np.float32(2.0 * (1 - np.linspace(0, 1, 64))
                                                 + 6.0 * np.linspace(0, 1, 64)))
-    assert fr._rays_per_block(64) == 2 and fr._rays_per_block(16) == 8
+    assert fr._rays_per_block(64) == 4 and fr._rays_per_block(16) == 16
 
 
 def _card_teacher(rng, width=256):
