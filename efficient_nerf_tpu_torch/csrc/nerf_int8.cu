@@ -4,9 +4,9 @@
 //
 // Replaces efficient_nerf_tpu/ops/pallas/nerf_int8.py::nerf_forward_int8
 // (:210, its pallas_call at :306; the kernel body is _kernel :114-207). The
-// tile, the embed, the weight stream, the view branch and the heads are the
-// bf16 field's (nerf_field.cuh, as in nerf_forward.cu); only the body and the
-// feature head differ. With per-output-row weight scales sw, static
+// tile, the embed, the weight stream, the view branch and the heads are
+// those of nerf_field.cuh's bf16 path; only the body and the feature head
+// differ. With per-output-row weight scales sw, static
 // activation scales s[0..D-1] and the folded constants that the wrapper makes
 // once per call (ops/nerf_int8.py::_fold, :245-259 of the Pallas wrapper):
 //

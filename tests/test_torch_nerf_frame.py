@@ -148,11 +148,12 @@ def _card_teacher(rng, width=256):
     return tm
 
 
-# 37 and 333 rays (odd: a ragged last group; 167 groups of 2, more than one
-# a block) and other coarse / fine sample counts (R 42 at 3 coarse samples)
+# 37 and 1111 rays (odd: a ragged last group; 278 groups of 4, more than
+# one a block) and other coarse / fine sample counts (84 rays a group at 3
+# coarse samples)
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_rays,width,S_c,S_f", [(37, 256, 64, 128), (20, 64, 16, 32),
-                                                  (333, 64, 64, 128), (13, 128, 3, 1),
+                                                  (1111, 64, 64, 128), (13, 128, 3, 1),
                                                   (29, 256, 32, 96), (1, 128, 64, 128)])
 def test_kernel_matches_plain_version(n_rays, width, S_c, S_f, cuda_device, rng):
     packed = nf.pack_nerf_weights({k: v.to(cuda_device) for k, v in
