@@ -32,18 +32,19 @@ training step's 98,304 rays, the global residual on, variants as serve's:
 
 serve_int8: csrc/r2l_int8.cu with static activation scales (from
 calibrate_r2l_int8 on the frame's first 1024 rays) on the rays of one
-400x400 frame, its variants edited in its own int8 weight stream:
+400x400 frame, its variants edited in the int8 body of the wgmma tile
+(csrc/r2l_wgmma.cuh) and in csrc/int8_epilogue.cuh:
   shipped      the kernel as the port runs it
-  no_loads     no int8 weight copies: the products, epilogues and barriers
-  no_products  no int8 mma.sync or ldmatrix: the weight stream, epilogues and
-               barriers
-  no_epilogues the static epilogues skipped (no dequantize, requantize or
-               residual): the weight stream, products and barriers
-  first_conversions  the kernel's first conversions, (float) of the int32
-               sums and rintf, clip and a truncating cast for the levels:
-               quarter-rate conversions, the same results
-  ring_64x4    64-byte weight chunks in 4 stages instead of 128 in 2: a
-               deeper ring, a barrier per chunk
+  no_loads     no TMA copies of the body's int8 chunks (each stage completes
+               on the loading thread's arrival alone; the head's stay): the
+               products, epilogues and layer barriers
+  no_products  no s8 wgmma: the weight stream, epilogues and layer barriers
+  no_epilogues the body's epilogues skipped (no dequantize, requantize or
+               residual): the weight stream, products and layer barriers
+  first_conversions  I2F of the int32 sums and F2I for the levels (one
+               quarter-rate conversion each) in place of the full-rate add
+               tricks of int8_epilogue.cuh, the same results
+  ring_2       a 2-stage weight ring instead of 3
 
 train_bwd: the training backward's two passes at 98,304 rays (the training
 step's), need_dx off, the global residual on. Pass 1, csrc/r2l_train.cu:
@@ -89,14 +90,23 @@ rays of the same frame at 64 + 128 samples, white background:
                runs on depths left in shared memory)
   no_products  no wgmma: the weight stream, embed, epilogues and glue
 
-teacher_int8: the int8 field eval of csrc/nerf_int8.cu on the same fine
-chunk, static scales from calibrate_nerf_int8 on its first 1024 points:
+teacher_int8: the int8 field eval of csrc/nerf_int8.cu (the same field
+tile, s8 wgmma for the body and the feature head) on the same fine chunk,
+static scales from calibrate_nerf_int8 on its first 1024 points:
   shipped      the kernel as the port runs it
-  no_loads     no int8 weight copies (the bf16 ones stay): the products,
-               epilogues and barriers
-  no_products  no int8 mma.sync or ldmatrix (the bf16 products stay)
+  no_loads     no TMA copies of the int8 chunks (the bf16 ones stay): the
+               products, embed and epilogues
+  no_products  no s8 wgmma (the bf16 products stay)
   no_epilogues no int8 epilogues (dequantize, bias, relu, requantize, the
-               alpha and feature heads' epilogues); the view layer's stays
+               alpha head, the feature head's); the skip layer's
+               dequantization and the view layer's epilogue stay
+  one_part     each layer in one part of all 256 columns (128 sums a thread
+               live through its epilogue) instead of two parts of 128
+  first_conversions  as serve_int8's
+  ring_2       a 2-stage weight ring instead of as many as fit (4 at W256)
+  block_barrier  every warpgroup barrier a block barrier
+  one_tile_a_block  one block per 128-point tile instead of persistent
+               blocks
 
 Prints one line per variant and, last, a JSON object with the times, the
 bound and the card's name and power limit. A diagnostic: the variants'
@@ -113,8 +123,8 @@ from concurrent.futures import ThreadPoolExecutor
 import chip_smoke as cs
 
 _WG = "r2l_wgmma.cuh"
-_WG_ISSUE = """    mbar_arrive_expect_tx(&full[s], WP * KC * 2);
-    tma_box(ring + (size_t)s * WP * KC, map, k * KC, 0, layer, &full[s]);
+_WG_ISSUE = """    mbar_arrive_expect_tx(&full[s], WP * 128);
+    tma_box(ring + (size_t)s * WP * KC, map, k * (head ? KC : KB), 0, layer, &full[s]);
 """
 _WG_PRODUCTS = "        Wgmma<NT>::run(acc, da + 2 * k, db + 2 * k, carry || kc + k > 0);\n"
 _WG_HS = "tma_store_box(&maps.hs, a + q * PANEL, 64 * q, (int)ray0, blk);"
@@ -124,7 +134,7 @@ _WG_RELEASE = """    if (lane == 0) mbar_arrive(&empty[read % S]);
 """
 _WG_FULL_WAIT = "      mbar_wait(&full[s], (c / S) & 1);\n"
 _WG_VARIANTS = {
-    "two_boxes": [(_WG, _WG_ISSUE, """    mbar_arrive_expect_tx(&full[s], WP * KC * 2);
+    "two_boxes": [(_WG, _WG_ISSUE, """    mbar_arrive_expect_tx(&full[s], WP * 128);
     for (int r = 0; r < 2; ++r)
       tma_box(ring + (size_t)s * WP * KC + r * NT * KC, map, k * KC, r * NT, layer, &full[s]);
 """), (_WG, "  const unsigned rows = (unsigned)round_up64(W);",
@@ -171,32 +181,39 @@ _W_PRODUCTS = "      if (active) stage_product(As, As + A_TILE, acc, ms, ns, lan
 _W_EXPECT = "        mbar_arrive_expect_tx(&full[s], bytes);"
 _W_BOXES_A = "        for (int b = 0; b < na; ++b)"
 _W_BOXES_B = "        for (int b = 0; b < nbx; ++b)"
-_LOAD8 = "cp_async16(dst + r * LDS8 + piece * 16, src + (size_t)r * W + piece * 16);"
-_PRODUCTS8 = "    if (owns) {\n      const int8_t* X = (l & 1) ? X1 : X0;"
-_EPI_EVEN = "      } else if (owns) {\n        // t = acc * (dqs0 * inv1)"
-_EPI_ODD = "    if (owns) {\n      float sg[RT][2];"
-_EPI_QH = "    if (b + 1 < n_block) quantize_h(b + 1, owns);"
+_WG8_PRODUCTS = "          WgmmaS8<NT>::run(acc8, da + 2 * k, db + 2 * k, kc + k > 0);\n"
+_WG8_EPI_EVEN = ("          for (int j = 0; j < NT / 8; ++j) {\n            const int col = col0 + 8 * j;\n"
+                 "            const float2 sw = *reinterpret_cast<const float2*>(csw + col);\n"
+                 "            const float2 bb = *reinterpret_cast<const float2*>(cb + col);\n"
+                 "            const float c0x")
+_WG8_EPI_ODD = "        products8(qg);\n#pragma unroll\n        for (int j = 0; j < NT / 8; ++j) {"
+_WG8_QH = "        if (b + 1 < nb) quantize_h(b + 1);"
+_E8 = "int8_epilogue.cuh"
 _CVT_SUM = "  return __fsub_rn(__int_as_float(v + 0x4B400000), 12582912.0f);"
-_CVT_LEVELS = """  unsigned r;
-  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;\\n"
-      : "=r"(r)
-      : "r"(__float2int_rn(fmaxf(y, -127.0f))), "r"(__float2int_rn(fmaxf(x, -127.0f))),
-        "r"(0));
-  *reinterpret_cast<unsigned short*>(p) = (unsigned short)r;"""
-_FIRST_LEVELS = """  const int a = (int)fminf(fmaxf(rintf(x), -127.0f), 127.0f);
-  const int b = (int)fminf(fmaxf(rintf(y), -127.0f), 127.0f);
-  *reinterpret_cast<unsigned short*>(p) = (unsigned short)((a & 0xff) | ((b & 0xff) << 8));"""
-_T_LOAD = "cp_async16(dst + r * LDS_B + piece * 16, src + (size_t)r * sg.ldw + piece * 16);"
-_T8_PRODUCTS = "for (int kk = 0; kk < CHUNK_B; kk += 32) {"
-_T8_EPI = "    const int L = sg.layer;\n    if (L == 0) {"
-_FIELD = "nerf_field.cuh"
+_CVT_LEVEL = "  return __float_as_uint(__fadd_rn(fminf(fmaxf(x, -127.0f), 127.0f), 12582912.0f));"
+_CVT_LEVEL_POS = "  return __float_as_uint(__fadd_rn(fminf(x, 127.0f), 12582912.0f));"
+_FIRST_CONVERSIONS = [
+    (_E8, _CVT_SUM, "  return __int2float_rn(v);"),
+    (_E8, _CVT_LEVEL, "  return (unsigned)__float2int_rn(fminf(fmaxf(x, -127.0f), 127.0f));"),
+    (_E8, _CVT_LEVEL_POS, "  return (unsigned)__float2int_rn(fminf(x, 127.0f));")]
+_I8 = "nerf_int8.cu"
+_T8_EPI = "  for (int m = 0; m < 8; ++m) {\n    const nw::Slot<W> a(c0, t, m), b(c1, t, m);"
+_T8_FEAT = ("  for (int m = 0; m < 8; ++m) {\n    const nw::Slot<W> a(dqs, t, m), b(bias, t, m);\n"
+            "    unsigned* at")
 _NW = "nerf_wgmma.cuh"
-_NW_ISSUE = """  mbar_arrive_expect_tx(bar, rows * KC * 2);
-  tma_box(dst, map, col * KC, 0, layer, bar);
+_NW_ISSUE = """  mbar_arrive_expect_tx(bar, rows * 128);
+  tma_box(dst, map, col, 0, layer, bar);
+"""
+_NW8_PRODUCTS = """    if (first)
+      wg::WgmmaS8<N>::first(acc, da, db);
+    else
+      wg::WgmmaS8<N>::run(acc, da, db, 1);
+#pragma unroll
+    for (int j = 1; j < KC8 / 32; ++j) wg::WgmmaS8<N>::run(acc, da + 2 * j, db + 2 * j, 1);
 """
 _NW_PRODUCTS = "      wg::Wgmma<N>::run(acc, da + 2 * j, db + 2 * j, carry || kc + j > 0);\n"
 _NW_TRIG = "v = grp == 0 ? xv : fast_sin(__fadd_rn(__fmul_rn(xv, freq), phase), 7);"
-_NW_CHUNKS = "  return 2 * (s.in_pad / KC) + (s.depth + 1) * (s.W / KC);"
+_NW_CHUNKS = "  return 2 * (s.in_pad / KC) + s.depth * (s.W >> body_lkc(s)) + s.W / KC;"
 _NW_VIEWS = "  products<HALF>(accv, act, W / KC, false, st, sm, k, lost);\n"
 _NW_EPI = "  for (int m = 0; m < 8; ++m) {\n    const Slot<W> b(bias, t, m);"
 _NW_BAR = '  asm volatile("bar.sync %0, 128;\\n" ::"r"(1 + wgi) : "memory");'
@@ -206,8 +223,8 @@ _NW_EPI_VIEW = "  for (int mc = 0; mc < (HALF < KC ? HALF / 8 : 8); ++mc) {"
 _NW_TRAP = "  if (lost) __trap();  // a lost copy fails the launch instead of hanging the card\n"
 _NW_CVT = """  unsigned r;
   if (RELU)"""
-_F_VIEW_ROWS = "      nw::view_rows(hvd, nr, half, p.s.ev, p.m.views_d_w, tw, 128,"
-_F_GRID = "  const unsigned grid = (unsigned)(tiles < resident ? tiles : resident);"
+_NW_VIEW_ROWS = "      view_rows(hvd, nr, half, p.s.ev, p.m.views_d_w, tw, 128,"
+_NW_GRID = "  const unsigned grid = (unsigned)(tiles < resident ? tiles : resident);"
 _FR_GLUE_C = ("      for (int r = warp; r < R; r += nw::NTHREADS / 32) {\n        float res[6];\n"
               "        float* w =")
 _FR_GLUE_F = ("    for (int r = warp; r < R; r += nw::NTHREADS / 32) {\n      float res[6];\n"
@@ -226,15 +243,14 @@ KERNELS = {
     }),
     "serve_int8": ("r2l_int8.cu", {
         "shipped": [],
-        "no_loads": [("r2l_int8.cu", _LOAD8, "")],
-        "no_products": [("r2l_int8.cu", _PRODUCTS8, _PRODUCTS8.replace("(owns)", "(false)"))],
-        "no_epilogues": [("r2l_int8.cu", _EPI_EVEN, _EPI_EVEN.replace("(owns)", "(false)")),
-                         ("r2l_int8.cu", _EPI_ODD, _EPI_ODD.replace("(owns)", "(false)")),
-                         ("r2l_int8.cu", _EPI_QH, "")],
-        "first_conversions": [("int8_epilogue.cuh", _CVT_SUM, "  return (float)v;"),
-                              ("int8_epilogue.cuh", _CVT_LEVELS, _FIRST_LEVELS)],
-        "ring_64x4": [("r2l_int8.cu", "constexpr int KC8 = 128; ", "constexpr int KC8 = 64;  "),
-                      ("r2l_int8.cu", "constexpr int S8 = 2;", "constexpr int S8 = 4;")],
+        "no_loads": [(_WG, _WG_ISSUE, "    if (!head) {\n      mbar_arrive(&full[s]);\n"
+                                      "      return;\n    }\n" + _WG_ISSUE)],
+        "no_products": [(_WG, _WG8_PRODUCTS, "")],
+        "no_epilogues": [(_WG, _WG8_EPI_EVEN, _WG8_EPI_EVEN.replace("j < NT / 8", "j < 0 * NT")),
+                         (_WG, _WG8_EPI_ODD, _WG8_EPI_ODD.replace("j < NT / 8", "j < 0 * NT")),
+                         (_WG, _WG8_QH, "")],
+        "first_conversions": _FIRST_CONVERSIONS,
+        "ring_2": [(_WG, "constexpr int S = 3;", "constexpr int S = 2;")],
     }),
     "train_bwd": ("r2l_train.cu", {
         "shipped": [],
@@ -251,14 +267,14 @@ KERNELS = {
         "no_loads": [(_NW, _NW_ISSUE, "  mbar_arrive(bar);\n")],
         "no_products": [(_NW, _NW_PRODUCTS, "")],
         "no_trig": [(_NW, _NW_TRIG, "v = grp == 0 ? xv : __fadd_rn(__fmul_rn(xv, freq), phase);")],
-        "no_views": [(_NW, _NW_CHUNKS, _NW_CHUNKS.replace("(s.depth + 1)", "s.depth")),
+        "no_views": [(_NW, _NW_CHUNKS, _NW_CHUNKS.replace(" + s.W / KC;", ";")),
                      (_NW, _NW_VIEWS, "  for (int i = 0; i < HALF / 2; ++i) accv[i] = 0.0f;\n"),
-                     ("nerf_forward.cu", _F_VIEW_ROWS, _F_VIEW_ROWS.replace("nr,", "0,"))],
+                     (_NW, _NW_VIEW_ROWS, _NW_VIEW_ROWS.replace("nr,", "0,"))],
         "no_epilogues": [(_NW, _NW_EPI, _NW_EPI.replace("m < 8", "m < 0")),
                          (_NW, _NW_EPI_VIEW, _NW_EPI_VIEW.replace("mc < (HALF", "mc < 0 * (HALF"))],
         "block_barrier": [(_NW, _NW_BAR, "  __syncthreads();")],
         "ring_2": [(_NW, "constexpr int MAX_STAGES = 8;", "constexpr int MAX_STAGES = 2;")],
-        "one_tile_a_block": [("nerf_forward.cu", _F_GRID, "  const unsigned grid = (unsigned)tiles;")],
+        "one_tile_a_block": [(_NW, _NW_GRID, "  const unsigned grid = (unsigned)tiles;")],
         "no_trap": [(_NW, _NW_TRAP, "")],
         "no_fence": [(_NW, _NW_FENCE, "")],
         "no_stores": [(_NW, _NW_STORE, "        if (h == 0x7fc17fc1u) " + _NW_STORE.lstrip())],
@@ -266,11 +282,16 @@ KERNELS = {
     }),
     "teacher_int8": ("nerf_int8.cu", {
         "shipped": [],
-        "no_loads": [(_FIELD, _T_LOAD, "if (!sg.s8) " + _T_LOAD)],
-        "no_products": [(_FIELD, _T8_PRODUCTS, _T8_PRODUCTS.replace("kk < CHUNK_B", "kk < 0"))],
-        "no_epilogues": [("nerf_int8.cu", _T8_EPI,
-                          _T8_EPI.replace("    if (L == 0) {", "    if (L <= D) return;\n"
-                                                              "    if (L == 0) {"))],
+        "no_loads": [(_NW, _NW_ISSUE, "  if (s.s8 && (map == &m.body || map == &m.feat)) {\n"
+                                      "    mbar_arrive(bar);\n    return;\n  }\n" + _NW_ISSUE)],
+        "no_products": [(_NW, _NW8_PRODUCTS, "")],
+        "no_epilogues": [(_I8, _T8_EPI, _T8_EPI.replace("m < 8", "m < 0")),
+                         (_I8, _T8_FEAT, _T8_FEAT.replace("m < 8", "m < 0"))],
+        "one_part": [(_I8, "constexpr int SPLIT = W == 256 ? 2 : 1,", "constexpr int SPLIT = 1,")],
+        "first_conversions": _FIRST_CONVERSIONS,
+        "ring_2": [(_NW, "constexpr int MAX_STAGES = 8;", "constexpr int MAX_STAGES = 2;")],
+        "block_barrier": [(_NW, _NW_BAR, "  __syncthreads();")],
+        "one_tile_a_block": [(_NW, _NW_GRID, "  const unsigned grid = (unsigned)tiles;")],
     }),
     "frame": ("nerf_frame.cu", {
         "shipped": [],

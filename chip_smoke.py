@@ -10,7 +10,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 source, all started together); prints the time and ptxas's
                 report, and for the two forward kernels on the wgmma tile
                 (csrc/r2l_wgmma.cuh) each instantiation's registers, spill
-                bytes and dynamic shared memory.
+                bytes and dynamic shared memory; the warpgroup MMAs in the
+                SASS of the two int8 kernels (cuobjdump), which must hold
+                integer ones (IGMMA).
   trig          the fast_sincos device helper (csrc/trig.cuh) against its
                 plain torch version over |y| <= 4e3.
   kernel        the fused R2L kernel at W256 D88, n_sample 16, L 10, B 8192
@@ -27,8 +29,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 calibrate_r2l_int8 on 1024 of those rays) and dynamic ones,
                 use_residual off and on, and a ragged B 37, against
                 r2l_forward_int8_ref; max and mean error, the share of rays
-                beyond 4e-3, and the noise of the plain version on the CPU
-                against on the card (B 2048).
+                beyond 4e-3, two calls bit for bit in each mode, and the
+                noise of the plain version on the CPU against on the card (B
+                2048); the int8 student tile's registers and spills (ptxas,
+                one line an instantiation), shared memory and ring stages.
   main_int8     calibrate_serving_scales once on the first 1024 rays of frame
                 0, then r2l_render_image(quant="int8", act_scales=...) for
                 the 3 poses as a user calls it, the launch counters set to 0
@@ -93,8 +97,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 37 x 192, and at the main path's 32,768 x 64 and 32,768 x 192
                 on the teacher phase's points, each with scales calibrated on
                 its first 1024 points: max |k - p| / max |p| of sigma and
-                rgb, the share of points beyond TEACHER_TOL, and the noise of
-                the plain version on the CPU against on the card.
+                rgb, the share of points beyond TEACHER_TOL, two calls bit
+                for bit at the chunk shapes, and the noise of the plain
+                version on the CPU against on the card; the int8 field tile's
+                registers and spills, shared memory and ring stages.
   teacher_int8  render_image with teacher_quant="int8" for the 3 frames, the
                 launch counters set to 0 just before and read just after (2
                 int8 field-eval, no bf16 field-eval and 1 sampler launch per
@@ -135,9 +141,11 @@ import ctypes
 import json
 import math
 import re
+import shutil
 import subprocess
 import tempfile
 import time
+from pathlib import Path
 
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_INT8_OPS = 1979e12    # dense int8 tensor-core peak, H100 SXM data sheet
@@ -419,6 +427,18 @@ def phase_build(sm: Smoke) -> None:
             print(f"build: {kernel}<{name_args}>: " + "; ".join(lines), flush=True)
         print(f"build: {kernel} dynamic shared memory at W{WIDTH}, in_pad 1024: {smem} "
               f"bytes", flush=True)
+    # the int8 kernels' products are integer warpgroup MMAs (IGMMA) in the
+    # built SASS
+    cuobjdump = shutil.which("cuobjdump", path=str(Path(_build._nvcc()).parent))
+    if cuobjdump is None:
+        fail("cuobjdump not found beside nvcc")
+    for name in ("r2l_int8", "nerf_int8"):
+        sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        ops = sorted(set(re.findall(r"\b[A-Z]GMMA\.[0-9x]+\.[A-Z0-9]+\.[A-Z0-9]+\b", sass)))
+        print(f"build: {name} SASS warpgroup MMAs: {', '.join(ops)}", flush=True)
+        if not any(op.startswith("IGMMA") for op in ops):
+            fail(f"no integer warpgroup MMA (IGMMA) in the SASS of csrc/{name}.cu")
 
 
 def phase_trig(sm: Smoke) -> None:
@@ -636,6 +656,14 @@ def phase_kernel_int8(sm: Smoke) -> None:
             if not e_max <= INT8_TOL[mode]:
                 fail(f"int8 kernel ({mode}) differs from its plain version by {e_max}")
             errs[mode] = max(errs[mode], e_max)
+        o, d = ko.contiguous(), kd.contiguous()
+        same = torch.equal(r2l_forward_int8(packed, o, d, NEAR, FAR, N_SAMPLE, L_FREQ,
+                                            act_scales=scales),
+                           r2l_forward_int8(packed, o, d, NEAR, FAR, N_SAMPLE, L_FREQ,
+                                            act_scales=scales))
+        print(f"kernel_int8: {mode} B={KERNEL_B}: two calls bit for bit: {same}", flush=True)
+        if not same:
+            fail(f"two calls of the int8 kernel ({mode}) differ")
     # the noise of summation order alone: the plain version on the host CPU
     # and on the card, on the first NOISE_B of these rays
     cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in packed.items()}
@@ -655,6 +683,20 @@ def phase_kernel_int8(sm: Smoke) -> None:
               f"share beyond {KERNEL_TOL:g} {n_share:.5f}); kernel vs plain on the "
               f"same rays {k_max:.3g}", flush=True)
     sm.int8_err = max(errs.values())
+    # the int8 student tile (csrc/r2l_wgmma.cuh with Q 1 static, 2 dynamic;
+    # NT output columns a warpgroup, W256 is NT 128; PARTS=1 runs a wide head
+    # in parts), one line an instantiation
+    from efficient_nerf_tpu_torch.ops import _build
+
+    for cur, lines in sorted(ptxas_report("r2l_int8", "r2l_int8_kernel").items()):
+        m = re.search(r"ILi(\d+)ELb([01])ELi(\d)E", cur)
+        args = f"NT={m.group(1)}, PARTS={m.group(2)}, Q={m.group(3)}" if m else "?"
+        print(f"kernel_int8: r2l_int8_kernel<{args}>: " + "; ".join(lines), flush=True)
+    lib = ctypes.CDLL(str(_build.library_path("r2l_int8")))
+    lib.r2l_int8_smem_bytes.restype = ctypes.c_longlong
+    print(f"kernel_int8: r2l_int8_kernel at W{WIDTH}, in_pad 1024: "
+          f"{lib.r2l_int8_smem_bytes(1024, WIDTH)} bytes of dynamic shared memory, 3 "
+          f"weight-ring stages of {WIDTH * 64 * 2} bytes", flush=True)
 
 
 def int8_library_forward(torch, packed, ro, rd, act, res_scale=1.0):
@@ -1725,6 +1767,12 @@ def phase_teacher_int8_kernel(sm: Smoke) -> None:
         act = calibrate_nerf_int8(packed32, pts.reshape(-1, 3)[:1024], T_L)
         x = pts.permute(2, 0, 1).contiguous() if cm else pts
         got = nerf_forward_int8(packed, x, dirs, T_L, T_LV, act_scales=act, cm=cm)
+        if label.startswith("the "):   # the chunk shapes: two calls bit for bit
+            same = torch.equal(got, nerf_forward_int8(packed, x, dirs, T_L, T_LV,
+                                                      act_scales=act, cm=cm))
+            print(f"teacher_int8_kernel: {label}: two calls bit for bit: {same}", flush=True)
+            if not same:
+                fail(f"two calls of the int8 field-eval kernel differ at {label}")
         want = nerf_forward_int8_ref(packed, x, dirs, T_L, T_LV, act_scales=act, cm=cm)
         torch.cuda.synchronize()
         if cm:
@@ -1755,6 +1803,14 @@ def phase_teacher_int8_kernel(sm: Smoke) -> None:
           flush=True)
     if not max(worst["sigma"], worst["rgb"]) <= INT8_TEACHER_TOL:
         fail(f"int8 field-eval kernel differs from its plain version by {worst}")
+    from efficient_nerf_tpu_torch.ops import _build
+
+    lib = ctypes.CDLL(str(_build.library_path("nerf_int8")))
+    lib.nerf_int8_smem_bytes.restype = ctypes.c_longlong
+    print_tile("teacher_int8_kernel", "nerf_int8", "nerf_int8_kernel",
+               [(f"S={S}", lib.nerf_int8_smem_bytes(64, T_WIDTH, T_DEPTH, S),
+                 lib.nerf_int8_ring_stages(64, T_WIDTH, T_DEPTH, S))
+                for S in (T_SAMPLES, T_SAMPLES + T_IMPORTANCE)])
     sm.int8_teacher = {"packed": packed, "packed32": packed32, "err": worst["abs"]}
 
 

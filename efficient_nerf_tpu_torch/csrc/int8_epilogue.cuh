@@ -1,5 +1,6 @@
 // The conversions of the W8A8 kernels' epilogues (r2l_int8.cu, nerf_int8.cu),
-// which round as their plain versions do.
+// which round as their plain versions do: an s32 product sum to f32, and an
+// f32 value to its int8 level.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,17 +17,26 @@ __device__ __forceinline__ float s32_to_f32(int v) {
   return __fsub_rn(__int_as_float(v + 0x4B400000), 12582912.0f);
 }
 
-// Stores the levels clip(round(x), -127, 127) and clip(round(y), -127, 127),
-// round half to even, as two neighbouring int8: __float2int_rn rounds, and
-// cvt.pack.sat saturates at 127 and packs (at -128 too, which the bound -127
-// applied first makes moot: the bounds are whole numbers).
-__device__ __forceinline__ void store_s8x2(int8_t* p, float x, float y) {
+// The level clip(round(x), -127, 127), rounded half to even as torch.round
+// rounds, in the low byte of the returned bits (two's complement): x is
+// clipped first (the bounds are whole numbers, so the clip commutes with the
+// rounding), then the f32 add of 1.5 * 2^23 rounds it to a whole number in
+// the low mantissa bits. Three full-rate instructions, where F2I runs at a
+// quarter of the rate. NaN gives -127, as fmaxf(NaN, -127) does.
+__device__ __forceinline__ unsigned level_bits(float x) {
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(x, -127.0f), 127.0f), 12582912.0f));
+}
+
+// The same for x >= 0 (a relu's output, never NaN): clipped at 127 only.
+__device__ __forceinline__ unsigned level_bits_pos(float x) {
+  return __float_as_uint(__fadd_rn(fminf(x, 127.0f), 12582912.0f));
+}
+
+// Two levels as neighbouring int8 (a's in the low byte), from level_bits.
+__device__ __forceinline__ unsigned short pack_levels(unsigned a, unsigned b) {
   unsigned r;
-  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;\n"
-      : "=r"(r)
-      : "r"(__float2int_rn(fmaxf(y, -127.0f))), "r"(__float2int_rn(fmaxf(x, -127.0f))),
-        "r"(0));
-  *reinterpret_cast<unsigned short*>(p) = (unsigned short)r;
+  asm("prmt.b32 %0, %1, %2, 0x0040;\n" : "=r"(r) : "r"(a), "r"(b));
+  return (unsigned short)r;
 }
 
 }  // namespace enerf

@@ -25,8 +25,7 @@
 // that one's epilogues run under the other's products; the weights by TMA
 // into a ring that neither warpgroup waits on to load; persistent blocks
 // (one per SM at W256), so that the ring streams on from tile to tile. This
-// file holds each warpgroup's rows' points, view rows and raw, and the
-// launch.
+// file holds the kernel's arguments and its launch.
 #include <string.h>
 
 #include "nerf_wgmma.cuh"
@@ -46,32 +45,8 @@ struct Args {
   nw::Model m;
 };
 
-// One warpgroup's rows of a tile: points p0 .. p0 + rows - 1, their view
-// rows from ray r0 on.
-struct Rows {
-  const Args* p;
-  long long p0, r0;
-  int rows;
-  const float* hvd;
-  __device__ float pt(int row, int c) const { return p->pts[(p0 + row) * p->s_pt + c * p->s_c]; }
-  __device__ const float* hv(int row) const {
-    if (rows <= 0) return hvd;
-    const long long q = p0 + (row < rows ? row : rows - 1);
-    return hvd + (q / p->S - r0) * (p->s.W / 2);
-  }
-  __device__ void out(int row, int c, float v) const {
-    p->out[(p0 + row) * p->o_pt + c * p->o_c] = v;
-  }
-};
-
-// Rays that 64 consecutive points can touch at S samples a ray.
-__host__ __device__ inline int rays_per_rows(int S) {
-  const int r = (nw::ROWS - 1) / S + 2;
-  return r < nw::ROWS ? r : nw::ROWS;
-}
-
 __host__ __device__ inline nw::Layout forward_layout(const nw::Shape& s, int S) {
-  return nw::layout(s, (size_t)2 * rays_per_rows(S) * (s.W / 2) * 4, 0);
+  return nw::layout(s, (size_t)2 * nw::rays_per_rows(S) * (s.W / 2) * 4, 0);
 }
 
 // __grid_constant__: the tile takes the tensor maps' and the model's
@@ -81,51 +56,11 @@ __global__ void __launch_bounds__(nw::NTHREADS, 1)
     nerf_forward_kernel(const __grid_constant__ Args p) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const nw::Smem sm = nw::smem_of(smem_raw, forward_layout(p.s, p.S));
-  const long long tiles = (p.P + nw::TM - 1) / nw::TM;
-  const int nt = (int)((tiles - blockIdx.x + gridDim.x - 1) / gridDim.x);  // this block's
-  nw::Stream st;
-  st.m0 = st.m1 = &p.m;
-  st.s = p.s;
-  st.cpt = nw::chunks_per_tile(p.s);
-  st.period = st.split = nt;
-  st.total = nt * st.cpt;
-  nw::load_consts(p.m, p.s, sm, threadIdx.x, nw::NTHREADS);
-  nw::ring_start(st, sm);  // (its block barrier orders load_consts's writes)
-
-  const int wgi = threadIdx.x / 128, tw = threadIdx.x % 128, half = W / 2;
-  float* hvd = sm.hvd + (size_t)wgi * p.nr_wg * half;
-  nw::Cursor k = {0, 0, 0u};
-  for (int i = 0; i < nt; ++i) {
-    Rows src;
-    src.p = &p;
-    src.p0 = (blockIdx.x + (long long)i * gridDim.x) * nw::TM + nw::ROWS * wgi;
-    const long long left = p.P - src.p0;
-    src.rows = left <= 0 ? 0 : left < nw::ROWS ? (int)left : nw::ROWS;
-    src.r0 = src.p0 / p.S;
-    src.hvd = hvd;
-    nw::bar_wg(wgi);  // the last tile's view epilogue has read the view rows
-    if (src.rows > 0) {
-      const int nr = (int)((src.p0 + src.rows - 1) / p.S - src.r0) + 1;
-      nw::view_rows(hvd, nr, half, p.s.ev, p.m.views_d_w, tw, 128,
-                    [&](int ri) { return p.dirs + (src.r0 + ri) * p.s.ev; });
-    }
-    // (the embed's warpgroup barrier orders these writes before their reads)
-    nw::field_tile<W>(p.m, st, sm, k, src);
-  }
-}
-
-template <int W>
-int launch(const Args& a, size_t smem, cudaStream_t stream) {
-  auto kernel = nerf_forward_kernel<W>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (a.P + nw::TM - 1) / nw::TM;
-  const int resident = nw::resident_blocks(kernel, smem);
-  if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
-  const unsigned grid = (unsigned)(tiles < resident ? tiles : resident);
-  kernel<<<grid, nw::NTHREADS, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  nw::point_tiles<W>(
+      p, sm, [&] { nw::load_consts(p.m, p.s, sm, threadIdx.x, nw::NTHREADS); },
+      [&](const nw::Stream<>& st, nw::Cursor& k, nw::Rows<Args>& src) {
+        nw::field_tile<W>(p.m, st, sm, k, src);
+      });
 }
 
 }  // namespace
@@ -174,13 +109,13 @@ extern "C" int nerf_forward_launch(
   a.o_c = o_c;
   a.P = P;
   a.S = S;
-  a.nr_wg = rays_per_rows(S);
+  a.nr_wg = nw::rays_per_rows(S);
   cudaStream_t st = (cudaStream_t)stream;
   switch (W) {
-    case 64: return launch<64>(a, smem, st);
-    case 128: return launch<128>(a, smem, st);
-    case 192: return launch<192>(a, smem, st);
-    case 256: return launch<256>(a, smem, st);
+    case 64: return nw::launch_tiles(nerf_forward_kernel<64>, a, smem, st);
+    case 128: return nw::launch_tiles(nerf_forward_kernel<128>, a, smem, st);
+    case 192: return nw::launch_tiles(nerf_forward_kernel<192>, a, smem, st);
+    case 256: return nw::launch_tiles(nerf_forward_kernel<256>, a, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -204,7 +204,7 @@ __global__ void __launch_bounds__(nw::NTHREADS, 1)
 
   // the weight stream: each ray group's coarse tiles, then its fine tiles
   const int ntc = (R * S_c + nw::TM - 1) / nw::TM, ntf = (R * S + nw::TM - 1) / nw::TM;
-  nw::Stream st;
+  nw::Stream<> st;
   st.m0 = &p.fc;
   st.m1 = &p.ff;
   st.s = p.s;

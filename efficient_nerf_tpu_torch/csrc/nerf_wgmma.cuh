@@ -1,7 +1,9 @@
 // The teacher field on Hopper's asynchronous machinery: one tile of TM = 128
 // points that the field-eval kernel (nerf_forward.cu) and the whole-ray
-// kernel (nerf_frame.cu) both run. It computes what nerf_field.cuh's bf16
-// path computes (that header now serves the int8 kernel, nerf_int8.cu):
+// kernel (nerf_frame.cu) run in bf16, and the W8A8 field-eval kernel
+// (nerf_int8.cu) with int8 body layers and feature head (the Shape's s8: the
+// ring then carries 128-column int8 chunks of those layers between the bf16
+// chunks of layer 0, the skip rows and the view layer). The bf16 field:
 //
 //   point x -> embed [x, sin(2^0 x), cos(2^0 x), ...] (63-d at L 10): y = x 2^l
 //              exact in f32, then fast_sin(y + phase) of trig.cuh (degree 7),
@@ -64,7 +66,11 @@
 // as swizzled [64, 64] panels, 64 KB; the embed, 16 KB (it stays until the
 // skip layer has read it); the points, 1.5 KB; the epilogues' f32 biases and
 // head weights, 13 KB at D8; the caller's view rows and extra region; the
-// barriers. With ns = 4 and two rays' view rows: 224 KB.
+// barriers. With ns = 4 and two rays' view rows: 224 KB. The int8 tile's
+// epilogues take twice the vectors (a dequantization scale beside each
+// bias: 21 KB at D8), and its embed moves into the second half of each
+// warpgroup's activation rows, which its int8 levels leave free until the
+// feature head's bf16 output takes them: 218 KB with 4 stages.
 #pragma once
 
 #include <cuda/atomic>
@@ -75,6 +81,7 @@
 #include "r2l_tma.cuh"
 #include "r2l_wgmma.cuh"  // wg::swz, wg::desc, wg::Wgmma<32 ... 128>, the wgmma fences
 #include "trig.cuh"
+#include "wgmma_s8.cuh"
 
 namespace enerf {
 namespace wg {
@@ -171,14 +178,17 @@ constexpr int TM = 128;              // points a tile
 constexpr int ROWS = 64;             // of which a warpgroup owns one wgmma M
 constexpr int NTHREADS = 256;        // two warpgroups
 constexpr int KC = 64;               // contraction columns of a chunk (128 bytes)
+constexpr int KC8 = 128;             // the same of an int8 chunk (128 bytes)
 constexpr int PANEL = ROWS * KC;     // bf16 of one swizzled [64, 64] panel (8 KB)
+constexpr int PANEL8 = ROWS * KC8;   // bytes of one swizzled [64, 128] int8 panel (8 KB)
 constexpr int MAX_STAGES = 8;
 constexpr int MAX_SMEM = 232448;     // 227 KB, the opt-in limit of sm_90
 constexpr int MAX_DEPTH = 13;
 
 // One model: tensor maps over the weights that stream, [layer][out][in] read
-// in boxes of 64 input columns x all output rows, and the other operands
-// (bf16 unless noted).
+// in boxes of 128 bytes of input columns x all output rows (body and feat
+// int8 in the s8 shape), and the other operands (bf16 unless noted; the int8
+// kernel reads none of body_b and feat_b).
 struct Model {
   CUtensorMap pts0, body, skip_x, feat, views_h;
   const __nv_bfloat16* pts0_b;     // [W]
@@ -192,13 +202,28 @@ struct Model {
   int skip;
 };
 
-// The shapes a block's models share.
+// The shapes a block's models share; s8: int8 body layers and feature head.
 struct Shape {
-  int in_ch, in_pad, ev, W, depth;
+  int in_ch, in_pad, ev, W, depth, s8;
 };
 
+// log2 of the input columns of a body or feature-head chunk (a shift: the
+// loading thread divides by it for every chunk)
+__host__ __device__ inline int body_lkc(const Shape& s) { return s.s8 ? 7 : 6; }
+
 __host__ __device__ inline int chunks_per_tile(const Shape& s) {
-  return 2 * (s.in_pad / KC) + (s.depth + 1) * (s.W / KC);
+  return 2 * (s.in_pad / KC) + s.depth * (s.W >> body_lkc(s)) + s.W / KC;
+}
+
+// The int8 tile's embed fits the half of a warpgroup's activation rows that
+// its int8 levels leave free.
+__host__ __device__ inline bool x_in_act(const Shape& s) {
+  return s.s8 && 2 * s.in_pad <= s.W;
+}
+
+// bf16 between the two warpgroups' embed panels.
+__host__ __device__ inline int x_stride(const Shape& s) {
+  return x_in_act(s) ? ROWS * s.W : ROWS * s.in_pad;
 }
 
 __host__ __device__ inline size_t align16(size_t v) { return (v + 15) / 16 * 16; }
@@ -224,14 +249,16 @@ __host__ __device__ constexpr int vec_words(int n) { return 4 * vec_stride(n); }
 
 // Words of one model's vectors: D + 1 biases (layer 0, the body, the
 // feature head) and alpha_w, of W columns; views_b and rgb_w's 3 rows, of
-// W / 2.
+// W / 2. The int8 tile has a dequantization scale beside each bias but
+// layer 0's (its load_consts).
 __host__ __device__ inline int consts_words(const Shape& s) {
-  return (s.depth + 2) * vec_words(s.W) + 4 * vec_words(s.W / 2);
+  return (s.s8 ? 2 * s.depth + 2 : s.depth + 2) * vec_words(s.W) + 4 * vec_words(s.W / 2);
 }
 
 __host__ __device__ inline Layout layout(const Shape& s, size_t hvd_bytes, size_t extra_bytes) {
   const size_t stage = (size_t)s.W * KC * 2, act = (size_t)2 * ROWS * s.W * 2;
-  const size_t x = (size_t)2 * ROWS * s.in_pad * 2, pts = (size_t)2 * ROWS * 3 * 4;
+  const size_t x = x_in_act(s) ? 0 : (size_t)2 * ROWS * s.in_pad * 2;
+  const size_t pts = (size_t)2 * ROWS * 3 * 4;
   const size_t consts = (size_t)consts_words(s) * 4;
   const size_t rest =
       act + x + pts + consts + align16(hvd_bytes) + align16(extra_bytes) + 1024;
@@ -243,8 +270,8 @@ __host__ __device__ inline Layout layout(const Shape& s, size_t hvd_bytes, size_
   l.ns = (int)ns;
   l.ring = 0;
   l.act = ns * stage;
-  l.x = l.act + act;
-  l.pts = l.x + x;
+  l.x = x_in_act(s) ? l.act + (size_t)ROWS * s.W : l.act + act;
+  l.pts = l.act + act + x;
   l.consts = l.pts + pts;
   l.hvd = l.consts + consts;
   l.extra = l.hvd + align16(hvd_bytes);
@@ -258,7 +285,7 @@ __host__ __device__ inline Layout layout(const Shape& s, size_t hvd_bytes, size_
 struct Smem {
   __nv_bfloat16* ring;   // ns stages of [W, 64]
   __nv_bfloat16* act;    // warpgroup g's W / 64 panels at g 64 W
-  __nv_bfloat16* x;      // warpgroup g's in_pad / 64 panels at g 64 in_pad
+  __nv_bfloat16* x;      // warpgroup g's in_pad / 64 panels at g x_stride(s)
   float* pts;            // warpgroup g's [64][3] at g 192
   unsigned* consts;      // the model's biases and head weights (load_consts)
   float* hvd;            // the caller's view rows
@@ -287,7 +314,10 @@ __device__ __forceinline__ Smem smem_of(unsigned char* raw, const Layout& l) {
 // The block's weight stream: chunk n is chunk n % cpt of tile n / cpt; of
 // model m0 where that tile's place in its period of tiles is below `split`,
 // else of m1 (the whole-ray kernel's coarse, then fine tiles of each ray
-// group); total chunks.
+// group); total chunks. S8: the s8 shape's stream (its body and feature
+// head in int8 chunks), a template parameter so that the bf16 kernels'
+// loading thread computes its chunks with constant shifts.
+template <bool S8 = false>
 struct Stream {
   const Model *m0, *m1;
   Shape s;
@@ -301,6 +331,28 @@ struct Cursor {
   unsigned ph;
 };
 
+// Columns 2 q, 2 q + 1 of a bf16 or f32 vector, as f32.
+__device__ __forceinline__ float2 pair_f32(const __nv_bfloat16* v, int q) {
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(v)[q]);
+}
+__device__ __forceinline__ float2 pair_f32(const float* v, int q) {
+  return reinterpret_cast<const float2*>(v)[q];
+}
+
+// The n-column vector src into v in the layout of vec_words, by `nthreads`
+// threads numbered `tid`.
+template <class T>
+__device__ __forceinline__ void put_vec(float* v, const T* src, int n, int tid, int nthreads) {
+  const int slot = vec_slot(n), stride = vec_stride(n);
+  for (int q = tid; q < n / 2; q += nthreads) {
+    const int j = q / 4, t = q % 4;  // columns 2 q, 2 q + 1 = 8 j + 2 t, + 1
+    const float2 f = pair_f32(src, q);
+    float* d = v + t * stride + (j % 8) * slot + (j / 8) * 2;
+    d[0] = f.x;
+    d[1] = f.y;
+  }
+}
+
 // Model m's epilogue operands into sm.consts as f32 vectors (vec_words),
 // by `nthreads` threads numbered `tid`: D + 1 biases (layer 0, the body,
 // the feature head) and alpha_w, then views_b and rgb_w's three rows. The
@@ -309,24 +361,16 @@ struct Cursor {
 __device__ __forceinline__ void load_consts(const Model& m, const Shape& s, const Smem& sm,
                                             int tid, int nthreads) {
   const int W = s.W, half = W / 2, vw = vec_words(W), vh = vec_words(half);
-  auto put = [&](float* v, const __nv_bfloat16* src, int n) {
-    const int slot = vec_slot(n), stride = vec_stride(n);
-    for (int q = tid; q < n / 2; q += nthreads) {
-      const int j = q / 4, t = q % 4;  // columns 2 q, 2 q + 1 = 8 j + 2 t, + 1
-      const float2 f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(src)[q]);
-      float* d = v + t * stride + (j % 8) * slot + (j / 8) * 2;
-      d[0] = f.x;
-      d[1] = f.y;
-    }
-  };
   float* v = reinterpret_cast<float*>(sm.consts);
   for (int l = 0; l <= s.depth; ++l)
-    put(v + l * vw, l == 0 ? m.pts0_b : l < s.depth ? m.body_b + (size_t)(l - 1) * W : m.feat_b,
-        W);
+    put_vec(v + l * vw,
+            l == 0 ? m.pts0_b : l < s.depth ? m.body_b + (size_t)(l - 1) * W : m.feat_b, W,
+            tid, nthreads);
   float* heads = v + (s.depth + 1) * vw;
-  put(heads, m.alpha_w, W);
-  put(heads + vw, m.views_b, half);
-  for (int c = 0; c < 3; ++c) put(heads + vw + (1 + c) * vh, m.rgb_w + (size_t)c * half, half);
+  put_vec(heads, m.alpha_w, W, tid, nthreads);
+  put_vec(heads + vw, m.views_b, half, tid, nthreads);
+  for (int c = 0; c < 3; ++c)
+    put_vec(heads + vw + (1 + c) * vh, m.rgb_w + (size_t)c * half, half, tid, nthreads);
 }
 
 // Thread t's slot m of an n-column vector of load_consts: the f32 pairs of
@@ -366,30 +410,32 @@ __device__ __forceinline__ void bar_wg(int wgi) {
 }
 
 // Chunk q of a tile's stream of model m into dst, completing on bar: layer
-// 0 (in_pad / 64 chunks), the body layers (W / 64 each; layer skip + 1 then
-// its embed rows, in_pad / 64), the feature head, the view layer (W / 2
-// rows).
+// 0 (in_pad / 64 chunks), the body layers (W / 64, or W / 128 with S8, each; layer skip + 1
+// then its embed rows, in_pad / 64), the feature head, the view layer (W / 2
+// rows). A box is 128 bytes of each of its rows, bf16 or int8.
+template <bool S8>
 __device__ __forceinline__ void load_chunk(const Model& m, const Shape& s, int q,
                                            __nv_bfloat16* dst, uint64_t* bar) {
-  const int kin = s.in_pad / KC, kw = s.W / KC;
+  constexpr int lkb = S8 ? 7 : 6;  // log2 of a body chunk's input columns
+  const int kin = s.in_pad / KC, kw = s.W >> lkb;
   const CUtensorMap* map = nullptr;
-  int col = 0, layer = 0, rows = s.W;
+  int col = 0, layer = 0, rows = s.W;  // col: the box's first input column
   if (q < kin) {
     map = &m.pts0;
-    col = q;
+    col = q * KC;
   } else {
     q -= kin;
     for (int i = 1; i < s.depth && map == nullptr; ++i) {
       if (q < kw) {
         map = &m.body;
-        col = q;
+        col = q << lkb;
         layer = i - 1;
       } else {
         q -= kw;
         if (i == m.skip + 1) {
           if (q < kin) {
             map = &m.skip_x;
-            col = q;
+            col = q * KC;
           } else {
             q -= kin;
           }
@@ -399,29 +445,31 @@ __device__ __forceinline__ void load_chunk(const Model& m, const Shape& s, int q
     if (map == nullptr) {
       if (q < kw) {
         map = &m.feat;
-        col = q;
+        col = q << lkb;
       } else {
         map = &m.views_h;
-        col = q - kw;
+        col = (q - kw) * KC;
         rows = s.W / 2;
       }
     }
   }
-  mbar_arrive_expect_tx(bar, rows * KC * 2);
-  tma_box(dst, map, col * KC, 0, layer, bar);
+  mbar_arrive_expect_tx(bar, rows * 128);
+  tma_box(dst, map, col, 0, layer, bar);
 }
 
 // Loads chunk n of the stream into its stage (nothing past the end).
-__device__ __forceinline__ void load(const Stream& st, const Smem& sm, int n) {
+template <bool S8>
+__device__ __forceinline__ void load(const Stream<S8>& st, const Smem& sm, int n) {
   if (n >= st.total) return;
   const int tile = n / st.cpt, stg = n % sm.ns;
-  load_chunk(tile % st.period < st.split ? *st.m0 : *st.m1, st.s, n - tile * st.cpt,
+  load_chunk<S8>(tile % st.period < st.split ? *st.m0 : *st.m1, st.s, n - tile * st.cpt,
              sm.ring + (size_t)stg * st.s.W * KC, &sm.full[stg]);
 }
 
 // The barriers and the first ns chunks, by thread 0; ends with a block
 // barrier.
-__device__ __forceinline__ void ring_start(const Stream& st, const Smem& sm) {
+template <bool S8>
+__device__ __forceinline__ void ring_start(const Stream<S8>& st, const Smem& sm) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < sm.ns; ++s) {
       mbar_init(&sm.full[s], 1);  // the loading thread's arrival, plus the bytes
@@ -435,7 +483,8 @@ __device__ __forceinline__ void ring_start(const Stream& st, const Smem& sm) {
 
 // This warpgroup has read chunk c (stage stg). The second warpgroup to
 // release a stage in its round loads the chunk ns ahead into it.
-__device__ __forceinline__ void release(const Stream& st, const Smem& sm, int c, int stg) {
+template <bool S8>
+__device__ __forceinline__ void release(const Stream<S8>& st, const Smem& sm, int c, int stg) {
   if (threadIdx.x % 128 == 0) {
     cuda::atomic_ref<unsigned, cuda::thread_scope_block> freed(sm.freed[stg]);
     if (freed.fetch_add(1u, cuda::memory_order_acq_rel) & 1u) load(st, sm, c + sm.ns);
@@ -467,22 +516,26 @@ __device__ __forceinline__ void ring_wait(uint64_t* bar, unsigned parity, bool& 
 
 // acc (+)= A[64, 64 nk] @ (the stream's next nk chunks)^T, A in swizzled
 // panels of shared memory; the sums start from acc with `carry`, else from
-// zero.
-template <int N>
+// zero. The products take the chunks' rows row0 .. row0 + N - 1 (output
+// columns); keep leaves the chunks in the ring and the cursor before them,
+// for products of their other rows.
+template <int N, bool S8>
 __device__ __forceinline__ void products(float (&acc)[N / 2], const __nv_bfloat16* A, int nk,
-                                         bool carry, const Stream& st, const Smem& sm,
-                                         Cursor& k, bool& lost) {
+                                         bool carry, const Stream<S8>& st, const Smem& sm,
+                                         Cursor& k, bool& lost, int row0 = 0,
+                                         bool keep = false) {
+  const Cursor k0 = k;
   int prev_c = 0, prev_s = 0;
   for (int kc = 0; kc < nk; ++kc) {
     ring_wait(&sm.full[k.s], k.ph, lost);
     const uint64_t da = wg::desc(A + kc * PANEL);
-    const uint64_t db = wg::desc(sm.ring + (size_t)k.s * st.s.W * KC);
+    const uint64_t db = wg::desc(sm.ring + (size_t)k.s * st.s.W * KC + row0 * KC);
     wg::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < KC / 16; ++j)
       wg::Wgmma<N>::run(acc, da + 2 * j, db + 2 * j, carry || kc + j > 0);
     wg::wgmma_commit();
-    if (kc > 0) {
+    if (kc > 0 && !keep) {
       wg::wgmma_wait<1>();  // the chunk before this one has been read
       release(st, sm, prev_c, prev_s);
     }
@@ -495,7 +548,57 @@ __device__ __forceinline__ void products(float (&acc)[N / 2], const __nv_bfloat1
     }
   }
   wg::wgmma_wait<0>();
-  release(st, sm, prev_c, prev_s);
+  if (keep)
+    k = k0;
+  else
+    release(st, sm, prev_c, prev_s);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) wg::fence_reg(acc[i]);
+}
+
+// acc = A[64, 128 nk] @ (the stream's next nk int8 chunks)^T, s8 x s8 -> s32,
+// A in swizzled [64, 128] int8 panels of shared memory: products' ring walk
+// with 4 k32 steps of 32 bytes a chunk, row0 and keep as products' (no
+// release then, and the cursor back before the chunks). The first step
+// writes acc without reading it (WgmmaS8::first), so that no earlier sums
+// stay live into it.
+template <int N>
+__device__ __forceinline__ void products_s8(int (&acc)[N / 2], const int8_t* A, int nk,
+                                            const Stream<true>& st, const Smem& sm, Cursor& k,
+                                            bool& lost, int row0 = 0, bool keep = false) {
+  const Cursor k0 = k;
+  int prev_c = 0, prev_s = 0;
+  auto chunk = [&](int kc, bool first) {
+    ring_wait(&sm.full[k.s], k.ph, lost);
+    const uint64_t da = wg::desc(A + kc * PANEL8);
+    const uint64_t db = wg::desc(sm.ring + (size_t)k.s * st.s.W * KC + row0 * KC);
+    wg::wgmma_fence();
+    if (first)
+      wg::WgmmaS8<N>::first(acc, da, db);
+    else
+      wg::WgmmaS8<N>::run(acc, da, db, 1);
+#pragma unroll
+    for (int j = 1; j < KC8 / 32; ++j) wg::WgmmaS8<N>::run(acc, da + 2 * j, db + 2 * j, 1);
+    wg::wgmma_commit();
+    if (kc > 0 && !keep) {
+      wg::wgmma_wait<1>();  // the chunk before this one has been read
+      release(st, sm, prev_c, prev_s);
+    }
+    prev_c = k.c;
+    prev_s = k.s;
+    ++k.c;
+    if (++k.s == sm.ns) {
+      k.s = 0;
+      k.ph ^= 1u;
+    }
+  };
+  chunk(0, true);
+  for (int kc = 1; kc < nk; ++kc) chunk(kc, false);
+  wg::wgmma_wait<0>();
+  if (keep)
+    k = k0;
+  else
+    release(st, sm, prev_c, prev_s);
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) wg::fence_reg(acc[i]);
 }
@@ -546,29 +649,13 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v;
 }
 
-// The field over one tile, by both warpgroups, each over its own 64 rows.
-// src (this warpgroup's rows) gives: rows, the rows that hold points;
-// pt(row, c), coordinate c of the point of row < rows; hv(row), the f32
-// view row [W / 2] of the row's ray (for rows past `rows`, any view row of
-// the caller's); out(row, c, v), raw channel c (rgb, then sigma) of row <
-// rows. The
-// caller orders its writes of what hv reads before this call's epilogues
-// (a warpgroup or block barrier), and after the reads of the last call.
-template <int W, class Src>
-__device__ __forceinline__ void field_tile(const Model& m, const Stream& st, const Smem& sm,
-                                           Cursor& k, Src& src) {
-  constexpr int HALF = W / 2;
-  const Shape& s = st.s;
-  const int tw = threadIdx.x % 128, wgi = threadIdx.x / 128, lane = threadIdx.x % 32;
-  const int t = lane % 4, r0 = 16 * (tw / 32) + lane / 4;
-  const int kin = s.in_pad / KC, rows = src.rows, vw = vec_words(W);
-  const float* consts = reinterpret_cast<const float*>(sm.consts);
-  const float* heads = consts + (s.depth + 1) * vw;  // alpha_w, views_b, rgb_w
-  __nv_bfloat16* act = sm.act + (size_t)wgi * ROWS * W;
-  __nv_bfloat16* x = sm.x + (size_t)wgi * ROWS * s.in_pad;
-  float* pts = sm.pts + wgi * ROWS * 3;
-
-  // ---- the embed of this warpgroup's rows (zeros past rows and in_ch)
+// The embed of this warpgroup's rows into its panels x (zeros past src.rows
+// and in_ch) by its 128 threads, ending with the warpgroup barrier that
+// orders it before the products; pts: the warpgroup's [64][3] points.
+template <class Src>
+__device__ __forceinline__ void embed_rows(const Shape& s, Src& src, __nv_bfloat16* x,
+                                           float* pts, int wgi) {
+  const int tw = threadIdx.x % 128, kin = s.in_pad / KC, rows = src.rows;
   if (tw < ROWS)
     for (int c = 0; c < 3; ++c) pts[tw * 3 + c] = tw < rows ? src.pt(tw, c) : 0.0f;
   bar_wg(wgi);
@@ -589,35 +676,26 @@ __device__ __forceinline__ void field_tile(const Model& m, const Stream& st, con
   }
   fence_proxy_async();
   bar_wg(wgi);
+}
 
-  // ---- layer 0, the body (the skip's embed rows into the same sums), the
-  // alpha head from the last body layer's epilogue
-  float acc[W / 2];
-  float ap[2] = {0.0f, 0.0f};
-  bool lost = false;
-  products<W>(acc, x, kin, false, st, sm, k, lost);
-  epilogue<W, true, false>(acc, consts, heads, act, wgi, ap);
-  for (int i = 1; i < s.depth; ++i) {
-    products<W>(acc, act, W / KC, false, st, sm, k, lost);
-    if (i == m.skip + 1) products<W>(acc, x, kin, true, st, sm, k, lost);
-    if (i == s.depth - 1)
-      epilogue<W, true, true>(acc, consts + i * vw, heads, act, wgi, ap);
-    else
-      epilogue<W, true, false>(acc, consts + i * vw, heads, act, wgi, ap);
-  }
-  const float alpha[2] = {quad_sum(ap[0]), quad_sum(ap[1])};
-
-  // ---- the feature head: bf16(acc + b), no relu
-  products<W>(acc, act, W / KC, false, st, sm, k, lost);
-  epilogue<W, false, false>(acc, consts + s.depth * vw, heads, act, wgi, ap);
-
-  // ---- the view layer, then the rgb head; raw out by the quad (lane t of
-  // a row's quad stores channel t)
+// The view layer over this warpgroup's rows (A its bf16 feature panels act),
+// then the rgb head; raw out by the quad (lane t of a row's quad stores
+// channel t, alpha[hf] the sigma of row r0 + 8 hf). heads: alpha_w, then
+// views_b and rgb_w's rows (load_consts). Traps on a lost copy of the
+// tile's stream.
+template <int W, class Src, bool S8>
+__device__ __forceinline__ void view_head(const Model& m, const Stream<S8>& st, const Smem& sm,
+                                          Cursor& k, Src& src, const __nv_bfloat16* act,
+                                          const float* heads, const float (&alpha)[2],
+                                          bool& lost) {
+  constexpr int HALF = W / 2;
+  const int tw = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int t = lane % 4, r0 = 16 * (tw / 32) + lane / 4, rows = src.rows;
   float accv[HALF / 2];
   products<HALF>(accv, act, W / KC, false, st, sm, k, lost);
   if (lost) __trap();  // a lost copy fails the launch instead of hanging the card
   const float* hvr[2] = {src.hv(r0), src.hv(r0 + 8)};
-  const float* views_b = heads + vw;
+  const float* views_b = heads + vec_words(W);
   float rp[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
 #pragma unroll
   for (int mc = 0; mc < (HALF < KC ? HALF / 8 : 8); ++mc) {
@@ -652,6 +730,51 @@ __device__ __forceinline__ void field_tile(const Model& m, const Stream& st, con
   }
 }
 
+// The field over one tile, by both warpgroups, each over its own 64 rows.
+// src (this warpgroup's rows) gives: rows, the rows that hold points;
+// pt(row, c), coordinate c of the point of row < rows; hv(row), the f32
+// view row [W / 2] of the row's ray (for rows past `rows`, any view row of
+// the caller's); out(row, c, v), raw channel c (rgb, then sigma) of row <
+// rows. The
+// caller orders its writes of what hv reads before this call's epilogues
+// (a warpgroup or block barrier), and after the reads of the last call.
+template <int W, class Src>
+__device__ __forceinline__ void field_tile(const Model& m, const Stream<>& st, const Smem& sm,
+                                           Cursor& k, Src& src) {
+  const Shape& s = st.s;
+  const int wgi = threadIdx.x / 128;
+  const int kin = s.in_pad / KC, vw = vec_words(W);
+  const float* consts = reinterpret_cast<const float*>(sm.consts);
+  const float* heads = consts + (s.depth + 1) * vw;  // alpha_w, views_b, rgb_w
+  __nv_bfloat16* act = sm.act + (size_t)wgi * ROWS * W;
+  __nv_bfloat16* x = sm.x + (size_t)wgi * ROWS * s.in_pad;
+  embed_rows(s, src, x, sm.pts + wgi * ROWS * 3, wgi);
+
+  // ---- layer 0, the body (the skip's embed rows into the same sums), the
+  // alpha head from the last body layer's epilogue
+  float acc[W / 2];
+  float ap[2] = {0.0f, 0.0f};
+  bool lost = false;
+  products<W>(acc, x, kin, false, st, sm, k, lost);
+  epilogue<W, true, false>(acc, consts, heads, act, wgi, ap);
+  for (int i = 1; i < s.depth; ++i) {
+    products<W>(acc, act, W / KC, false, st, sm, k, lost);
+    if (i == m.skip + 1) products<W>(acc, x, kin, true, st, sm, k, lost);
+    if (i == s.depth - 1)
+      epilogue<W, true, true>(acc, consts + i * vw, heads, act, wgi, ap);
+    else
+      epilogue<W, true, false>(acc, consts + i * vw, heads, act, wgi, ap);
+  }
+  const float alpha[2] = {quad_sum(ap[0]), quad_sum(ap[1])};
+
+  // ---- the feature head: bf16(acc + b), no relu
+  products<W>(acc, act, W / KC, false, st, sm, k, lost);
+  epilogue<W, false, false>(acc, consts + s.depth * vw, heads, act, wgi, ap);
+
+  // ---- the view layer, then the rgb head
+  view_head<W>(m, st, sm, k, src, act, heads, alpha, lost);
+}
+
 // hvd[ri] = bf16(dirs_emb) @ views_d_w^T for nr rays, by `nthreads` threads
 // numbered `tid`; dir(ri) points at ray ri's ev embedded direction values.
 template <class Dir>
@@ -670,9 +793,81 @@ __device__ __forceinline__ void view_rows(float* hvd, int nr, int half, int ev,
   }
 }
 
+// Rays that 64 consecutive points can touch at S samples a ray.
+__host__ __device__ inline int rays_per_rows(int S) {
+  const int r = (ROWS - 1) / S + 2;
+  return r < ROWS ? r : ROWS;
+}
+
+// One warpgroup's rows of a tile of a field-eval kernel (nerf_forward.cu,
+// nerf_int8.cu): points p0 .. p0 + rows - 1, their view rows from ray r0
+// on. A, the kernel's arguments: point q's coordinate c at pts[q * s_pt + c
+// * s_c], raw channel c at out[q * o_pt + c * o_c], S samples a ray, the
+// Shape s.
+template <class A>
+struct Rows {
+  const A* p;
+  long long p0, r0;
+  int rows;
+  const float* hvd;
+  __device__ float pt(int row, int c) const { return p->pts[(p0 + row) * p->s_pt + c * p->s_c]; }
+  __device__ const float* hv(int row) const {
+    if (rows <= 0) return hvd;
+    const long long q = p0 + (row < rows ? row : rows - 1);
+    return hvd + (q / p->S - r0) * (p->s.W / 2);
+  }
+  __device__ void out(int row, int c, float v) const {
+    p->out[(p0 + row) * p->o_pt + c * p->o_c] = v;
+  }
+};
+
+// The field-eval kernels' walk: persistent blocks over the tiles of the P
+// points of p (tiles blockIdx.x + i gridDim.x), one weight stream across
+// them. consts() writes the model's epilogue operands (before the ring's
+// first block barrier); for each tile, each warpgroup makes its rows' view
+// rows (dirs [N, ev], room for nr_wg rays a warpgroup), then tile(st, k,
+// src) runs the field on them. S8: the s8 shape's stream.
+template <int W, bool S8 = false, class A, class Consts, class Tile>
+__device__ __forceinline__ void point_tiles(const A& p, const Smem& sm, Consts consts,
+                                            Tile tile) {
+  const long long tiles = (p.P + TM - 1) / TM;
+  const int nt = (int)((tiles - blockIdx.x + gridDim.x - 1) / gridDim.x);  // this block's
+  Stream<S8> st;
+  st.m0 = st.m1 = &p.m;
+  st.s = p.s;
+  st.cpt = chunks_per_tile(p.s);
+  st.period = st.split = nt;
+  st.total = nt * st.cpt;
+  consts();
+  ring_start(st, sm);  // (its block barrier orders the consts' writes)
+
+  const int wgi = threadIdx.x / 128, tw = threadIdx.x % 128, half = W / 2;
+  float* hvd = sm.hvd + (size_t)wgi * p.nr_wg * half;
+  Cursor k = {0, 0, 0u};
+  for (int i = 0; i < nt; ++i) {
+    Rows<A> src;
+    src.p = &p;
+    src.p0 = (blockIdx.x + (long long)i * gridDim.x) * TM + ROWS * wgi;
+    const long long left = p.P - src.p0;
+    src.rows = left <= 0 ? 0 : left < ROWS ? (int)left : ROWS;
+    src.r0 = src.p0 / p.S;
+    src.hvd = hvd;
+    bar_wg(wgi);  // the last tile's view epilogue has read the view rows
+    if (src.rows > 0) {
+      const int nr = (int)((src.p0 + src.rows - 1) / p.S - src.r0) + 1;
+      view_rows(hvd, nr, half, p.s.ev, p.m.views_d_w, tw, 128,
+                [&](int ri) { return p.dirs + (src.r0 + ri) * p.s.ev; });
+    }
+    // (the embed's warpgroup barrier orders these writes before their reads)
+    tile(st, k, src);
+  }
+}
+
 // Host side: the shapes the tile takes, and one model's tensor maps.
 inline bool shape_ok(const Shape& s, int skip) {
-  return (s.W == 64 || s.W == 128 || s.W == 192 || s.W == 256) && s.in_pad % KC == 0 &&
+  return (s.W == 64 || s.W == 128 || s.W == 192 || s.W == 256) &&
+         s.W % (1 << body_lkc(s)) == 0 &&
+         s.in_pad % KC == 0 &&
          s.in_pad >= s.in_ch && s.in_ch >= 1 && s.ev >= 1 && s.depth >= 2 &&
          s.depth <= MAX_DEPTH && skip >= 0 && skip + 1 < s.depth;
 }
@@ -712,6 +907,21 @@ inline int resident_blocks(K kernel, size_t smem) {
           cudaSuccess)
     return 0;
   return sms * per_sm;
+}
+
+// Launches a field-eval kernel of arguments a on min(tiles, resident) blocks
+// (persistent); returns cudaGetLastError().
+template <class K, class A>
+inline int launch_tiles(K kernel, const A& a, size_t smem, cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (a.P + TM - 1) / TM;
+  const int resident = resident_blocks(kernel, smem);
+  if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
+  const unsigned grid = (unsigned)(tiles < resident ? tiles : resident);
+  kernel<<<grid, NTHREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace nw

@@ -1,7 +1,9 @@
-// Tensor-core building blocks shared by the R2L kernels (r2l_forward.cu,
-// r2l_train.cu): mma.sync m16n8k16 bf16 products with f32 accumulators,
-// operands fetched with ldmatrix from padded (bank-conflict-free) shared
-// rows, and weights streamed from L2 through a cp.async ring.
+// Tensor-core building blocks of the R2L training backward's two passes
+// (r2l_train.cu's r2l_train_bwd_kernel, r2l_wgrad.cu): mma.sync m16n8k16 bf16
+// products with f32 accumulators, operands fetched with ldmatrix from padded
+// (bank-conflict-free) shared rows, and weights streamed from L2 through a
+// cp.async ring. The forward kernels, bf16 and int8, run the wgmma tiles
+// (r2l_wgmma.cuh, nerf_wgmma.cuh).
 //
 // Every kernel runs 8 warps on a tile of TB = 64 rays. For a [TB, N] output,
 // warp w owns columns [32 w, 32 w + 32) of all TB rows: a Frag holds them,

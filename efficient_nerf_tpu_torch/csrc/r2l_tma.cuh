@@ -1,11 +1,11 @@
 // mbarriers, TMA copies and tensor maps, shared by the kernels that stream
 // tiles with the Tensor Memory Accelerator: the weight-gradient pass
-// (r2l_wgrad.cu) and the wgmma forward tile (r2l_wgmma.cuh).
+// (r2l_wgrad.cu) and the wgmma tiles (r2l_wgmma.cuh, nerf_wgmma.cuh).
 //
 // Device side: mbarrier init / arrive / expect_tx / wait (with a trap on a
 // lost arrival), 3-D TMA loads and stores. Host side: cuTensorMapEncodeTiled,
 // looked up through the CUDA runtime's entry-point query (the libraries
-// link no libcuda), and a 3-D bf16 map with the 128-byte swizzle.
+// link no libcuda), and a 3-D bf16 or int8 map with the 128-byte swizzle.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
@@ -118,20 +118,21 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A [layers][rows][cols] bf16 array with the given strides in bytes, read
-// and written as 64-column x box_rows x 1 boxes with the 128-byte swizzle;
-// a box reads zeros, and writes nothing, outside the array.
+// A [layers][rows][cols] array of bf16 (elem_bytes 2) or int8 (elem_bytes 1)
+// with the given strides in bytes, read and written as boxes of 128 bytes of
+// a row (64 bf16 or 128 int8 columns) x box_rows x 1 with the 128-byte
+// swizzle; a box reads zeros, and writes nothing, outside the array.
 inline bool encode(EncodeTiled fn, CUtensorMap* m, const void* base, long long cols,
                    long long rows, long long layers, long long row_bytes,
-                   long long layer_bytes, unsigned box_rows) {
+                   long long layer_bytes, unsigned box_rows, int elem_bytes = 2) {
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)layers};
   const cuuint64_t strides[2] = {(cuuint64_t)row_bytes, (cuuint64_t)layer_bytes};
-  const cuuint32_t box[3] = {64, box_rows, 1};
+  const cuuint32_t box[3] = {128u / (unsigned)elem_bytes, box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  return fn(m, elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace enerf

@@ -1,7 +1,8 @@
-// The R2L forward tile on Hopper's asynchronous machinery: one header, two
-// kernels. The serving forward (r2l_forward.cu, rays in, rgb out) and the
+// The R2L forward tile on Hopper's asynchronous machinery: one header, three
+// kernels. The serving forward (r2l_forward.cu, rays in, rgb out), the
 // training forward (r2l_train.cu, points or rows in, rgb and the 44 bf16
-// block inputs hs out) both run
+// block inputs hs out) and the W8A8 serving forward (r2l_int8.cu, its body
+// on s8 wgmma: the template's Q) all run
 //
 //   embed -> head (in_pad -> W, relu) -> n_block x (lin, relu, lin,
 //   * res_scale, + h) -> optional global residual (+ h0) -> tail + sigmoid
@@ -47,6 +48,18 @@
 //     stage is then freed only when the warps of both have read it, and
 //     three stages cannot hide that coupling across SMs: measured slower
 //     (PERF.md).
+//   * int8 (Q > 0): the body's two products a block are s8 wgmma (m64nNTk32,
+//     wgmma_s8.cuh) on int8 A panels q(h) and q(g), [64, 128] each with the
+//     128-byte swizzle, and the ring carries [Wp, 128] int8 chunks of the
+//     body after the head's bf16 chunks (32 KB a stage at W256 either way).
+//     The epilogues dequantize from s32 (int8_epilogue.cuh) and write the
+//     next layer's levels; the residual stream h stays in f32 registers, and
+//     a = bf16(h) is made once, for the tail. Each layer's f32 weight scales
+//     and biases are prefetched by cp.async into shared memory during the
+//     layer before (2 slots), so no epilogue waits on device memory. Dynamic
+//     scales take each row's max over all W columns, which the two
+//     warpgroups split: a quad shuffle, then the two warpgroups' maxima
+//     through shared memory across a block barrier.
 //   * hs (training): after the head and each odd layer, the a tile *is*
 //     bf16(h) = hs[blk]; one thread stores it with TMA (one box a 64-column
 //     panel; rows past B are not written) and waits for the store to have
@@ -67,8 +80,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_epilogue.cuh"
 #include "r2l_tma.cuh"
 #include "trig.cuh"
+#include "wgmma_s8.cuh"
 
 namespace enerf {
 namespace wg {
@@ -78,6 +93,8 @@ constexpr int NTHREADS = 256;           // two warpgroups
 constexpr int KC = 64;                  // contraction columns of a chunk (128 bytes)
 constexpr int S = 3;                    // ring stages
 constexpr int PANEL = TB * KC;          // bf16 of one swizzled [64, 64] panel (8 KB)
+constexpr int KC8 = 128;                // contraction columns of an int8 chunk (128 bytes)
+constexpr int PANEL8 = TB * KC8;        // bytes of one swizzled [64, 128] int8 panel (8 KB)
 constexpr int MAX_SMEM = 232448;        // 227 KB, the opt-in limit of sm_90
 
 // Tensor maps: the weights as [layer][out][in] (head: one layer), read in
@@ -93,6 +110,8 @@ struct Maps {
 struct Net {
   const float* head_b;             // [W]
   const float* body_b;             // [n_block, 2, W]
+  const float* body_sw;            // int8: [n_block, 2, W] per-output-row weight scales
+  const float* act_scales;         // int8: [n_block, 2] static scales, or null (dynamic)
   const __nv_bfloat16* tail_w;     // [out_dim, W]
   const float* tail_b;             // [out_dim]
   float* out;                      // [B, out_dim]
@@ -107,6 +126,8 @@ inline Net make_net(const float* head_b, const float* body_b, const void* tail_w
   Net n;
   n.head_b = head_b;
   n.body_b = body_b;
+  n.body_sw = nullptr;
+  n.act_scales = nullptr;
   n.tail_w = static_cast<const __nv_bfloat16*>(tail_w);
   n.tail_b = tail_b;
   n.out = out;
@@ -122,19 +143,26 @@ inline Net make_net(const float* head_b, const float* body_b, const void* tail_w
   return n;
 }
 
+// (int8: a and a2 hold q(h) and q(g), and a overlays both for the tail;
+// c8 holds the prefetched scales and biases, rmax the dynamic row maxima)
 struct Layout {
-  size_t ring, a, a2, h0, emb, bars, total;
+  size_t ring, a, a2, h0, c8, rmax, emb, bars, total;
   int emb_cols;                    // embed columns a part of the head: all in_pad if they fit
 };
 
 __host__ __device__ inline int round_up64(int x) { return (x + 63) / 64 * 64; }
+__host__ __device__ inline size_t max_sz(size_t x, size_t y) { return x > y ? x : y; }
 
 // Byte offsets from a 1024-aligned base; `total` includes the slack that
 // aligns the dynamic shared memory to 1024 (the swizzle's period). The
 // embed takes what the ring and the barriers leave, at most in_pad columns.
-__host__ __device__ inline Layout layout(int in_pad, int Wp, bool h0) {
+// s8: the int8 body's regions.
+__host__ __device__ inline Layout layout(int in_pad, int Wp, bool h0, bool s8 = false) {
   const size_t stage = (size_t)Wp * KC * 2, act = (size_t)TB * Wp * 2;
-  const size_t acts = 2 * act + (h0 ? (size_t)TB * Wp * 4 : 0);
+  const size_t q8 = (size_t)(Wp + KC8 - 1) / KC8 * PANEL8;
+  const size_t a_a2 = s8 ? max_sz(2 * q8, act) : 2 * act, hb = h0 ? (size_t)TB * Wp * 4 : 0;
+  const size_t c8 = s8 ? (size_t)2 * 2 * Wp * 4 : 0, rmax = s8 ? (size_t)2 * 2 * TB * 4 : 0;
+  const size_t acts = a_a2 + hb + c8 + rmax;
   const size_t bars = 2 * S * sizeof(uint64_t), slack = 1024, panel = (size_t)PANEL * 2;
   const size_t room = MAX_SMEM - S * stage - bars - slack;
   size_t panels = (size_t)in_pad / KC;
@@ -143,8 +171,10 @@ __host__ __device__ inline Layout layout(int in_pad, int Wp, bool h0) {
   Layout l;
   l.ring = 0;
   l.a = S * stage;
-  l.a2 = l.a + act;
-  l.h0 = l.a2 + act;
+  l.a2 = l.a + (s8 ? q8 : act);
+  l.h0 = l.a + a_a2;
+  l.c8 = l.h0 + hb;
+  l.rmax = l.c8 + c8;
   l.emb = l.a;
   l.emb_cols = (int)panels * KC;
   l.bars = l.a + (acts > emb ? acts : emb);
@@ -159,9 +189,15 @@ __device__ __forceinline__ int swz(int r, int c) {
   return (c >> 6) * PANEL + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
 }
 
+// Byte offset of (row r, column c) in a [64, *] int8 tile stored as [64,
+// 128] panels of 128-byte rows in the same swizzle.
+__device__ __forceinline__ int swz8(int r, int c) {
+  return (c >> 7) * PANEL8 + r * 128 + ((((c >> 4) & 7) ^ (r & 7)) << 4) + (c & 15);
+}
+
 // wgmma shared-memory descriptor of a K-major operand in the 128-byte
 // swizzle: 8-row groups 1024 bytes apart. Adding k / 8 steps the start
-// k bf16 columns along a 128-byte row.
+// k bf16 columns (2 k int8) along a 128-byte row.
 __device__ __forceinline__ uint64_t desc(const void* p) {
   const uint64_t a = tma_smem_addr(p);
   return ((a >> 4) & 0x3FFF) | (1ull << 16) | (64ull << 32) | (1ull << 62);
@@ -182,6 +218,15 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keeps the compiler from reading or writing r across the wgmma calls.
 __device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_reg(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// 16 bytes from global src to shared dst by cp.async, of which the first
+// `bytes` (16 or 0) are read and the rest zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(tma_smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
 
 __device__ __forceinline__ void st_bf16x2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
@@ -304,19 +349,26 @@ __device__ __forceinline__ void embed_point(float pt, int m, int K, int L, Store
   store(2 * L * K + m, pt);
 }
 
+// The body's types (forward_tile's Q): bf16, or int8 with static or with
+// per-row dynamic activation scales.
+enum { Q_BF16 = 0, Q_STATIC = 1, Q_DYNAMIC = 2 };
+
 // The forward of rays ray0 .. ray0 + 63 (blockIdx.x's tile) by the block's
 // NTHREADS threads; point(ray, m) is coordinate m of ray's network input
 // (ray < B), which the tile embeds. HS stores hs through maps.hs; PARTS
-// runs the head in parts (layout's emb_cols < in_pad). Called by a kernel of
-// NTHREADS threads with `smem` its dynamic shared memory of layout(in_pad,
-// 2 NT, global_residual).total bytes.
-template <int NT, bool HS, bool PARTS, class Point>
+// runs the head in parts (layout's emb_cols < in_pad); Q the body's type
+// (int8: maps.body over body_qw, p.body_sw and p.act_scales). Called by a
+// kernel of NTHREADS threads with `smem` its dynamic shared memory of
+// layout(in_pad, 2 NT, global_residual, Q != Q_BF16).total bytes.
+template <int NT, bool HS, bool PARTS, int Q = Q_BF16, class Point>
 __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
                                              unsigned char* smem_raw, Point point) {
   constexpr int WP = 2 * NT, NCH = WP / KC, NA = NT / 2;
+  constexpr bool S8 = Q != Q_BF16;
+  constexpr int KB = S8 ? KC8 : KC, NB = (WP + KB - 1) / KB;  // a body layer's chunks
   unsigned char* smem = smem_raw + ((1024 - (tma_smem_addr(smem_raw) & 1023)) & 1023);
   const bool gr = p.global_residual != 0;
-  const Layout lay = layout(p.in_pad, WP, gr);
+  const Layout lay = layout(p.in_pad, WP, gr, S8);
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + lay.ring);
   __nv_bfloat16* a = reinterpret_cast<__nv_bfloat16*>(smem + lay.a);
   __nv_bfloat16* a2 = reinterpret_cast<__nv_bfloat16*>(smem + lay.a2);
@@ -337,18 +389,18 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
   __syncthreads();  // the barriers exist before any copy or arrival
 
   // ---- the loads: thread 0 streams every chunk of the head and the body,
-  // S chunks ahead of the products
-  const int total = head_chunks + 2 * nb * NCH;
+  // S chunks ahead of the products; a box is 128 bytes of each of Wp rows
+  const int total = head_chunks + 2 * nb * NB;
   auto issue = [&](int n) {
     if (n >= total) return;
     const int s = n % S;
     mbar_wait(&empty[s], ((n / S) & 1) ^ 1);
     const bool head = n < head_chunks;
-    const int k = head ? n : (n - head_chunks) % NCH;
-    const int layer = head ? 0 : (n - head_chunks) / NCH;
+    const int k = head ? n : (n - head_chunks) % NB;
+    const int layer = head ? 0 : (n - head_chunks) / NB;
     const CUtensorMap* map = head ? &maps.head : &maps.body;
-    mbar_arrive_expect_tx(&full[s], WP * KC * 2);
-    tma_box(ring + (size_t)s * WP * KC, map, k * KC, 0, layer, &full[s]);
+    mbar_arrive_expect_tx(&full[s], WP * 128);
+    tma_box(ring + (size_t)s * WP * KC, map, k * (head ? KC : KB), 0, layer, &full[s]);
   };
   if (tid == 0)
     for (int n = 0; n < S; ++n) issue(n);
@@ -466,59 +518,247 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
       const int i = 4 * j + 2 * hf, row = wr + g + 8 * hf;
       h[i] = fmaxf(acc[i] + b.x, 0.0f);
       h[i + 1] = fmaxf(acc[i + 1] + b.y, 0.0f);
-      st_bf16x2(a + swz(row, col), h[i], h[i + 1]);
+      if (!S8) st_bf16x2(a + swz(row, col), h[i], h[i + 1]);
       if (gr) {
         h0[i * NTHREADS + tid] = h[i];
         h0[(i + 1) * NTHREADS + tid] = h[i + 1];
       }
     }
   }
-  end_layer();
-  store_hs(0);
-
-  // ---- residual blocks, 2 n_block layers:
-  //   even l: a2 = bf16(relu(a @ w1 + b1))
-  //   odd l:  h = (a2 @ w2 + b2) * res_scale + h;  a = bf16(h) = hs[(l + 1) / 2]
   const float rs = p.res_scale;
-  for (int l = 0; l < 2 * nb; ++l) {
-    const bool odd = l & 1;
-    load_bias(p.body_b + (size_t)l * W);
-    products(odd ? a2 : a, NCH, false);
+  if constexpr (!S8) {
+    end_layer();
+    store_hs(0);
+
+    // ---- residual blocks, 2 n_block layers:
+    //   even l: a2 = bf16(relu(a @ w1 + b1))
+    //   odd l:  h = (a2 @ w2 + b2) * res_scale + h;  a = bf16(h) = hs[(l + 1) / 2]
+    for (int l = 0; l < 2 * nb; ++l) {
+      const bool odd = l & 1;
+      load_bias(p.body_b + (size_t)l * W);
+      products(odd ? a2 : a, NCH, false);
 #pragma unroll
-    for (int j = 0; j < NT / 8; ++j) {
-      const int col = col0 + 8 * j;
-      const float2 b = bias[j];
+      for (int j = 0; j < NT / 8; ++j) {
+        const int col = col0 + 8 * j;
+        const float2 b = bias[j];
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int i = 4 * j + 2 * hf, row = wr + g + 8 * hf;
-        const float v0 = acc[i] + b.x, v1 = acc[i + 1] + b.y;
-        if (!odd) {
-          st_bf16x2(a2 + swz(row, col), fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
-        } else {
-          // rounded as the plain version rounds it (no FMA)
-          h[i] = __fadd_rn(__fmul_rn(v0, rs), h[i]);
-          h[i + 1] = __fadd_rn(__fmul_rn(v1, rs), h[i + 1]);
-          st_bf16x2(a + swz(row, col), h[i], h[i + 1]);
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 4 * j + 2 * hf, row = wr + g + 8 * hf;
+          const float v0 = acc[i] + b.x, v1 = acc[i + 1] + b.y;
+          if (!odd) {
+            st_bf16x2(a2 + swz(row, col), fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+          } else {
+            // rounded as the plain version rounds it (no FMA)
+            h[i] = __fadd_rn(__fmul_rn(v0, rs), h[i]);
+            h[i + 1] = __fadd_rn(__fmul_rn(v1, rs), h[i + 1]);
+            st_bf16x2(a + swz(row, col), h[i], h[i + 1]);
+          }
         }
       }
+      end_layer();
+      const int blk = (l + 1) / 2;  // the block h now enters
+      if (odd && (blk < nb || !gr)) store_hs(blk);
     }
-    end_layer();
-    const int blk = (l + 1) / 2;  // the block h now enters
-    if (odd && (blk < nb || !gr)) store_hs(blk);
-  }
 
-  // ---- optional global residual (+ h0): the tail's input, hs[nb]
-  if (gr) {
+    // ---- optional global residual (+ h0): the tail's input, hs[nb]
+    if (gr) {
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 4 * j + 2 * hf, row = wr + g + 8 * hf, col = col0 + 8 * j;
+          st_bf16x2(a + swz(row, col), h[i] + h0[i * NTHREADS + tid],
+                    h[i + 1] + h0[(i + 1) * NTHREADS + tid]);
+        }
+      end_layer();
+      store_hs(nb);
+    }
+  } else {
+    // ---- the int8 body (r2l_int8.cu's header has its math): per block b,
+    //   even l = 2 b: qg = q(g), g from acc(qh @ q0) (static: folded with
+    //                 the next scale; dynamic: relu, then the row's sg)
+    //   odd l:        h = g * res_scale + h, g from acc(qg @ q1); qh = q(h)
+    unsigned char* qh = reinterpret_cast<unsigned char*>(a);
+    unsigned char* qg = reinterpret_cast<unsigned char*>(a2);
+    float* c8 = reinterpret_cast<float*>(smem + lay.c8);      // [2 slots][sw, b][WP]
+    float* rmax = reinterpret_cast<float*>(smem + lay.rmax);  // [h, g][warpgroup][row]
+    const float* act = p.act_scales;
+    int acc8[NA];
+    float sh[2] = {0.0f, 0.0f}, sg[2] = {0.0f, 0.0f};  // dynamic: the rows' scales
+
+    // layer l's weight scales and biases into slot l % 2 by cp.async (zeros
+    // past W); the end of the layer before waits for them
+    auto prefetch = [&](int l) {
+      if (l < 2 * nb && tid < WP / 2) {
+        const int v = tid / (WP / 4), col = 4 * (tid % (WP / 4));
+        const float* src = (v ? p.body_b : p.body_sw) + (size_t)l * W;
+        cp_async16(c8 + ((l & 1) * 2 + v) * WP + col, col < W ? src + col : src,
+                   col < W ? 16 : 0);
+      }
+    };
+    auto end_layer8 = [&]() {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      end_layer();
+    };
+    // acc8 = X[64, 128 NB] @ (the next NB int8 chunks)^T, X in int8 panels
+    auto products8 = [&](const unsigned char* X) {
+      for (int kc = 0; kc < NB; ++kc, ++c) {
+        mbar_wait(&full[c % S], (c / S) & 1);
+        const uint64_t da = desc(X + kc * PANEL8);
+        const uint64_t db = desc(ring + (size_t)(c % S) * WP * KC + wgi * NT * KC);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < KC8 / 32; ++k)
+          WgmmaS8<NT>::run(acc8, da + 2 * k, db + 2 * k, kc + k > 0);
+        wgmma_commit();
+        if (kc > 0) {
+          wgmma_wait<1>();  // the chunk before has been read
+          release(c - 1);
+        }
+      }
+      wgmma_wait<0>();
+      release(c - 1);
+#pragma unroll
+      for (int i = 0; i < NA; ++i) fence_reg(acc8[i]);
+    };
+    // s[hf] = max(max |row|, 1e-12) / 127 of this thread's rows over all W
+    // columns, from m[hf], the max over its own: the quad's max, then both
+    // warpgroups' through rm across a block barrier (a max: exact in any
+    // order)
+    auto row_scales = [&](float* rm, float (&m)[2], float (&sc)[2]) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 1));
+        m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 2));
+        if (t == 0) rm[wgi * TB + wr + g + 8 * hf] = m[hf];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = wr + g + 8 * hf;
+        sc[hf] = __fdiv_rn(fmaxf(fmaxf(rm[row], rm[TB + row]), 1e-12f), 127.0f);
+      }
+    };
+    // qh = q(h * inv_s[b, 0]) (static) or q(h / sh) (dynamic), block b's input
+    auto quantize_h = [&](int b) {
+      if (Q == Q_DYNAMIC) {
+        float m[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int i = 0; i < NA; ++i) m[(i / 2) % 2] = fmaxf(m[(i / 2) % 2], fabsf(h[i]));
+        row_scales(rmax, m, sh);
+      }
+      const float inv = Q == Q_STATIC ? __frcp_rn(act[2 * b]) : 0.0f;
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 4 * j + 2 * hf, row = wr + g + 8 * hf, col = col0 + 8 * j;
+          const float x = Q == Q_STATIC ? __fmul_rn(h[i], inv) : __fdiv_rn(h[i], sh[hf]);
+          const float y = Q == Q_STATIC ? __fmul_rn(h[i + 1], inv) : __fdiv_rn(h[i + 1], sh[hf]);
+          *reinterpret_cast<unsigned short*>(qh + swz8(row, col)) =
+              pack_levels(level_bits(x), level_bits(y));
+        }
+    };
+
+    prefetch(0);  // (the embed, which c8 overlays, is dead)
+    quantize_h(0);
+    end_layer8();
+    for (int l = 0; l < 2 * nb; ++l) {
+      const int b = l / 2;
+      const float* csw = c8 + (l & 1) * 2 * WP;
+      const float* cb = csw + WP;
+      prefetch(l + 1);
+      if ((l & 1) == 0) {
+        products8(qh);
+        if (Q == Q_STATIC) {
+          // t = acc * (dqs0 * inv1) + b0 * inv1;  qg = q(relu(t))
+          const float s0 = act[2 * b], inv1 = __frcp_rn(act[2 * b + 1]);
+#pragma unroll
+          for (int j = 0; j < NT / 8; ++j) {
+            const int col = col0 + 8 * j;
+            const float2 sw = *reinterpret_cast<const float2*>(csw + col);
+            const float2 bb = *reinterpret_cast<const float2*>(cb + col);
+            const float c0x = __fmul_rn(__fmul_rn(s0, sw.x), inv1);
+            const float c0y = __fmul_rn(__fmul_rn(s0, sw.y), inv1);
+            const float c1x = __fmul_rn(bb.x, inv1), c1y = __fmul_rn(bb.y, inv1);
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int i = 4 * j + 2 * hf, row = wr + g + 8 * hf;
+              const float x = fmaxf(__fadd_rn(__fmul_rn(s32_to_f32(acc8[i]), c0x), c1x), 0.0f);
+              const float y =
+                  fmaxf(__fadd_rn(__fmul_rn(s32_to_f32(acc8[i + 1]), c0y), c1y), 0.0f);
+              *reinterpret_cast<unsigned short*>(qg + swz8(row, col)) =
+                  pack_levels(level_bits_pos(x), level_bits_pos(y));
+            }
+          }
+        } else {
+          // g = relu(acc * (sh * sw0) + b0), kept in acc8's bits for its
+          // quantization once the rows' max is known;  qg = q(g / sg)
+          float m[2] = {0.0f, 0.0f};
+#pragma unroll
+          for (int j = 0; j < NT / 8; ++j) {
+            const int col = col0 + 8 * j;
+            const float2 sw = *reinterpret_cast<const float2*>(csw + col);
+            const float2 bb = *reinterpret_cast<const float2*>(cb + col);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * j + e, hf = e / 2;
+              const float dq = __fmul_rn(sh[hf], e % 2 ? sw.y : sw.x);
+              const float gv = fmaxf(
+                  __fadd_rn(__fmul_rn(s32_to_f32(acc8[i]), dq), e % 2 ? bb.y : bb.x), 0.0f);
+              acc8[i] = __float_as_int(gv);
+              m[hf] = fmaxf(m[hf], gv);
+            }
+          }
+          row_scales(rmax + 2 * TB, m, sg);
+#pragma unroll
+          for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int i = 4 * j + 2 * hf, row = wr + g + 8 * hf, col = col0 + 8 * j;
+              *reinterpret_cast<unsigned short*>(qg + swz8(row, col)) =
+                  pack_levels(level_bits_pos(__fdiv_rn(__int_as_float(acc8[i]), sg[hf])),
+                              level_bits_pos(__fdiv_rn(__int_as_float(acc8[i + 1]), sg[hf])));
+            }
+        }
+      } else {
+        // g = acc * dq1 + b1, dq1 = s1 * sw1 (s1 = act_scales[b, 1], or the
+        // row's sg);  h = g * res_scale + h, rounded as the plain version
+        products8(qg);
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j) {
+          const int col = col0 + 8 * j;
+          const float2 sw = *reinterpret_cast<const float2*>(csw + col);
+          const float2 bb = *reinterpret_cast<const float2*>(cb + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            const float s1 = Q == Q_STATIC ? act[2 * b + 1] : sg[e / 2];
+            const float dq = __fmul_rn(s1, e % 2 ? sw.y : sw.x);
+            const float gv = __fadd_rn(__fmul_rn(s32_to_f32(acc8[i]), dq), e % 2 ? bb.y : bb.x);
+            h[i] = __fadd_rn(__fmul_rn(gv, rs), h[i]);
+          }
+        }
+        if (b + 1 < nb) quantize_h(b + 1);  // the last block's h goes to the tail
+      }
+      end_layer8();
+    }
+
+    // ---- a = bf16(h [+ h0]), the tail's input, over qh and qg (the last
+    // layer's end: every product has read them)
 #pragma unroll
     for (int j = 0; j < NT / 8; ++j)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int i = 4 * j + 2 * hf, row = wr + g + 8 * hf, col = col0 + 8 * j;
-        st_bf16x2(a + swz(row, col), h[i] + h0[i * NTHREADS + tid],
-                  h[i + 1] + h0[(i + 1) * NTHREADS + tid]);
+        float x = h[i], y = h[i + 1];
+        if (gr) {
+          x += h0[i * NTHREADS + tid];
+          y += h0[(i + 1) * NTHREADS + tid];
+        }
+        st_bf16x2(a + swz(row, col), x, y);
       }
     end_layer();
-    store_hs(nb);
   }
 
   // ---- tail and sigmoid: one warp per (ray, output), f32 sums
@@ -538,20 +778,23 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
 }
 
 // Shape checks of the tile, for the launchers.
-inline bool tile_ok(int in_pad, int W, int n_block, int out_dim, bool h0) {
+inline bool tile_ok(int in_pad, int W, int n_block, int out_dim, bool h0, bool s8 = false) {
   return W % 32 == 0 && W >= 32 && W <= 256 && in_pad % KC == 0 && in_pad > 0 &&
-         n_block >= 1 && out_dim >= 1 && layout(in_pad, round_up64(W), h0).total <= MAX_SMEM;
+         n_block >= 1 && out_dim >= 1 &&
+         layout(in_pad, round_up64(W), h0, s8).total <= MAX_SMEM;
 }
 
-// The weights' tensor maps (head_w [W, in_pad], body_w [2 n_block, W, W]
-// bf16) in boxes of 64 columns x Wp rows.
+// The weights' tensor maps (head_w [W, in_pad] bf16, body_w [2 n_block, W,
+// W] bf16, or int8 with body_bytes 1) in boxes of 128 bytes of columns x Wp
+// rows.
 inline bool weight_maps(Maps* m, const void* head_w, const void* body_w, int in_pad, int W,
-                        int n_block) {
+                        int n_block, int body_bytes = 2) {
   EncodeTiled fn = encoder();
   const unsigned rows = (unsigned)round_up64(W);
+  const long long rb = (long long)body_bytes * W;
   return fn != nullptr &&
          encode(fn, &m->head, head_w, in_pad, W, 1, 2LL * in_pad, 2LL * in_pad * W, rows) &&
-         encode(fn, &m->body, body_w, W, W, 2LL * n_block, 2LL * W, 2LL * W * W, rows);
+         encode(fn, &m->body, body_w, W, W, 2LL * n_block, rb, rb * W, rows, body_bytes);
 }
 
 // Launches K<NT>'s forward_tile kernel with NT = round_up64(W) / 2 on
@@ -559,8 +802,8 @@ inline bool weight_maps(Maps* m, const void* head_w, const void* body_w, int in_
 // embed's room; returns cudaGetLastError().
 template <template <int> class K, class Arg>
 int launch_tile(const Maps& maps, const Arg& arg, int B, int in_pad, int W, bool h0,
-                cudaStream_t stream) {
-  const Layout lay = layout(in_pad, round_up64(W), h0);
+                cudaStream_t stream, bool s8 = false) {
+  const Layout lay = layout(in_pad, round_up64(W), h0, s8);
   const size_t smem = lay.total;
   const bool parts = lay.emb_cols < in_pad;
   const unsigned grid = (unsigned)((B + TB - 1) / TB);

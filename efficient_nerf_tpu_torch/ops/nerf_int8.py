@@ -4,7 +4,8 @@ head on int8 weights and activations.
 
 Port of `efficient_nerf_tpu/ops/pallas/nerf_int8.py::nerf_forward_int8`
 (:210), the `--teacher_quant int8` serving mode of the teacher. The kernel is
-csrc/nerf_int8.cu; this module holds
+csrc/nerf_int8.cu, on the wgmma field tile of csrc/nerf_wgmma.cuh with s8
+wgmma for the body and the feature head; this module holds
 
   * `pack_nerf_weights_int8`: `pack_nerf_weights` plus the body layers 1..D-1
     (layer skip+1's hidden columns only) and the feature head as int8 in
@@ -42,13 +43,13 @@ from .r2l_int8 import _NoTF32, _quantize_rows
 __all__ = ["pack_nerf_weights_int8", "calibrate_nerf_int8", "nerf_forward_int8",
            "nerf_forward_int8_ref", "nerf_int8_ops"]
 
-INT8_ALIGN = 128  # the kernel streams int8 weights in chunks of 128 input columns
+INT8_ALIGN = 128  # the tile's int8 chunks: 128 input columns (W128 and W256)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "nerf_int8_smem_bytes": (_L, (_I, _I, _I)),
+    "nerf_int8_smem_bytes": (_L, (_I, _I, _I, _I)),
     # (pts, s_pt, s_c, dirs, pts0_w, pts0_b, body_qw, body_dqs, body_b,
     #  skip_x_w, feat_qw, feat_dqs, feat_b, invs, views_h_w, views_d_w,
     #  views_b, rgb_w, alpha_w, out_b, out, o_pt, o_c, P, S, in_ch, in_pad,
@@ -261,7 +262,7 @@ def nerf_forward_int8(packed, pts: torch.Tensor, viewdirs: torch.Tensor, L: int 
                          f"up to {MAX_WIDTH} with a view layer of W/2, depth at most "
                          f"{MAX_DEPTH}, with the shapes pack_nerf_weights_int8 gives")
     lib = load_kernels("nerf_int8", _SIGNATURES)
-    smem = lib.nerf_int8_smem_bytes(in_pad, W, S)
+    smem = lib.nerf_int8_smem_bytes(in_pad, W, depth, S)
     if smem > MAX_SMEM:
         raise ValueError(f"nerf_forward_int8: width {W}, input {in_pad}, S={S} needs {smem} B "
                          f"of shared memory per block (at most {MAX_SMEM})")

@@ -4,7 +4,8 @@
 Port of `efficient_nerf_tpu/ops/pallas/r2l_int8.py::r2l_forward_int8` (:230)
 in both of its modes: static activation scales from `calibrate_r2l_int8`
 (the served mode) and per-row dynamic scales. The kernel is
-csrc/r2l_int8.cu; this module holds
+csrc/r2l_int8.cu, on the wgmma tile of csrc/r2l_wgmma.cuh with s8 wgmma for
+the body; this module holds
 
   * `pack_r2l_weights_int8`: the bf16 head and tail of `pack_r2l_weights`
     (head columns permuted and padded for the doubling embed) and the body as

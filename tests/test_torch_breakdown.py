@@ -24,11 +24,31 @@ def test_variant_edits_match_their_sources_once(kernel, name):
     assert name != "shipped" or not edits
 
 
+def _edited_files(kernel):
+    return {fname for edits in cb.KERNELS[kernel][1].values() for fname, _, _ in edits}
+
+
 def test_teacher_variants_edit_the_wgmma_tile():
-    """The teacher's variants patch the new field tile (and its launch), and
-    the whole-ray kernel has its no_glue variant."""
-    files = {fname for edits in cb.KERNELS["teacher"][1].values() for fname, _, _ in edits}
-    assert {"nerf_wgmma.cuh", "nerf_forward.cu"} <= files
+    """The teacher's variants patch the field tile (which holds its launch
+    and its tile walk too) of the kernel they build, and the whole-ray
+    kernel has its no_glue variant."""
+    assert cb.KERNELS["teacher"][0] == "nerf_forward.cu"
+    assert _edited_files("teacher") == {"nerf_wgmma.cuh"}
     assert {"no_loads", "no_products", "no_trig", "no_views", "no_epilogues",
             "block_barrier"} <= set(cb.KERNELS["teacher"][1])
     assert cb.KERNELS["frame"][0] == "nerf_frame.cu" and "no_glue" in cb.KERNELS["frame"][1]
+
+
+def test_int8_variants_edit_the_wgmma_tiles():
+    """The int8 kernels' variants patch the wgmma tiles they run on: the
+    student's int8 body in csrc/r2l_wgmma.cuh and the conversions of
+    csrc/int8_epilogue.cuh, the field tile and the int8 epilogues of
+    csrc/nerf_int8.cu."""
+    assert cb.KERNELS["serve_int8"][0] == "r2l_int8.cu"
+    assert _edited_files("serve_int8") == {"r2l_wgmma.cuh", "int8_epilogue.cuh"}
+    assert cb.KERNELS["teacher_int8"][0] == "nerf_int8.cu"
+    assert _edited_files("teacher_int8") == {"nerf_wgmma.cuh", "nerf_int8.cu",
+                                             "int8_epilogue.cuh"}
+    for kernel in ("serve_int8", "teacher_int8"):
+        assert {"shipped", "no_loads", "no_products", "no_epilogues", "first_conversions",
+                "ring_2"} <= set(cb.KERNELS[kernel][1])

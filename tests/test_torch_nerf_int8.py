@@ -160,7 +160,12 @@ def _card_teacher(rng, skip=4):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,S,cm,skip", [(20, 64, False, 4), (9, 192, False, 4),
-                                         (37, 64, True, 4), (11, 24, False, 6)])
+                                         (37, 64, True, 4), (11, 24, False, 6),
+                                         # a tile over 26 rays; 64 rays a warpgroup
+                                         (61, 5, False, 6), (300, 1, False, 4),
+                                         # 150 tiles: more than the resident blocks,
+                                         # so each block's ring runs on across tiles
+                                         (300, 64, False, 4)])
 def test_kernel_matches_plain_version(N, S, cm, skip, cuda_device, rng):
     tm = _card_teacher(rng, skip)
     sd = {k: v.to(cuda_device) for k, v in tm.state_dict().items()}
@@ -181,3 +186,6 @@ def test_kernel_matches_plain_version(N, S, cm, skip, cuda_device, rng):
     # chip_smoke.py's tolerance for this kernel
     err = ((got - want).abs().max() / want.abs().max()).item()
     assert err <= 2e-2, err
+    # the tile's sums are taken in a fixed order: two calls give the same bits
+    again = ni.nerf_forward_int8(packed, tp, tv, L, LV, act_scales=scales, cm=cm)
+    assert torch.equal(got, again)

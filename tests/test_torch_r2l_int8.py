@@ -249,17 +249,22 @@ def _card_model(width, depth, rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [256, 96])      # 96: the 32-byte weight chunks
+@pytest.mark.parametrize("width", [256, 96])      # 96: TMA's zeros past column 96
 @pytest.mark.parametrize("mode", ["static", "dynamic"])
-def test_kernel_matches_plain_version(mode, width, cuda_device, rng):
+@pytest.mark.parametrize("n", [200, 37])          # 4 tiles, the last ragged; one
+def test_kernel_matches_plain_version(n, mode, width, cuda_device, rng):
     tm = _card_model(width, 12, rng)
     sd = {k: v.to(cuda_device) for k, v in tm.state_dict().items()}
     packed = i8.pack_r2l_weights_int8(sd, N_SAMPLE, L)
-    n = 200                                              # 4 tiles, the last ragged
     ro = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(cuda_device)
     rd = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(cuda_device)
     act = (i8.calibrate_r2l_int8(sd, ro, rd, NEAR, FAR, N_SAMPLE, L)
            if mode == "static" else None)
+    # rows past B: their rays embed as zeros, and in the dynamic mode their
+    # row maxima stay in their own rows
+    again = i8.r2l_forward_int8(packed, ro, rd, NEAR, FAR, N_SAMPLE, L, act_scales=act)
+    assert torch.equal(again, i8.r2l_forward_int8(packed, ro, rd, NEAR, FAR, N_SAMPLE, L,
+                                                  act_scales=act))
     for use_res in (False, True):
         launches = i8.r2l_forward_int8.launches
         got = i8.r2l_forward_int8(packed, ro, rd, NEAR, FAR, N_SAMPLE, L,
@@ -276,3 +281,29 @@ def test_kernel_matches_plain_version(mode, width, cuda_device, rng):
     empty = torch.zeros((0, 3), device=cuda_device)
     assert i8.r2l_forward_int8(packed, empty, empty, NEAR, FAR, N_SAMPLE, L,
                                act_scales=act).shape == (0, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+def test_kernel_runs_wide_inputs_in_parts(mode, cuda_device, rng):
+    """An input of 1536 columns (n_sample 24), whose embed the tile writes and
+    contracts in parts before the int8 body."""
+    n_sample = 24
+    tm = R2LNet(3 * n_sample * (2 * L + 1), 8, 256)
+    with torch.no_grad():
+        for name, v in tm.named_parameters():
+            scale = 0.01 if name.endswith("bias") else v.shape[-1] ** -0.5
+            if ".body.2.weight" in name:
+                scale *= 0.1
+            v.copy_(torch.from_numpy(
+                rng.normal(scale=scale, size=tuple(v.shape)).astype(np.float32)))
+    sd = {k: v.to(cuda_device) for k, v in tm.state_dict().items()}
+    packed = i8.pack_r2l_weights_int8(sd, n_sample, L)
+    assert packed["head_w"].shape[1] == 1536
+    ro = torch.from_numpy(rng.normal(size=(130, 3)).astype(np.float32)).to(cuda_device)
+    rd = torch.from_numpy(rng.normal(size=(130, 3)).astype(np.float32)).to(cuda_device)
+    act = (i8.calibrate_r2l_int8(sd, ro, rd, NEAR, FAR, n_sample, L)
+           if mode == "static" else None)
+    got = i8.r2l_forward_int8(packed, ro, rd, NEAR, FAR, n_sample, L, act_scales=act)
+    want = i8.r2l_forward_int8_ref(packed, ro, rd, NEAR, FAR, n_sample, L, act_scales=act)
+    torch.testing.assert_close(got, want, atol=8e-3, rtol=0)
