@@ -2,7 +2,7 @@
 """Where a fused kernel's time goes, on one CUDA card.
 
     python3 chip_breakdown.py [--seed N]
-        [--kernel serve|train_fwd|serve_int8|train_bwd|teacher|teacher_int8|frame]
+        [--kernel serve|train_fwd|serve_int8|train_bwd|teacher|teacher_int8|frame|sampler]
 
 Builds the kernel as shipped and variants of it made by replacing a few
 statements each, all with nvcc in parallel into build/kernels/breakdown/,
@@ -47,10 +47,17 @@ calibrate_r2l_int8 on the frame's first 1024 rays) on the rays of one
   ring_2       a 2-stage weight ring instead of 3
 
 train_bwd: the training backward's two passes at 98,304 rays (the training
-step's), need_dx off, the global residual on. Pass 1, csrc/r2l_train.cu:
+step's), need_dx off, the global residual on. Pass 1, csrc/r2l_train.cu
+(its wgmma tile):
   shipped          the kernel as the port runs it
-  no_stores        no stores of pass 2's operands (the tiles' copy-out to
-                   device memory skipped): the activation chain alone
+  no_stores        no stores of pass 2's operands (no TMA stores of g1, dg2,
+                   dg1 and dpre, no copy-out of the embed): the activation
+                   chain alone
+  no_products      no wgmma: the weight stream, the h loads, the epilogues,
+                   stores and block barriers
+  no_loads         no TMA weight copies (each stage completes on the loading
+                   thread's arrival alone): the products on stale stages
+  ring_2           a 2-stage weight ring instead of as many as fit (3 at W256)
 and pass 2, csrc/r2l_wgrad.cu, on the shipped pass 1's scratch:
   wgrad_shipped    the kernel as the port runs it (TMA boxes, mbarriers)
   wgrad_loads_only no products: the TMA copies and the barriers alone
@@ -82,6 +89,15 @@ its variants edited in the wgmma field tile it includes (csrc/nerf_wgmma.cuh):
                activations (computed, kept by a test that never holds)
   no_cvt       the epilogues' bf16 conversions replaced by an integer xor of
                the two f32 words (the same data flow, no conversion)
+
+sampler: the inverse-CDF kernel of csrc/sample_pdf.cu on a 32,768-ray chunk of
+the lego config's fine pass (C 63, n 128; sorted random edges, uniform
+weights), its variants edited in the warp routine (csrc/sample_pdf.cuh):
+  shipped      the kernel as the port runs it
+  no_cdf       no sequential CDF sum by lane 0 (the levels search the pdfs)
+  no_sums      neither the total nor the CDF summed in order (the levels
+               search the floored weights)
+  no_levels    no levels: the loads, the sums, the divisions and the stores
 
 frame: the whole-ray kernel of csrc/nerf_frame.cu (the same tile) on 32,768
 rays of the same frame at 64 + 128 samples, white background:
@@ -177,6 +193,10 @@ _WG_VARIANTS = {
     "no_products": [(_WG, _WG_PRODUCTS, "")],
 }
 _STORE = "  const int c8 = ncols / 8;\n"
+_TB_STORE = "      tma_store_box(map, src + q * wg::PANEL, 64 * q, (int)ray0, layer);\n"
+_TB_PRODUCTS = "        wg::Wgmma<NT>::run(acc, da + 2 * k, db + 2 * k, kc + k > 0);\n"
+_TB_ISSUE = "    mbar_arrive_expect_tx(&full[st], WP * 128);\n"
+_TB_STAGES = "constexpr int BWD_MAX_STAGES = 6;"
 _W_PRODUCTS = "      if (active) stage_product(As, As + A_TILE, acc, ms, ns, lane);\n"
 _W_EXPECT = "        mbar_arrive_expect_tx(&full[s], bytes);"
 _W_BOXES_A = "        for (int b = 0; b < na; ++b)"
@@ -227,6 +247,15 @@ _NW_VIEW_ROWS = "      view_rows(hvd, nr, half, p.s.ev, p.m.views_d_w, tw, 128,"
 _NW_GRID = "  const unsigned grid = (unsigned)(tiles < resident ? tiles : resident);"
 _FR_GLUE_C = ("      for (int r = warp; r < R; r += nw::NTHREADS / 32) {\n        float res[6];\n"
               "        float* w =")
+_SP = "sample_pdf.cuh"
+_SP_CDF = """  if (lane == 0) {
+    float cdf_lo = 0.0f;
+#pragma unroll 8
+    for (int i = 0; i < C - 1; ++i) cdf[i] = cdf_lo = __fadd_rn(cdf_lo, cdf[i]);
+  }
+"""
+_SP_TOTAL = "  for (int i = 0; i < C - 1; ++i) total = __fadd_rn(total, __fadd_rn(w[i], 1e-5f));\n"
+_SP_LEVELS = "  for (int j = lane; j < n; j += 32) store(j, pdf_level(b, cdf, C, su[j]));\n"
 _FR_GLUE_F = ("    for (int r = warp; r < R; r += nw::NTHREADS / 32) {\n      float res[6];\n"
               "      composite_warp(")
 # kernel: (file built, {variant: [(file edited, old, new), ...]}); the
@@ -254,7 +283,11 @@ KERNELS = {
     }),
     "train_bwd": ("r2l_train.cu", {
         "shipped": [],
-        "no_stores": [("r2l_train.cu", _STORE, _STORE + "  if (c8 > 0) return;\n")],
+        "no_stores": [("r2l_train.cu", _TB_STORE, ""),
+                      ("r2l_train.cu", _STORE, _STORE + "  if (c8 > 0) return;\n")],
+        "no_products": [("r2l_train.cu", _TB_PRODUCTS, "")],
+        "no_loads": [("r2l_train.cu", _TB_ISSUE, "    mbar_arrive(&full[st]);\n    return;\n")],
+        "ring_2": [("r2l_train.cu", _TB_STAGES, "constexpr int BWD_MAX_STAGES = 2;")],
         "wgrad_shipped": ("r2l_wgrad.cu", []),
         "wgrad_loads_only": ("r2l_wgrad.cu", [("r2l_wgrad.cu", _W_PRODUCTS, "")]),
         "wgrad_products_only": ("r2l_wgrad.cu", [
@@ -292,6 +325,12 @@ KERNELS = {
         "ring_2": [(_NW, "constexpr int MAX_STAGES = 8;", "constexpr int MAX_STAGES = 2;")],
         "block_barrier": [(_NW, _NW_BAR, "  __syncthreads();")],
         "one_tile_a_block": [(_NW, _NW_GRID, "  const unsigned grid = (unsigned)tiles;")],
+    }),
+    "sampler": ("sample_pdf.cu", {
+        "shipped": [],
+        "no_cdf": [(_SP, _SP_CDF, "")],
+        "no_sums": [(_SP, _SP_CDF, ""), (_SP, _SP_TOTAL, "  total = 1.0f;\n")],
+        "no_levels": [(_SP, _SP_LEVELS, _SP_LEVELS.replace("j < n;", "j < 0;"))],
     }),
     "frame": ("nerf_frame.cu", {
         "shipped": [],
@@ -517,6 +556,7 @@ def _train_bwd_runner(torch, dev, seed):
             last["pass"] = 1
             return fn(x.data_ptr(), hs.data_ptr(), dout.data_ptr(),
                       *(packed[k].data_ptr() for k in rt._OPERANDS),
+                      packed["body_wt"].data_ptr(),
                       *(act[k].data_ptr() for k in keys), None, n_rays, n_rays,
                       x.shape[1], cs.L_FREQ, in_pad, width, nb, out_dim, 1.0, 1, stream)
         return run
@@ -528,6 +568,33 @@ def _train_bwd_runner(torch, dev, seed):
 
     bound_ms = rt.r2l_train_flops(packed, n_rays)[1] / cs.H100_BF16_FLOPS * 1e3
     return n_rays, bound_ms, cs.TRAIN_TOL["grad"], make_run, error
+
+
+def _sampler_runner(torch, dev, seed):
+    from efficient_nerf_tpu_torch.ops import sample_pdf as sp
+
+    n_rays, C, n = cs.T_CHUNK, cs.T_SAMPLES - 1, cs.T_IMPORTANCE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bins = torch.sort(torch.rand((n_rays, C), generator=gen, device=dev) * 4 + 2, -1
+                      ).values.contiguous()
+    w = torch.rand((n_rays, C - 1), generator=gen, device=dev)
+    u = sp._levels(n, dev)
+    want = sp.sample_pdf_det_fused_ref(bins, w, n)
+    out = torch.empty_like(want)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def make_run(lib):
+        fn = lib.sample_pdf_det_launch
+        restype, argtypes = sp._SIGNATURES["sample_pdf_det_launch"]
+        fn.restype, fn.argtypes = restype, list(argtypes)
+        return lambda: fn(bins.data_ptr(), w.data_ptr(), u.data_ptr(), out.data_ptr(),
+                          n_rays, C, n, stream)
+
+    def error():
+        return (out - want).abs().max().item()
+
+    bound_ms = n_rays * (2 * C - 1 + n) * 4 / cs.H100_HBM_BYTES * 1e3
+    return n_rays, bound_ms, 0.0, make_run, error
 
 
 def _teacher_runner(torch, dev, seed):
@@ -665,6 +732,7 @@ def _frame_runner(torch, dev, seed):
 RUNNERS = {"serve": _serve_runner, "train_fwd": _train_fwd_runner,
            "serve_int8": _serve_int8_runner,
            "train_bwd": _train_bwd_runner, "teacher": _teacher_runner,
+           "sampler": _sampler_runner,
            "teacher_int8": _teacher_int8_runner, "frame": _frame_runner}
 
 

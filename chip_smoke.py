@@ -320,6 +320,25 @@ def cuda_ms(torch, fn, n: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
+def queued_ms(torch, fn, n: int, warmup: int = 2) -> float:
+    """Mean milliseconds of fn() over n calls, by CUDA events, with the calls
+    queued behind a spin kernel of about 20 ms: the card then runs them back
+    to back, so that a kernel shorter than its wrapper's host time is timed
+    by the card's clock and not by the host's pace (cuda_ms)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)   # ~20 ms at the card's ~2 GHz: longer than n calls' host time
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
     """(bound ms, 'operations' or 'bytes') at the card's data-sheet peaks:
     flops at the bf16 rate, int8_ops at the int8 rate."""
@@ -427,18 +446,48 @@ def phase_build(sm: Smoke) -> None:
             print(f"build: {kernel}<{name_args}>: " + "; ".join(lines), flush=True)
         print(f"build: {kernel} dynamic shared memory at W{WIDTH}, in_pad 1024: {smem} "
               f"bytes", flush=True)
-    # the int8 kernels' products are integer warpgroup MMAs (IGMMA) in the
-    # built SASS
+    # the backward's pass 1 on its wgmma tile: one line an instantiation (NT
+    # columns a warpgroup, W = 2 NT; NEED_DX=1 compiles the dx chain in), and
+    # its shared memory and weight-ring stages at each width
+    lib = ctypes.CDLL(str(_build.library_path("r2l_train")))
+    lib.r2l_train_bwd_smem_bytes.restype = ctypes.c_longlong
+    for cur, lines in sorted(ptxas_report("r2l_train", "r2l_train_bwd_kernel").items()):
+        nt = re.search(r"ILi(\d+)ELb([01])E", cur)
+        name_args = f"NT={nt.group(1)}, NEED_DX={nt.group(2)}" if nt else "?"
+        print(f"build: r2l_train_bwd_kernel<{name_args}>: " + "; ".join(lines), flush=True)
+    print("build: r2l_train_bwd_kernel at in_pad 1024: " + "; ".join(
+        f"W{w} {lib.r2l_train_bwd_smem_bytes(1024, w)} bytes of dynamic shared memory, "
+        f"{lib.r2l_train_bwd_stages(w)} ring stages of {w * 128} bytes"
+        for w in (64, 128, 192, 256)), flush=True)
+    # the warpgroup MMAs in the built SASS: integer ones (IGMMA) in the two
+    # int8 kernels, bf16 ones (HGMMA) in every instantiation of pass 1
     cuobjdump = shutil.which("cuobjdump", path=str(Path(_build._nvcc()).parent))
     if cuobjdump is None:
         fail("cuobjdump not found beside nvcc")
-    for name in ("r2l_int8", "nerf_int8"):
-        sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
+    gmma = r"\b[A-Z]GMMA\.[0-9x]+\.[A-Z0-9]+\.[A-Z0-9]+\b"
+
+    def sass_of(name):
+        return subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
-        ops = sorted(set(re.findall(r"\b[A-Z]GMMA\.[0-9x]+\.[A-Z0-9]+\.[A-Z0-9]+\b", sass)))
+
+    for name in ("r2l_int8", "nerf_int8"):
+        ops = sorted(set(re.findall(gmma, sass_of(name))))
         print(f"build: {name} SASS warpgroup MMAs: {', '.join(ops)}", flush=True)
         if not any(op.startswith("IGMMA") for op in ops):
             fail(f"no integer warpgroup MMA (IGMMA) in the SASS of csrc/{name}.cu")
+    bwd = {}
+    for sec in re.split(r"\n\s*Function : ", sass_of("r2l_train"))[1:]:
+        fn, body = sec.split("\n", 1)
+        if "r2l_train_bwd_kernel" in fn:
+            bwd[fn.strip()] = sorted(set(re.findall(gmma, body)))
+    for fn, ops in sorted(bwd.items()):
+        nt = re.search(r"ILi(\d+)ELb([01])E", fn)
+        print(f"build: r2l_train_bwd_kernel<{nt.group(1) if nt else '?'}, "
+              f"{nt.group(2) if nt else '?'}> SASS warpgroup MMAs: {', '.join(ops)}", flush=True)
+    if len(bwd) != 8 or not all(any(op.startswith("HGMMA") for op in ops)
+                                for ops in bwd.values()):
+        fail(f"pass 1 (r2l_train_bwd_kernel) has not HGMMA in the SASS of each of its 8 "
+             f"instantiations: {bwd}")
 
 
 def phase_trig(sm: Smoke) -> None:
@@ -1573,7 +1622,21 @@ def phase_teacher(sm: Smoke) -> None:
         torch.cuda.empty_cache()
     lib_err = (lib_path(pts_c) - nerf_forward_fused_ref(packed, pts_c, vd, T_L, T_LV)
                ).abs().max().item()
-    pdf_ms = cuda_ms(torch, lambda: sample_pdf_det_fused(bins, w, T_IMPORTANCE), 20)
+    # kernel 6 on the main path's chunk (frame 1's own coarse weights)
+    # against its plain version, bit for bit
+    z_s, z_sp = sample_pdf_det_fused(bins, w, T_IMPORTANCE), sample_pdf_det_fused_ref(
+        bins, w, T_IMPORTANCE)
+    torch.cuda.synchronize()
+    n_zdiff = int((z_s != z_sp).sum().item())
+    print(f"teacher: sample_pdf_det_fused on the chunk's {n} rays: {n_zdiff} values differ "
+          f"from the plain version (tol 0: bit for bit)", flush=True)
+    if n_zdiff:
+        fail("inverse-CDF kernel differs from its plain version on the main path's chunk")
+    del z_s, z_sp
+    # kernel 6 is shorter than its wrapper's host time: timed queued, and
+    # paced by the host (a call as the renderer makes it) beside that
+    pdf_ms = queued_ms(torch, lambda: sample_pdf_det_fused(bins, w, T_IMPORTANCE), 20)
+    pdf_call_ms = cuda_ms(torch, lambda: sample_pdf_det_fused(bins, w, T_IMPORTANCE), 20)
     pdf_plain_ms = cuda_ms(torch, lambda: sample_pdf_det_fused_ref(bins, w, T_IMPORTANCE),
                            2, warmup=1)
 
@@ -1601,7 +1664,8 @@ def phase_teacher(sm: Smoke) -> None:
     print(f"teacher: render_image {frame_ms:.3f} ms/frame ({n_rays / frame_ms * 1e3 / 1e6:.3f} "
           f"M rays/s); the frame's field evals bound {frame_bound[0]:.3f} ms "
           f"({frame_flops / 1e12:.3f} TFLOP, {frame_bound[1]}); sample_pdf_det_fused "
-          f"{pdf_ms:.4f} ms at {n} rays, bound {pdf_bound[0]:.4f} ms ({pdf_bound[1]}), "
+          f"{pdf_ms:.4f} ms at {n} rays queued ({pdf_call_ms:.4f} ms a call paced by the "
+          f"host), bound {pdf_bound[0]:.4f} ms ({pdf_bound[1]}), "
           f"plain version {pdf_plain_ms:.3f} ms; the library path is {lib_err:.3g} from "
           f"the plain version on the coarse chunk", flush=True)
     sm.teacher_frame_ms = frame_ms

@@ -23,10 +23,10 @@
 //      a shuffle scan), the sums are shuffle sums; the white background,
 //      disp = 1 / max(1e-10, depth / acc), NaN where acc is 0 (as
 //      torch.maximum keeps a NaN);
-//   4. the inverse CDF of the interior weights: the CDF summed in the
-//      sampler's order, then the levels spread over the lanes (pdf_level of
-//      sample_pdf.cuh, bit for bit the sampler kernel's walk), and z_std
-//      (ddof 0);
+//   4. the inverse CDF of the interior weights by the sampler kernel's
+//      warp routine (pdf_warp of sample_pdf.cuh: the CDF summed in order,
+//      the levels spread over the lanes), so the fine depths are the
+//      sampler kernel's bit for bit, and z_std (ddof 0);
 //   5. the merge of the sorted coarse and fine depths by rank: each depth's
 //      place is its index plus the count of the other list's depths before
 //      it (coarse first on a tie, as a two-pointer merge takes them): the
@@ -279,28 +279,14 @@ __global__ void __launch_bounds__(nw::NTHREADS, 1)
           out[10] = res[4];
         }
         __syncwarp();
-        // the interior weights' CDF, summed as pdf_walk sums it: every lane
-        // totals in order, the lanes divide, one lane accumulates in order
-        const int C = S_c - 1;
-        const float* wi = w + 1;
-        float* cdf = scdf + r * S_c;
-        float total = 0.0f;
-#pragma unroll 8
-        for (int i = 0; i < C - 1; ++i) total = __fadd_rn(total, __fadd_rn(wi[i], 1e-5f));
-        for (int i = lane; i < C - 1; i += 32) cdf[i] = __fdiv_rn(__fadd_rn(wi[i], 1e-5f), total);
-        __syncwarp();
-        if (lane == 0) {
-          float cdf_lo = 0.0f;
-#pragma unroll 8
-          for (int i = 0; i < C - 1; ++i) cdf[i] = cdf_lo = __fadd_rn(cdf_lo, cdf[i]);
-        }
-        __syncwarp();
+        // the inverse CDF of the interior weights: the sampler kernel's warp
+        // routine, so that the fine depths are its bit for bit
         float* zf = szf + r * S_f;
         float sum = 0.0f;
-        for (int j = lane; j < S_f; j += 32) {
-          zf[j] = pdf_level(sbins, cdf, C, su[j]);
-          sum = __fadd_rn(sum, zf[j]);
-        }
+        pdf_warp(sbins, w + 1, scdf + r * S_c, S_c - 1, su, S_f, lane, [&](int j, float v) {
+          zf[j] = v;
+          sum = __fadd_rn(sum, v);
+        });
         const float mean = __fdiv_rn(warp_sum(sum), (float)S_f);
         float ss = 0.0f;
         for (int j = lane; j < S_f; j += 32) {

@@ -1,13 +1,14 @@
-// Tensor-core building blocks of the R2L training backward's two passes
-// (r2l_train.cu's r2l_train_bwd_kernel, r2l_wgrad.cu): mma.sync m16n8k16 bf16
+// Tensor-core building blocks of the R2L training backward on mma.sync: pass
+// 2 (r2l_wgrad.cu: mma_bf16 with ldmatrix fragments) and pass 1's dx chain
+// (r2l_train.cu, need_dx only: mma_stream_kn). mma.sync m16n8k16 bf16
 // products with f32 accumulators, operands fetched with ldmatrix from padded
 // (bank-conflict-free) shared rows, and weights streamed from L2 through a
-// cp.async ring. The forward kernels, bf16 and int8, run the wgmma tiles
-// (r2l_wgmma.cuh, nerf_wgmma.cuh).
+// cp.async ring. The forwards and pass 1's chain run on wgmma tiles
+// (r2l_wgmma.cuh, nerf_wgmma.cuh, r2l_train.cu).
 //
-// Every kernel runs 8 warps on a tile of TB = 64 rays. For a [TB, N] output,
-// warp w owns columns [32 w, 32 w + 32) of all TB rows: a Frag holds them,
-// 64 f32 values a thread.
+// mma_stream_kn runs 8 warps on a tile of TB = 64 rays. For a [TB, N]
+// output, warp w owns columns [32 w, 32 w + 32) of all TB rows: a Frag holds
+// them, 64 f32 values a thread.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,15 +25,11 @@ constexpr int NJ = WN / 8;         // 8-column mma tiles per warp
 constexpr int KC = 64;             // contraction rows of a weight chunk
 constexpr int S = 2;               // weight ring stages
 constexpr int PAD = 8;             // bf16 row padding: rows 16 B apart in banks
-constexpr int LDS = KC + PAD;      // row stride of a stage holding [N, KC]
 constexpr int MAX_SMEM = 232448;   // 227 KB, the opt-in limit of sm_90
 
-// Bytes of one ring stage: a [W, KC] chunk of an [out, in] weight, or a
-// [KC, W] chunk of a weight read as [in, out] (mma_stream_kn).
-__host__ __device__ inline size_t ring_stage_bytes(int W) {
-  const size_t a = (size_t)W * LDS * 2, b = (size_t)KC * (W + PAD) * 2;
-  return a > b ? a : b;
-}
+// Bytes of one ring stage of mma_stream_kn: a [KC, W] chunk of a weight read
+// as [in, out], rows padded.
+__host__ __device__ inline size_t ring_stage_bytes(int W) { return (size_t)KC * (W + PAD) * 2; }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -107,81 +104,6 @@ __device__ __forceinline__ void load_b_kn(unsigned (&b)[4], const __nv_bfloat16*
   const int mi = lane / 8;
   ldmatrix_x4_trans(b, B + (size_t)(k0 + (mi % 2) * 8 + lane % 8) * ldb + n +
                            (mi / 2) * 8);
-}
-
-// Runs n_layers layers X_l[TB, K] @ W_l^T, W_l = Wg + l * layer_stride a
-// [W, K] bf16 matrix in global memory ([out, in], nn.Linear's layout),
-// X_l = X0 for even l and X1 for odd l (bf16 in shared memory, row stride
-// ldx). The weights stream through `ring` in chunks of KC input rows, S - 1
-// chunks ahead; at the end of layer l each warp that owns columns calls
-// epi(l, acc). Ends with a block barrier, so that the ring, X and whatever
-// the epilogues wrote may be reused at once.
-template <class Epi>
-__device__ __forceinline__ void mma_stream(const __nv_bfloat16* X0,
-                                           const __nv_bfloat16* X1, int ldx,
-                                           const __nv_bfloat16* Wg,
-                                           size_t layer_stride, int K,
-                                           int n_layers, int W,
-                                           __nv_bfloat16* ring, Epi epi) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int kchunks = K / KC, total = n_layers * kchunks;
-  const bool owns = warp * WN < W;  // other warps only help to load
-  const int n0 = warp * WN;
-  const size_t stage = ring_stage_bytes(W) / 2;
-
-  auto load_chunk = [&](int c) {
-    if (c < total) {
-      const int l = c / kchunks, kc = c % kchunks;
-      const __nv_bfloat16* src = Wg + (size_t)l * layer_stride + (size_t)kc * KC;
-      __nv_bfloat16* dst = ring + (size_t)(c % S) * stage;
-      for (int q = tid; q < W * (KC / 8); q += NTHREADS) {
-        const int r = q / (KC / 8), piece = q % (KC / 8);
-        cp_async16(dst + r * LDS + piece * 8, src + (size_t)r * K + piece * 8);
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count uniform
-  };
-
-  for (int c = 0; c < S - 1; ++c) load_chunk(c);
-  Frag acc;
-  frag_zero(acc);
-
-  for (int c = 0; c < total; ++c) {
-    cp_async_wait<S - 2>();  // chunk c has landed (this thread's copies) ...
-    __syncthreads();         // ... everyone's, and stage (c - 1) % S is free
-    load_chunk(c + S - 1);
-    const int l = c / kchunks, kc = c % kchunks;
-    if (owns) {
-      const __nv_bfloat16* X = (l & 1) ? X1 : X0;
-      const __nv_bfloat16* st = ring + (size_t)(c % S) * stage;
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        // B for columns n0 + 16 jj .. + 15: matrices (n lo, k lo),
-        // (n lo, k hi), (n hi, k lo), (n hi, k hi)
-        unsigned b[NJ / 2][4];
-#pragma unroll
-        for (int jj = 0; jj < NJ / 2; ++jj)
-          ldmatrix_x4(b[jj], st + (n0 + 16 * jj + (lane / 16) * 8 + lane % 8) * LDS +
-                                 kk + ((lane / 8) % 2) * 8);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          unsigned a[4];
-          load_a(a, X, ldx, i, kc * KC + kk, lane);
-#pragma unroll
-          for (int jj = 0; jj < NJ / 2; ++jj) {
-            mma_bf16(acc[i][2 * jj], a, b[jj][0], b[jj][1]);
-            mma_bf16(acc[i][2 * jj + 1], a, b[jj][2], b[jj][3]);
-          }
-        }
-      }
-    }
-    if (kc == kchunks - 1) {
-      if (owns) epi(l, acc);
-      frag_zero(acc);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
 }
 
 // One product X[TB, K] @ Wk, Wk a [K, ncols] slice (row stride ldw) of a

@@ -104,8 +104,13 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
-// query (the library links no libcuda), or null.
+// query (the library links no libcuda), or null. The encoder fails on a host
+// thread with no current context, such as an autograd worker thread of
+// device 0 that has made no runtime call yet: so the current device's primary
+// context is made current on the calling thread first.
 inline EncodeTiled encoder() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return nullptr;
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* ptr = nullptr;

@@ -18,11 +18,10 @@
 //
 // Backward, pass 1 of 2 (r2l_train_bwd_kernel): the activation chain. The
 // tail backward with sigmoid', then the blocks in reverse with dh in f32
-// registers (warp w owns columns [32 w, 32 w + 32) of the tile, as the
-// forward holds h). Per block, three products of 256^2 per ray:
-//   g1  = relu(h_in @ W0^T + b0)   recomputed from the bf16 h_in (mma_stream)
-//   dg1 = (dg2 @ W1) * (g1 > 0)    W1 read as [k, n] (mma_stream_kn)
-//   dh  += dg1 @ W0                (mma_stream_kn)
+// registers. Per block, three products of W^2 per ray:
+//   g1  = relu(h_in @ W0^T + b0)   recomputed from the bf16 h_in = hs[blk]
+//   dg1 = (dg2 @ W1) * (g1 > 0)    dg2 = dh * res_scale
+//   dh  += dg1 @ W0
 // then the head backward: the relu mask from hs[0] > 0 (in f32) and, when dx
 // is asked for, the input gradient through the embed's chain rule. Rounding
 // follows :143-201: dt, dg2, dg1 and dpre enter the products as bf16, their
@@ -33,25 +32,69 @@
 // second pass (csrc/r2l_wgrad.cu): this pass writes the products' bf16
 // operands, dg2, g1 and dg1 of every block ([n_block, Bp, W] each, Bp = B
 // padded to a whole tile), dpre [Bp, W] and the recomputed embed [Bp,
-// in_pad], each tile a contiguous run of rows, 16 bytes a thread from the
-// shared tiles; and each tile's f32 column sums of the bias and tail
-// gradients into a row of `part` (head_b | body_b | tail_w | tail_b). No
-// global atomics: the sums are added in a fixed order by the second pass,
-// so the gradients' bits do not change from run to run.
+// in_pad], each tile a contiguous run of rows; and each tile's f32 column
+// sums of the bias and tail gradients into a row of `part` (head_b | body_b
+// | tail_w | tail_b). No global atomics: the sums are added in a fixed order
+// by the second pass, so the gradients' bits do not change from run to run.
 //
 // Bound (W256 D88, 98,304 rays, need_dx off): forward 5,894,912 MAC a ray
 // (1.159 TFLOP, 1.172 ms at 989 TFLOP/s dense bf16) plus 2.2 GB of hs
 // stores, bound by operations; its design is r2l_wgmma.cuh's. Pass 1: 3 x
 // 43 x 65,536 MAC a ray plus the tail (1.663 TFLOP, 1.68 ms) against 2.2 GB
-// of hs read and 6.8 GB of operands written (2.69 ms at 3.35 TB/s): bound
-// by bytes. The whole
-// backward's operations (14,350,592 MAC a ray, 2.853 ms) are the two
+// of hs read and 6.886 GB of operands written (2.726 ms at 3.35 TB/s): bound
+// by bytes. Its weights cross from L2 to the SMs three times a block a tile:
+// 3 x 43 x 128 KB = 16.5 MB a 64-ray tile, 25.4 GB a 98,304-ray step. The
+// whole backward's operations (14,350,592 MAC a ray, 2.853 ms) are the two
 // passes' together.
 //
-// Shared memory of the backward (W = 256, in_pad = 1024): the weight ring
-// (2 x 36 KB), two h_in tiles (double buffer for the next block's hs row
-// tile), g1 (later dg1) and dg2 (later dpre), bf16 rows of 264: 204 KB; the
-// embed (129 KB) overlays the ring, the h_in tiles and g1 at the end.
+// Pass 1's design: the forward tile's machinery (r2l_wgmma.cuh, and its
+// lessons there) on the chain.
+//   * wgmma for the three products. The block's two warpgroups share the
+//     tile's 64 rays: warpgroup g owns output columns [g NT, g NT + NT), NT =
+//     W / 2, of each product (wgmma m64nNTk16, A and B K-major in the
+//     128-byte swizzle). Each thread keeps its NT / 2 values of dh, the
+//     sums and the 64-bit relu mask of g1 in registers.
+//   * All three products read K-major weights. g1 takes W0 as it lies
+//     ([out, in]: K-major for h_in @ W0^T, as the forward takes it). The two
+//     [k, n] products take pack_r2l_train_weights's transposed bf16 copy of
+//     the body, body_wt[l] = body_w[l]^T (11.3 MB made each step with the
+//     pack), so that every product runs on the descriptors, boxes and swizzle
+//     the forward proved on the card; wgmma's transpose-B with MN-major
+//     descriptors would read body_w itself, but no card run has checked that
+//     layout here, and the copy costs the step about as much as reading it.
+//   * A TMA weight ring with mbarriers and no block barrier a chunk: thread 0
+//     (one of the consumers; no producer warpgroup, no cluster, no deferred
+//     loads, as r2l_wgmma.cuh says why) loads each [W, 64] chunk of W0,
+//     W1^T and W0^T, block by block in reverse, by one box from 3-D tensor
+//     maps over body_w and body_wt into a ring of as many stages as fit (3 at
+//     W256), each with a full and an empty mbarrier.
+//   * TMA for the activation tiles. hs[blk] lands by TMA (rows past B as
+//     zeros) into the h tile; g1, dg2, dg1 and dpre leave shared memory by
+//     TMA stores from the swizzled tiles (g1: from the h tile, which h_in
+//     has left), thread 0 waiting (cp.async.bulk.wait_group.read) before a
+//     tile is rewritten or refilled.
+//   * Two block barriers a block, where a product's A is complete: A after
+//     g1's products (dg2 written, h_in read by both warpgroups), B after
+//     dg1's epilogue. A block's schedule:
+//       dg2 = dh rs -> dg2 tile; g1 products (h tile); mask, g1 in registers;
+//       A; store dg2; g1 -> h tile; dg1 products (dg2 tile); dg1 -> dg1
+//       tile; B; store g1 and dg1, then hs[blk - 1] into the h tile; dh
+//       products (dg1 tile).
+//     One h tile does: the next block's hs lands during the dh products.
+//     Separate g1 and dg1 tiles would take a fourth 32 KB tile (and a ring
+//     stage, at W256); g1 in the dg1 tile would take a third barrier (the
+//     dh products must leave it in both warpgroups first).
+//   * The bias sums: each warp's column sums of its 16 rows by a shuffle
+//     butterfly (each step halves the values a lane keeps), its partials in
+//     shared memory, added by one thread a column in a fixed order after the
+//     next barrier: the same bits every run.
+// The dx chain (need_dx, off in the training step) keeps its product on
+// r2l_mma.cuh's mma_stream_kn over the shared memory the body leaves.
+//
+// Shared memory of the backward (W = 256): the ring (3 x 32 KB), the h, dg2
+// and dg1 tiles (32 KB each), the bias partials (2 x 4 KB) and dt: 201 KB;
+// the embed (64 x in_pad bf16, 129 KB at in_pad 1024) and dx's tiles overlay
+// them at the end.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -61,12 +104,12 @@
 
 namespace {
 
-using namespace enerf;  // TB, NWARPS, ..., Frag, mma_stream (r2l_mma.cuh)
+using namespace enerf;  // TB, NTHREADS, ..., Frag, mma_stream_kn (r2l_mma.cuh)
+static_assert(TB == wg::TB && NTHREADS == wg::NTHREADS, "one tile of 64 rays, 256 threads");
 
+// What the backward reads of the weights besides the tensor maps.
 struct Weights {
-  const __nv_bfloat16* head_w;     // [W, in_pad], doubling order when embed_L > 0
-  const float* head_b;             // [W]
-  const __nv_bfloat16* body_w;     // [n_block, 2, W, W]  ([out, in])
+  const __nv_bfloat16* head_w;     // [W, in_pad], doubling order when embed_L > 0 (dx)
   const float* body_b;             // [n_block, 2, W]
   const __nv_bfloat16* tail_w;     // [out_dim, W]
   const float* tail_b;             // [out_dim]
@@ -83,41 +126,78 @@ struct FwdArgs {
   const float* x;                  // [B, x_cols]
 };
 
+// The backward's tensor maps: the weights as [layer][out][in] in boxes of 64
+// columns x W rows (body over body_w, body_t over body_wt); hs as [block][ray]
+// [col] with B rays (read in boxes of 64 columns x 64 rays, zeros past B);
+// the operands g1s, dg2s, dg1s as [block][ray][col] and dpres as [1][ray][col]
+// with Bp rays (written in the same boxes).
+struct BwdMaps {
+  CUtensorMap body, body_t, hs, g1, dg2, dg1, dpre;
+};
+
 struct BwdArgs {
   Weights w;
   Shape s;
   const float* x;                  // [B, x_cols]
   const __nv_bfloat16* hs;         // [n_block + 1, hs_rows, W], rows 0 .. B - 1 used
   const float* dout;               // [B, out_dim]
-  __nv_bfloat16* dg2s;             // [n_block, Bp, W]: the weight-gradient operands
-  __nv_bfloat16* dg1s;             // [n_block, Bp, W]
-  __nv_bfloat16* g1s;              // [n_block, Bp, W]
-  __nv_bfloat16* dpres;            // [Bp, W]
   __nv_bfloat16* embs;             // [Bp, in_pad]
   float* part;                     // [Bp / TB, W + 2 n_block W + out_dim W + out_dim]
   float* dx;                       // [B, x_cols], or null: need_dx off
 };
 
 constexpr int MAX_OUT = 4;         // rgb, or rgb + depth
+constexpr int BWD_MAX_STAGES = 6;  // weight-ring stages of the backward, at most
 
 __host__ __device__ inline size_t max_sz(size_t x, size_t y) { return x > y ? x : y; }
 
+// Bytes of one [64, W] bf16 tile, which is also one ring stage ([W, 64]).
+__host__ __device__ constexpr size_t bwd_tile(int W) { return (size_t)TB * W * 2; }
+
+// Bytes besides the ring: three tiles, two [4, W] f32 partial buffers, dt
+// [TB, MAX_OUT] f32, two slots of W f32 biases, the barriers and the slack
+// that aligns the base to 1024 (the swizzle's period).
+__host__ __device__ constexpr size_t bwd_rest(int W) {
+  return 3 * bwd_tile(W) + 2 * 4 * (size_t)W * 4 + (size_t)TB * MAX_OUT * 4 +
+         2 * (size_t)W * 4 + (2 * BWD_MAX_STAGES + 1) * 8 + 1024;
+}
+
+// The ring's stages at width W: as many as fit, at most BWD_MAX_STAGES.
+__host__ __device__ constexpr int bwd_stages(int W) {
+  return (int)((MAX_SMEM - bwd_rest(W)) / bwd_tile(W)) < BWD_MAX_STAGES
+             ? (int)((MAX_SMEM - bwd_rest(W)) / bwd_tile(W))
+             : BWD_MAX_STAGES;
+}
+
+// Byte offsets from the 1024-aligned base. The body's regions, then what
+// overlays them once the body is done: the embed [TB, in_pad + PAD], and
+// dx's dpre tile [TB, W + PAD], its mma_stream_kn ring and its [TB, x_cols]
+// f32 sums (these three end below the dg2 tile, which dpre's store reads
+// meanwhile). The barriers come last and are overlaid by nothing.
 struct BwdLayout {
-  size_t ring, hbuf0, hbuf1, g1, dg2, dt, emb, dp, total;
+  size_t ring, h, dg2, dg1, red2, red1, dt, b0, dx_a, dx_ring, dx_dp, emb, bars, total;
+  int stages;
 };
 
 __host__ __device__ inline BwdLayout bwd_layout(int in_pad, int W) {
-  const size_t tile = (size_t)TB * (W + PAD) * 2;
+  const size_t tile = bwd_tile(W);
   BwdLayout l;
+  l.stages = bwd_stages(W);
   l.ring = 0;
-  l.hbuf0 = (size_t)S * ring_stage_bytes(W);
-  l.hbuf1 = l.hbuf0 + tile;
-  l.g1 = l.hbuf1 + tile;
-  l.emb = 0;                                   // after the body only
-  l.dp = l.hbuf1;                              // dx's [TB, K] f32 sums
-  l.dg2 = max_sz(l.g1 + tile, (size_t)TB * (in_pad + PAD) * 2);
-  l.dt = l.dg2 + tile;
-  l.total = l.dt + (size_t)TB * MAX_OUT * 4;
+  l.h = l.stages * tile;
+  l.dg2 = l.h + tile;
+  l.dg1 = l.dg2 + tile;
+  l.red2 = l.dg1 + tile;
+  l.red1 = l.red2 + 4 * (size_t)W * 4;
+  l.dt = l.red1 + 4 * (size_t)W * 4;
+  l.b0 = l.dt + (size_t)TB * MAX_OUT * 4;
+  l.dx_a = 0;
+  l.dx_ring = (size_t)TB * (W + PAD) * 2;
+  l.dx_dp = l.dx_ring + S * ring_stage_bytes(W);   // r2l_mma.cuh's 2-stage ring
+  l.emb = 0;
+  const size_t body = l.b0 + 2 * (size_t)W * 4;
+  l.bars = max_sz(body, (size_t)TB * (in_pad + PAD) * 2);
+  l.total = l.bars + (2 * l.stages + 1) * 8 + 1024;
   return l;
 }
 
@@ -180,43 +260,6 @@ struct FwdKernel {
   }
 };
 
-// Copies hs[blk] rows ray0 .. ray0 + TB - 1 into a [TB, W + PAD] bf16 tile
-// with cp.async (zeros past B). The caller commits and waits.
-__device__ __forceinline__ void load_hs_tile(__nv_bfloat16* dst, const __nv_bfloat16* hs,
-                                             const Shape& s, int blk, long long ray0) {
-  const int W = s.W, lda = W + PAD;
-  for (int q = threadIdx.x; q < TB * (W / 8); q += NTHREADS) {
-    const int row = q / (W / 8), col = (q % (W / 8)) * 8;
-    const long long ray = ray0 + row;
-    if (ray < s.B)
-      cp_async16(dst + row * lda + col, hs + ((size_t)blk * s.hs_rows + ray) * W + col);
-    else
-      *reinterpret_cast<uint4*>(dst + row * lda + col) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// Column sums over the tile's TB rows of v * scale (each product rounded
-// once, as the plain version's f32 sum of a rounded product), stored to
-// gb[n0 ..], one column a lane of group 0.
-__device__ __forceinline__ void col_sums_store(const Frag& v, float scale, float* gb,
-                                               int n0, int lane) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float sum = 0.0f;
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) sum = __fadd_rn(sum, __fmul_rn(v[i][j][2 * hf + e], scale));
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 8);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 16);
-      if (g == 0) gb[n0 + 8 * j + 2 * t + e] = sum;
-    }
-}
-
 // Copies a [TB, ncols] bf16 tile (shared, row stride lds) to rows ray0 ..
 // ray0 + TB - 1 of a row-major [*, ncols] array, 16 bytes a thread. Reads
 // only shared memory: the caller orders it against the tile's writers.
@@ -230,89 +273,204 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
-// dh (this warp's fragment) = bf16(dt) @ tail_w: out_dim exact bf16
-// products summed in f32.
-__device__ __forceinline__ void tail_dh(Frag& v, const float* sdt,
-                                        const __nv_bfloat16* tail_w, int out_dim,
-                                        int W, int n0, int lane) {
-  const int g = lane / 4, t = lane % 4;
+// One step of the column sums' butterfly: v holds 2 H column values, of
+// which a lane keeps the upper or the lower H and adds its partner's (lane
+// ^ mask) in v[0 .. H).
+template <int H, int N>
+__device__ __forceinline__ void halve(float (&v)[N], bool upper, int mask) {
 #pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = 16 * i + g + 8 * (e / 2), col = n0 + 8 * j + 2 * t + e % 2;
-        float sum = 0.0f;
-        for (int q = 0; q < out_dim; ++q)
-          sum = __fadd_rn(sum, __fmul_rn(bf16r(sdt[row * MAX_OUT + q]),
-                                         __bfloat162float(tail_w[(size_t)q * W + col])));
-        v[i][j][e] = sum;
-      }
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[H + i];
+    const float keep = upper ? v[H + i] : v[i];
+    v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, mask));
+  }
 }
 
-__device__ __forceinline__ bool mask_bit(unsigned long long m, int i, int j, int e) {
-  return (m >> ((i * NJ + j) * 4 + e)) & 1ull;
-}
-
-// NEED_DX: the dx chain is compiled in only where it runs. Its code in the
-// same kernel made ptxas spill around the body's products and cost the
-// need_dx-off pass a fifth of its time (PERF.md).
-template <bool NEED_DX>
-__global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// The backward's pass 1 on the tile of rays blockIdx.x * 64 .., by two
+// warpgroups (NT = W / 2 columns each); NEED_DX compiles the dx chain in
+// only where it runs (its code in the same kernel made ptxas spill around
+// the body's products, PERF.md).
+template <int NT, bool NEED_DX>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    r2l_train_bwd_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs p) {
+  constexpr int WP = 2 * NT, NCH = WP / wg::KC, NA = NT / 2, NV = NT / 4;
+  constexpr int ST = bwd_stages(WP);
+  extern __shared__ __align__(128) unsigned char bwd_smem[];  // aligned to 1024 below
+  unsigned char* smem = bwd_smem + ((1024 - (tma_smem_addr(bwd_smem) & 1023)) & 1023);
   const Shape s = p.s;  // a copy: the epilogues capture locals only
-  const BwdLayout lay = bwd_layout(s.in_pad, s.W);
-  const int W = s.W, lda = W + PAD, lde = s.in_pad + PAD, nb = s.n_block;
-  const int od = s.out_dim, K = s.x_cols, L = s.embed_L;
+  const BwdLayout lay = bwd_layout(s.in_pad, WP);
+  const int W = WP, nb = s.n_block, od = s.out_dim, K = s.x_cols, L = s.embed_L;
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + lay.ring);
-  __nv_bfloat16* hbuf[2] = {reinterpret_cast<__nv_bfloat16*>(smem + lay.hbuf0),
-                            reinterpret_cast<__nv_bfloat16*>(smem + lay.hbuf1)};
-  __nv_bfloat16* sg1 = reinterpret_cast<__nv_bfloat16*>(smem + lay.g1);
-  __nv_bfloat16* sdg2 = reinterpret_cast<__nv_bfloat16*>(smem + lay.dg2);
+  __nv_bfloat16* sh = reinterpret_cast<__nv_bfloat16*>(smem + lay.h);     // h_in, then g1
+  __nv_bfloat16* sdg2 = reinterpret_cast<__nv_bfloat16*>(smem + lay.dg2); // dg2, then dpre
+  __nv_bfloat16* sdg1 = reinterpret_cast<__nv_bfloat16*>(smem + lay.dg1); // hs[nb], then dg1
+  float* red2 = reinterpret_cast<float*>(smem + lay.red2);  // [4 warps][W] partials of dg2 (dpre)
+  float* red1 = reinterpret_cast<float*>(smem + lay.red1);  // ... of dg1
   float* sdt = reinterpret_cast<float*>(smem + lay.dt);
-  __nv_bfloat16* emb = reinterpret_cast<__nv_bfloat16*>(smem + lay.emb);
-  float* dp = reinterpret_cast<float*>(smem + lay.dp);
+  float* sb0 = reinterpret_cast<float*>(smem + lay.b0);  // [2 slots][W] b0 of a block
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  uint64_t* empty = full + ST;
+  uint64_t* hbar = empty + ST;  // the h tile's loads
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4, n0 = warp * WN;
-  const bool owns = n0 < W;
+  const int wgi = tid / 128, w4 = warp % 4, g = lane / 4, t = lane % 4, wr = w4 * 16;
+  const int col0 = wgi * NT + 2 * t;
   const long long ray0 = (long long)blockIdx.x * TB;
-  const size_t Bp = (size_t)gridDim.x * TB;
   const __nv_bfloat16* tail_w = p.w.tail_w;
-  const float* body_b = p.w.body_b;
-  const __nv_bfloat16* body_w = p.w.body_w;
   // this tile's row of column sums: head_b | body_b | tail_w | tail_b
   float* part_head_b = p.part + blockIdx.x * (size_t)(W + 2 * nb * W + od * W + od);
   float* part_body_b = part_head_b + W;
   float* part_tail_w = part_body_b + 2 * nb * W;
   float* part_tail_b = part_tail_w + od * W;
 
-  // ---- the tail input hs[nb] and the last block's input hs[nb - 1]
-  load_hs_tile(hbuf[nb & 1], p.hs, s, nb, ray0);
-  load_hs_tile(hbuf[(nb - 1) & 1], p.hs, s, nb - 1, ray0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
+  if (tid == 0) {
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&full[st], 1);               // the loading thread's arrive, plus the bytes
+      mbar_init(&empty[st], NTHREADS / 32);  // every warp
+    }
+    mbar_init(hbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers exist before any copy or arrival
+
+  // ---- the loads, by thread 0: the weight chunks, ST ahead of the
+  // products: per block in reverse, W0 (K-major), W1^T, W0^T, each [W, 64]
+  const int total = nb * 3 * NCH;
+  auto issue = [&](int n) {
+    if (n >= total) return;
+    const int st = n % ST;
+    mbar_wait(&empty[st], ((n / ST) & 1) ^ 1);
+    const int q = n / NCH, blk = nb - 1 - q / 3, prod = q % 3;
+    mbar_arrive_expect_tx(&full[st], WP * 128);
+    tma_box(ring + (size_t)st * WP * wg::KC, prod == 0 ? &maps.body : &maps.body_t,
+            (n % NCH) * wg::KC, 0, 2 * blk + (prod == 1), &full[st]);
+  };
+  // hs[blk]'s rows of the tile into `dst` (a 64-column panel a box),
+  // completing on hbar
+  auto load_h = [&](__nv_bfloat16* dst, int blk) {
+    for (int q = 0; q < NCH; ++q)
+      tma_box(dst + q * wg::PANEL, &maps.hs, 64 * q, (int)ray0, blk, hbar);
+  };
+  // block blk's first bias into slot blk % 2 by cp.async, 16 bytes a
+  // thread; the threads that copy wait (cp_async_wait) before the next
+  // barrier
+  auto prefetch_b0 = [&](int blk) {
+    if (tid < W / 4)
+      cp_async16(sb0 + (blk & 1) * W + 4 * tid, p.w.body_b + (size_t)(2 * blk) * W + 4 * tid);
+    cp_async_commit();
+  };
+  // a [64, W] tile to rows ray0.. of layer `layer` of a map
+  auto store_t = [&](const CUtensorMap* map, const __nv_bfloat16* src, int layer) {
+    for (int q = 0; q < NCH; ++q)
+      tma_store_box(map, src + q * wg::PANEL, 64 * q, (int)ray0, layer);
+  };
+  if (tid == 0) {
+    // the tail's input and the last block's, one phase of hbar
+    mbar_arrive_expect_tx(hbar, 2 * TB * WP * 2);
+    load_h(sdg1, nb);
+    load_h(sh, nb - 1);
+    for (int n = 0; n < ST; ++n) issue(n);
+  }
+
+  // ---- the products: warpgroup wgi owns columns [wgi NT, wgi NT + NT)
+  float acc[NA], dh[NA];
+  // this thread's first row and column of a product (and its place among
+  // the column partials), hidden from the optimizer at each epilogue: it
+  // would otherwise compute the epilogues' 32 swizzled offsets once, keep
+  // them across the block loop and spill them
+  struct At {
+    int row, col, red;
+  };
+  auto at = [&]() {
+    At a{wr + g, col0, w4 * W + col0};
+    asm volatile("" : "+r"(a.row), "+r"(a.col), "+r"(a.red));
+    return a;
+  };
+  int c = 0;  // chunks consumed
+  // frees the stage of chunk `read` once this warp's products have read it;
+  // thread 0 then loads chunk read + ST
+  auto release = [&](int read) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[read % ST]);
+    if (tid == 0) issue(read + ST);
+  };
+  // acc = X[64, W] @ (the next NCH chunks)^T, X in swizzled panels
+  auto products = [&](const __nv_bfloat16* X) {
+    for (int kc = 0; kc < NCH; ++kc, ++c) {
+      const int st = c % ST;
+      mbar_wait(&full[st], (c / ST) & 1);
+      const uint64_t da = wg::desc(X + kc * wg::PANEL);
+      const uint64_t db = wg::desc(ring + (size_t)st * WP * wg::KC + wgi * NT * wg::KC);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < wg::KC / 16; ++k)
+        wg::Wgmma<NT>::run(acc, da + 2 * k, db + 2 * k, kc + k > 0);
+      wg::wgmma_commit();
+      if (kc > 0) {
+        wg::wgmma_wait<1>();  // the chunk before this one has been read
+        release(c - 1);
+      }
+    }
+    wg::wgmma_wait<0>();
+    release(c - 1);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) wg::fence_reg(acc[i]);
+  };
+  // The warp's column sums over its 16 rows of the values val(i) (i the
+  // index of acc and dh: row wr + g + 8 (i / 2 % 2), column col0 + 8 (i /
+  // 4) + i % 2) into red[w4][col]
+  auto col_partials = [&](float (&v)[NV], float* red) {
+    halve<NV / 2>(v, g & 4, 16);
+    halve<NV / 4>(v, g & 2, 8);
+    halve<NV / 8>(v, g & 1, 4);
+    const At a = at();
+#pragma unroll
+    for (int i = 0; i < NV / 8; ++i) {
+      const int k = (NV / 8) * g + i;  // the column k = 2 j + e this lane now holds
+      red[a.red + 8 * (k / 2) + k % 2] = v[i];
+    }
+  };
+  // after a barrier: the four warps' partials of each column added in order
+  auto combine = [&](const float* red, float* dst) {
+    for (int col = tid; col < W; col += NTHREADS)
+      dst[col] = __fadd_rn(__fadd_rn(__fadd_rn(red[col], red[W + col]), red[2 * W + col]),
+                           red[3 * W + col]);
+  };
+  // dh (+)= bf16(dt) @ tail_w: out_dim exact bf16 products summed in f32
+  auto tail_dh = [&](bool add) {
+    const At a = at();
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int row = a.row + 8 * ((i / 2) % 2), col = a.col + 8 * (i / 4) + i % 2;
+      float sum = 0.0f;
+      for (int q = 0; q < od; ++q)
+        sum = __fadd_rn(sum, __fmul_rn(bf16r(sdt[row * MAX_OUT + q]),
+                                       __bfloat162float(tail_w[(size_t)q * W + col])));
+      dh[i] = add ? dh[i] + sum : sum;
+    }
+  };
 
   // ---- tail: out = sigmoid(hN @ Wt^T + bt), dt = dout * out * (1 - out)
-  const __nv_bfloat16* hN = hbuf[nb & 1];
-  for (int q = warp; q < TB * od; q += NWARPS) {
+  prefetch_b0(nb - 1);
+  mbar_wait(hbar, 0);
+  const __nv_bfloat16* hN = sdg1;
+  for (int q = warp; q < TB * od; q += NTHREADS / 32) {
     const int row = q / od, j = q % od;
-    float acc = 0.0f;
+    float sum = 0.0f;
     for (int n = lane; n < W; n += 32)
-      acc += __bfloat162float(hN[row * lda + n]) * __bfloat162float(tail_w[(size_t)j * W + n]);
+      sum += __bfloat162float(hN[wg::swz(row, n)]) * __bfloat162float(tail_w[(size_t)j * W + n]);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
     if (lane == 0) {
       const long long ray = ray0 + row;
       float d = 0.0f;                     // rays past B contribute nothing
       if (ray < s.B) {
-        const float o = 1.0f / (1.0f + expf(-(acc + p.w.tail_b[j])));
+        const float o = 1.0f / (1.0f + expf(-(sum + p.w.tail_b[j])));
         d = __fmul_rn(__fmul_rn(p.dout[ray * od + j], o), __fsub_rn(1.0f, o));
       }
       sdt[row * MAX_OUT + j] = d;
     }
   }
+  cp_async_wait<0>();
   __syncthreads();
   if (tid < od) {
     float sum = 0.0f;
@@ -324,144 +482,153 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArg
     float sum = 0.0f;
     for (int r = 0; r < TB; ++r)
       sum = __fadd_rn(sum, __fmul_rn(bf16r(sdt[r * MAX_OUT + j]),
-                                     __bfloat162float(hN[r * lda + n])));
+                                     __bfloat162float(hN[wg::swz(r, n)])));
     part_tail_w[q] = sum;
   }
-  Frag dh;
-  if (owns) tail_dh(dh, sdt, tail_w, od, W, n0, lane);
-  __syncthreads();  // hN's buffer is refilled by the first block's prefetch
+  tail_dh(false);
 
-  // ---- residual blocks in reverse
+  // ---- residual blocks in reverse (the schedule: the header)
   const float rs = s.res_scale;
+  float v[NV];
   for (int blk = nb - 1; blk >= 0; --blk) {
-    const __nv_bfloat16* hin = hbuf[blk & 1];
-    // the next block's input; its buffer's last reader (block blk + 1) is done
-    if (blk > 0) load_hs_tile(hbuf[(blk - 1) & 1], p.hs, s, blk - 1, ray0);
-    cp_async_commit();
-    const __nv_bfloat16* w0 = body_w + (size_t)(2 * blk) * W * W;
-    const __nv_bfloat16* w1 = w0 + (size_t)W * W;
-    float* gb0 = part_body_b + (size_t)(2 * blk) * W;
-    float* gb1 = gb0 + W;
-    const size_t lofs = (size_t)blk * Bp * W;   // this block's rows of the operands
+    // dg2 = dh * res_scale: bf16 operand, f32 bias gradient (its tile's
+    // last readers, blk + 1's products and store, are done: barrier B)
+    At a = at();
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 4 * j + 2 * hf, row = a.row + 8 * hf, col = a.col + 8 * j;
+        const float d0 = __fmul_rn(dh[i], rs), d1 = __fmul_rn(dh[i + 1], rs);
+        wg::st_bf16x2(sdg2 + wg::swz(row, col), d0, d1);
+        v[2 * j] = hf ? __fadd_rn(v[2 * j], d0) : d0;
+        v[2 * j + 1] = hf ? __fadd_rn(v[2 * j + 1], d1) : d1;
+      }
+    col_partials(v, red2);
 
-    // dg2 = dh * res_scale: bf16 operand, f32 bias gradient
-    if (owns) {
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int row = 16 * i + g + 8 * hf, col = n0 + 8 * j + 2 * t;
-            store_bf16x2(sdg2 + row * lda + col, __fmul_rn(dh[i][j][2 * hf], rs),
-                         __fmul_rn(dh[i][j][2 * hf + 1], rs));
-          }
-      col_sums_store(dh, rs, gb1, n0, lane);
-    }
-
-    // g1 = relu(h_in @ W0^T + b0) -> sg1 (bf16) and the relu mask
+    // g1 = relu(h_in @ W0^T + b0): the relu mask, and g1 in registers
+    // until both warpgroups have read h_in (b0 from its slot: the biases,
+    // 88 KB at W256 D88, do not stay in the L1 beside the tiles)
+    mbar_wait(hbar, (nb - 1 - blk) & 1);
+    products(sh);
+    const float* b0s = sb0 + (blk & 1) * W;
+    a = at();
     unsigned long long mask = 0;
-    const float* b0p = body_b + (size_t)(2 * blk) * W;
-    mma_stream(hin, hin, lda, w0, 0, W, 1, W, ring, [&](int, Frag& acc) {
+    __nv_bfloat162 gp[NV];
 #pragma unroll
-      for (int i = 0; i < RT; ++i)
+    for (int j = 0; j < NT / 8; ++j)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int col = n0 + 8 * j + 2 * t;
-          const float b0 = b0p[col], b1 = b0p[col + 1];
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 4 * j + 2 * hf;
+        const float2 b = *reinterpret_cast<const float2*>(b0s + a.col + 8 * j);
+        const float v0 = acc[i] + b.x, v1 = acc[i + 1] + b.y;
+        if (v0 > 0.0f) mask |= 1ull << i;
+        if (v1 > 0.0f) mask |= 1ull << (i + 1);
+        gp[2 * j + hf] = __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+      }
+    fence_proxy_async();
+    __syncthreads();  // A: dg2 is whole; both warpgroups have read h_in
+    if (tid == 0) {
+      store_t(&maps.dg2, sdg2, blk);
+      bulk_commit();
+    }
+    if (blk > 0) prefetch_b0(blk - 1);  // into the slot blk + 1 read before A
+    combine(red2, part_body_b + (size_t)(2 * blk + 1) * W);
+    a = at();
 #pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int row = 16 * i + g + 8 * hf;
-            const float v0 = acc[i][j][2 * hf] + b0, v1 = acc[i][j][2 * hf + 1] + b1;
-            if (v0 > 0.0f) mask |= 1ull << ((i * NJ + j) * 4 + 2 * hf);
-            if (v1 > 0.0f) mask |= 1ull << ((i * NJ + j) * 4 + 2 * hf + 1);
-            store_bf16x2(sg1 + row * lda + col, fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
-          }
-        }
-    });
+    for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<__nv_bfloat162*>(sh + wg::swz(a.row + 8 * hf, a.col + 8 * j)) =
+            gp[2 * j + hf];
 
-    // the dW1 operands: mma_stream ended with a barrier, so g1 and dg2 are
-    // complete; mma_stream_kn's first barrier orders these reads before
-    // its epilogue overwrites g1 with dg1
-    store_tile(p.g1s + lofs, sg1, lda, W, ray0);
-    store_tile(p.dg2s + lofs, sdg2, lda, W, ray0);
-
-    // dg1 = (dg2 @ W1) * (g1 > 0) -> sg1 (g1 is dead), bias gradient
-    mma_stream_kn(sdg2, lda, w1, W, W, W, W, ring, [&](Frag& acc) {
+    // dg1 = (dg2 @ W1) * (g1 > 0): bf16 operand, f32 bias gradient
+    products(sdg2);
+    a = at();
 #pragma unroll
-      for (int i = 0; i < RT; ++i)
+    for (int j = 0; j < NT / 8; ++j)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (!mask_bit(mask, i, j, e)) acc[i][j][e] = 0.0f;
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int row = 16 * i + g + 8 * hf, col = n0 + 8 * j + 2 * t;
-            store_bf16x2(sg1 + row * lda + col, acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
-          }
-      col_sums_store(acc, 1.0f, gb0, n0, lane);
-    });
-
-    // the dW0 operand (h_in is hs itself)
-    store_tile(p.dg1s + lofs, sg1, lda, W, ray0);
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 4 * j + 2 * hf, row = a.row + 8 * hf, col = a.col + 8 * j;
+        const float d0 = (mask >> i) & 1ull ? acc[i] : 0.0f;
+        const float d1 = (mask >> (i + 1)) & 1ull ? acc[i + 1] : 0.0f;
+        wg::st_bf16x2(sdg1 + wg::swz(row, col), d0, d1);
+        v[2 * j] = hf ? __fadd_rn(v[2 * j], d0) : d0;
+        v[2 * j + 1] = hf ? __fadd_rn(v[2 * j + 1], d1) : d1;
+      }
+    col_partials(v, red1);
+    fence_proxy_async();
+    cp_async_wait<0>();              // b0 of blk - 1 has landed
+    if (tid == 0) bulk_wait_read();  // dg2's store has read its tile
+    __syncthreads();  // B: g1 and dg1 are whole
+    if (tid == 0) {
+      store_t(&maps.g1, sh, blk);
+      store_t(&maps.dg1, sdg1, blk);
+      bulk_commit();
+      bulk_wait_read();  // both stores have read their tiles: the h tile takes hs[blk - 1]
+      if (blk > 0) {
+        mbar_arrive_expect_tx(hbar, TB * WP * 2);
+        load_h(sh, blk - 1);
+      }
+    }
+    combine(red1, part_body_b + (size_t)(2 * blk) * W);
 
     // dh += dg1 @ W0
-    mma_stream_kn(sg1, lda, w0, W, W, W, W, ring, [&](Frag& acc) {
+    products(sdg1);
 #pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dh[i][j][e] = dh[i][j][e] + acc[i][j][e];
-    });
+    for (int i = 0; i < NA; ++i) dh[i] = dh[i] + acc[i];
   }
 
   // ---- head: global residual, relu mask from hs[0] (in f32), dpre
-  if (owns) {
-    if (s.global_residual) {
-      Frag v;
-      tail_dh(v, sdt, tail_w, od, W, n0, lane);
+  if (s.global_residual) tail_dh(true);
+  const __nv_bfloat16* h0 = p.hs;  // hs[0]
+  const At a = at();
 #pragma unroll
-      for (int i = 0; i < RT; ++i)
+  for (int j = 0; j < NT / 8; ++j)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dh[i][j][e] = dh[i][j][e] + v[i][j][e];
+    for (int hf = 0; hf < 2; ++hf) {
+      const int i = 4 * j + 2 * hf, row = a.row + 8 * hf, col = a.col + 8 * j;
+      const long long ray = ray0 + row;
+      float2 hv = make_float2(0.0f, 0.0f);
+      if (ray < s.B)
+        hv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(h0 + ray * W + col));
+      if (!(hv.x > 0.0f)) dh[i] = 0.0f;
+      if (!(hv.y > 0.0f)) dh[i + 1] = 0.0f;
+      wg::st_bf16x2(sdg2 + wg::swz(row, col), dh[i], dh[i + 1]);
+      v[2 * j] = hf ? __fadd_rn(v[2 * j], dh[i]) : dh[i];
+      v[2 * j + 1] = hf ? __fadd_rn(v[2 * j + 1], dh[i + 1]) : dh[i + 1];
     }
-    const __nv_bfloat16* h0 = hbuf[0];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = 16 * i + g + 8 * hf, col = n0 + 8 * j + 2 * t;
-          const float2 hv = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(h0 + row * lda + col));
-          if (!(hv.x > 0.0f)) dh[i][j][2 * hf] = 0.0f;
-          if (!(hv.y > 0.0f)) dh[i][j][2 * hf + 1] = 0.0f;
-          store_bf16x2(sdg2 + row * lda + col, dh[i][j][2 * hf], dh[i][j][2 * hf + 1]);
-        }
-    col_sums_store(dh, 1.0f, part_head_b, n0, lane);
+  col_partials(v, red2);
+  fence_proxy_async();
+  __syncthreads();  // dpre is whole; every product has run (the ring and h are free)
+  if (tid == 0) {
+    store_t(&maps.dpre, sdg2, 0);
+    bulk_commit();
   }
-  __syncthreads();
-  store_tile(p.dpres, sdg2, lda, W, ray0);
+  combine(red2, part_head_b);
 
-  // ---- dx = dpre @ head_w, chained through the embed when embed_L > 0
+  // ---- dx = dpre @ head_w, chained through the embed when embed_L > 0,
+  // on r2l_mma.cuh's warps of 32 columns over the freed ring and h tile
   const float* xg = p.x;
   float* dxg = p.dx;
   if (NEED_DX) {
+    __nv_bfloat16* dpa = reinterpret_cast<__nv_bfloat16*>(smem + lay.dx_a);
+    float* dp = reinterpret_cast<float*>(smem + lay.dx_dp);
+    const int lda = W + PAD;
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 4 * j + 2 * hf, row = a.row + 8 * hf, col = a.col + 8 * j;
+        store_bf16x2(dpa + row * lda + col, dh[i], dh[i + 1]);
+      }
     if (L > 0)
       for (int q = tid; q < TB * K; q += NTHREADS) dp[q] = 0.0f;
+    const int n0 = warp * WN;
     for (int nc = 0; nc < s.in_pad; nc += W) {
       const int ncols = min(W, s.in_pad - nc);
-      mma_stream_kn(sdg2, lda, p.w.head_w + nc, s.in_pad, W, ncols, W, ring,
-                    [&](Frag& acc) {
+      mma_stream_kn(dpa, lda, p.w.head_w + nc, s.in_pad, W, ncols, W,
+                    reinterpret_cast<__nv_bfloat16*>(smem + lay.dx_ring), [&](Frag& a) {
         for (int i = 0; i < RT; ++i)
           for (int j = 0; j < NJ; ++j)
             for (int e = 0; e < 4; ++e) {
@@ -469,14 +636,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArg
               const long long ray = ray0 + row;
               const int n = nc + col;
               if (col >= ncols || ray >= s.B) continue;
-              const float v = acc[i][j][e];
+              const float val = a[i][j][e];
               if (L == 0) {
-                if (n < K) dxg[ray * K + n] = v;
+                if (n < K) dxg[ray * K + n] = val;
                 continue;
               }
               const int b = n / K, m = n % K;
               if (b > 2 * L) continue;     // zero padding columns
-              float term = v;              // identity block
+              float term = val;            // identity block
               if (b < 2 * L) {
                 // d sin(2^j p) = 2^j cos(2^j p) dp, d cos(2^j p) = -2^j sin(2^j p) dp
                 const int jj = b % L;
@@ -488,7 +655,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArg
                   sn = s2;
                 }
                 const float f = (float)(1 << jj);
-                term = b < L ? __fmul_rn(v, __fmul_rn(f, cs)) : -__fmul_rn(v, __fmul_rn(f, sn));
+                term = b < L ? __fmul_rn(val, __fmul_rn(f, cs)) : -__fmul_rn(val, __fmul_rn(f, sn));
               }
               atomicAdd(dp + row * K + m, term);
             }
@@ -499,13 +666,29 @@ __global__ void __launch_bounds__(NTHREADS, 1) r2l_train_bwd_kernel(const BwdArg
         const long long ray = ray0 + q / K;
         if (ray < s.B) dxg[ray * K + q % K] = dp[q];
       }
-    __syncthreads();  // dp and the ring are overwritten by the embed
   }
 
-  // ---- the head's weight-gradient operand: the recomputed embed
+  // ---- the head's weight-gradient operand: the recomputed embed, over
+  // everything (dpre's store has read its tile)
+  if (tid == 0) bulk_wait_read();
+  __syncthreads();
+  const int lde = s.in_pad + PAD;
+  __nv_bfloat16* emb = reinterpret_cast<__nv_bfloat16*>(smem + lay.emb);
   embed_tile(xg, ray0, s, emb, lde);
   __syncthreads();
   store_tile(p.embs, emb, lde, s.in_pad, ray0);
+  if (tid == 0) bulk_wait();
+}
+
+template <int NT>
+int bwd_launch(const BwdMaps& maps, const BwdArgs& p, unsigned grid, size_t smem,
+               cudaStream_t stream) {
+  auto kernel = p.dx != nullptr ? r2l_train_bwd_kernel<NT, true> : r2l_train_bwd_kernel<NT, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, NTHREADS, smem, stream>>>(maps, p);
+  return (int)cudaGetLastError();
 }
 
 bool shape_ok(const Shape& s) {
@@ -531,18 +714,6 @@ Shape make_shape(int B, int x_cols, int embed_L, int in_pad, int W, int n_block,
   return s;
 }
 
-Weights make_weights(const void* head_w, const float* head_b, const void* body_w,
-                     const float* body_b, const void* tail_w, const float* tail_b) {
-  Weights w;
-  w.head_w = static_cast<const __nv_bfloat16*>(head_w);
-  w.head_b = head_b;
-  w.body_w = static_cast<const __nv_bfloat16*>(body_w);
-  w.body_b = body_b;
-  w.tail_w = static_cast<const __nv_bfloat16*>(tail_w);
-  w.tail_b = tail_b;
-  return w;
-}
-
 }  // namespace
 
 // Bytes of dynamic shared memory a block of each kernel needs; above 232448
@@ -554,6 +725,9 @@ extern "C" long long r2l_train_fwd_smem_bytes(int in_pad, int W) {
 extern "C" long long r2l_train_bwd_smem_bytes(int in_pad, int W) {
   return (long long)bwd_layout(in_pad, W).total;
 }
+
+// The backward's weight-ring stages at width W (3 at W256).
+extern "C" int r2l_train_bwd_stages(int W) { return bwd_stages(W); }
 
 // Both launch on `stream` and return cudaGetLastError() (0 = ok). Shapes are
 // checked by the Python wrapper; the checks here guard the kernels' own
@@ -584,16 +758,18 @@ extern "C" int r2l_train_fwd_launch(const float* x, const void* head_w, const fl
 // The backward's pass 1: the scratch of pass 2 (dg2s, dg1s, g1s [n_block,
 // Bp, W], dpres [Bp, W], embs [Bp, in_pad] bf16, part [Bp / 64, W + 2
 // n_block W + out_dim W + out_dim] f32, Bp = B rounded up to 64; every
-// element written) and dx. hs holds block b's rows at hs + b hs_rows W.
+// element written) and dx. hs holds block b's rows at hs + b hs_rows W;
+// body_wt is body_w with each [W, W] layer transposed.
 extern "C" int r2l_train_bwd_launch(const float* x, const void* hs, const float* dout,
                                     const void* head_w, const float* head_b,
                                     const void* body_w, const float* body_b,
                                     const void* tail_w, const float* tail_b,
-                                    void* dg2s, void* dg1s, void* g1s, void* dpres,
-                                    void* embs, float* part, float* dx, int B, int hs_rows,
-                                    int x_cols, int embed_L, int in_pad, int W, int n_block,
-                                    int out_dim, float res_scale, int global_residual,
-                                    void* stream) {
+                                    const void* body_wt, void* dg2s, void* dg1s, void* g1s,
+                                    void* dpres, void* embs, float* part, float* dx, int B,
+                                    int hs_rows, int x_cols, int embed_L, int in_pad, int W,
+                                    int n_block, int out_dim, float res_scale,
+                                    int global_residual, void* stream) {
+  (void)head_b;  // the head's bias gradient is dpre's column sums
   if (B <= 0) return 0;
   BwdArgs p;
   p.s = make_shape(B, x_cols, embed_L, in_pad, W, n_block, out_dim, res_scale,
@@ -601,27 +777,41 @@ extern "C" int r2l_train_bwd_launch(const float* x, const void* hs, const float*
   if (hs_rows < B) return (int)cudaErrorInvalidValue;
   p.s.hs_rows = hs_rows;
   const BwdLayout lay = bwd_layout(in_pad, W);
-  // dx's [TB, K] f32 sums overlay one h_in tile and g1
-  const bool dp_fits = dx == nullptr || embed_L == 0 ||
-                       (size_t)TB * x_cols * 4 <= lay.dg2 - lay.dp;
-  if (!shape_ok(p.s) || !dp_fits || lay.total > (size_t)MAX_SMEM)
+  // dx's tiles and [TB, K] f32 sums end below the dg2 tile (dpre's store
+  // reads it meanwhile)
+  const bool dx_fits = dx == nullptr ||
+                       lay.dx_dp + (embed_L > 0 ? (size_t)TB * x_cols * 4 : 0) <= lay.dg2;
+  if (!shape_ok(p.s) || !dx_fits || lay.total > (size_t)MAX_SMEM)
     return (int)cudaErrorInvalidValue;
-  auto kernel = dx != nullptr ? r2l_train_bwd_kernel<true> : r2l_train_bwd_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
-  if (err != cudaSuccess) return (int)err;
-  p.w = make_weights(head_w, head_b, body_w, body_b, tail_w, tail_b);
+  const unsigned blocks = (unsigned)((B + TB - 1) / TB);
+  const long long Bp = (long long)blocks * TB;
+  EncodeTiled fn = encoder();
+  BwdMaps maps;
+  if (fn == nullptr ||
+      !encode(fn, &maps.body, body_w, W, W, 2LL * n_block, 2LL * W, 2LL * W * W, W) ||
+      !encode(fn, &maps.body_t, body_wt, W, W, 2LL * n_block, 2LL * W, 2LL * W * W, W) ||
+      !encode(fn, &maps.hs, hs, W, B, n_block + 1, 2LL * W, 2LL * W * hs_rows, TB) ||
+      !encode(fn, &maps.g1, g1s, W, Bp, n_block, 2LL * W, 2LL * W * Bp, TB) ||
+      !encode(fn, &maps.dg2, dg2s, W, Bp, n_block, 2LL * W, 2LL * W * Bp, TB) ||
+      !encode(fn, &maps.dg1, dg1s, W, Bp, n_block, 2LL * W, 2LL * W * Bp, TB) ||
+      !encode(fn, &maps.dpre, dpres, W, Bp, 1, 2LL * W, 2LL * W * Bp, TB))
+    return (int)cudaErrorInvalidValue;
+  p.w.head_w = static_cast<const __nv_bfloat16*>(head_w);
+  p.w.body_b = body_b;
+  p.w.tail_w = static_cast<const __nv_bfloat16*>(tail_w);
+  p.w.tail_b = tail_b;
   p.x = x;
   p.hs = static_cast<const __nv_bfloat16*>(hs);
   p.dout = dout;
-  p.dg2s = static_cast<__nv_bfloat16*>(dg2s);
-  p.dg1s = static_cast<__nv_bfloat16*>(dg1s);
-  p.g1s = static_cast<__nv_bfloat16*>(g1s);
-  p.dpres = static_cast<__nv_bfloat16*>(dpres);
   p.embs = static_cast<__nv_bfloat16*>(embs);
   p.part = part;
   p.dx = dx;
-  const unsigned blocks = (unsigned)((B + TB - 1) / TB);
-  kernel<<<blocks, NTHREADS, lay.total, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (W) {
+    case 64: return bwd_launch<32>(maps, p, blocks, lay.total, st);
+    case 128: return bwd_launch<64>(maps, p, blocks, lay.total, st);
+    case 192: return bwd_launch<96>(maps, p, blocks, lay.total, st);
+    case 256: return bwd_launch<128>(maps, p, blocks, lay.total, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -12,51 +12,57 @@
 //     t = (u - cdf_lo) / denom, val = b_lo + t (b_hi - b_lo);
 //   u >= cdf_last takes bins[C-1], and the top level u >= 1 is pinned to it.
 //
-// One thread walks one ray (pdf_walk of sample_pdf.cuh, which the whole-ray
-// kernel nerf_frame.cu also runs, so that the two agree bit for bit).
-//
 // Bound: 4 (2C - 1 + n) bytes a ray in and out (about 1 KB at C 63, n 128,
-// the fine pass of the lego config): bound by bytes. One thread walks one ray;
-// a block of 32 rays stages its rows through shared memory so that the loads
-// and the stores are coalesced (rows are padded to odd strides, so that the
-// threads of a warp, one row each, hit distinct banks).
+// the fine pass of the lego config; 33.2 MB a 32,768-ray chunk, 0.0099 ms at
+// 3.35 TB/s): bound by bytes. The design: one warp a ray (pdf_warp of
+// sample_pdf.cuh, which the whole-ray kernel nerf_frame.cu also runs, so
+// that the two agree bit for bit). Blocks of WARPS warps, as many as are
+// resident, stride over the rays and stage the n levels once; each warp
+// loads its ray's C edges and C - 1 weights into its own row of shared
+// memory, neighbouring lanes on neighbouring words (coalesced, and no bank
+// conflict: a warp's row is contiguous), builds the CDF in place of the
+// weights (the total by every lane and the sequential sum by lane 0 in
+// order, the divisions over the lanes) and spreads the n levels over its
+// lanes, each a binary search of the CDF, the stores coalesced. The two sums
+// in order take a warp instruction a weight each: on the card the kernel is
+// bound by its instructions, not by its bytes (PERF.md). One thread a ray
+// (PR 4's design) walked 62 intervals and 128 levels, each with a true
+// division, in 32-thread blocks of which 6 fit on an SM: latency-bound at
+// 192 threads of 2,048.
 #include <cuda_runtime.h>
 
 #include "sample_pdf.cuh"
 
 namespace {
 
-using enerf::pdf_walk;
+using enerf::pdf_warp;
 
-constexpr int TR = 32;  // rays (threads) per block
+constexpr int WARPS = 8;  // rays a block works on at a time, one a warp
 
+// A warp's row: C edges, then C - 1 weights (the CDF in their place).
 __host__ __device__ inline size_t smem_floats(int C, int n) {
-  // bins and weights at row stride C, outputs at n + 1 (odd for C = 63),
-  // then the n levels
-  return (size_t)TR * (2 * C + n + 1) + n;
+  return (size_t)WARPS * (2 * C - 1) + n;
 }
 
-__global__ void __launch_bounds__(TR) sample_pdf_det_kernel(
+__global__ void __launch_bounds__(WARPS * 32) sample_pdf_det_kernel(
     const float* __restrict__ bins, const float* __restrict__ weights,
     const float* __restrict__ u, float* __restrict__ out, long long N, int C, int n) {
   extern __shared__ float sm[];
-  float* sb = sm;                       // [TR][C] bins
-  float* sw = sb + TR * C;              // [TR][C] weights (C - 1 used)
-  float* so = sw + TR * C;              // [TR][n + 1] samples
-  float* su = so + TR * (n + 1);        // [n] levels
-  const int tid = threadIdx.x;
-  const long long ray0 = (long long)blockIdx.x * TR;
-  const int rows = (int)(N - ray0 < TR ? N - ray0 : TR);
-
-  for (int e = tid; e < rows * C; e += TR) sb[e] = bins[ray0 * C + e];
-  for (int e = tid; e < rows * (C - 1); e += TR)
-    sw[(e / (C - 1)) * C + e % (C - 1)] = weights[ray0 * (C - 1) + e];
-  for (int e = tid; e < n; e += TR) su[e] = u[e];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* su = sm;                                  // [n] levels
+  float* sb = su + n + (size_t)warp * (2 * C - 1); // this warp's [C] edges
+  float* sw = sb + C;                              // [C - 1] weights, then the CDF
+  for (int e = threadIdx.x; e < n; e += WARPS * 32) su[e] = u[e];
   __syncthreads();
-
-  if (tid < rows) pdf_walk(sb + tid * C, sw + tid * C, C, su, n, so + tid * (n + 1));
-  __syncthreads();
-  for (int e = tid; e < rows * n; e += TR) out[ray0 * n + e] = so[(e / n) * (n + 1) + e % n];
+  for (long long ray = (long long)blockIdx.x * WARPS + warp; ray < N;
+       ray += (long long)gridDim.x * WARPS) {
+    for (int i = lane; i < C; i += 32) sb[i] = bins[ray * C + i];
+    for (int i = lane; i < C - 1; i += 32) sw[i] = weights[ray * (C - 1) + i];
+    __syncwarp();
+    float* o = out + ray * n;
+    pdf_warp(sb, sw, sw, C, su, n, lane, [=](int j, float v) { o[j] = v; });
+    __syncwarp();  // the row is reloaded for the next ray
+  }
 }
 
 }  // namespace
@@ -76,11 +82,34 @@ extern "C" int sample_pdf_det_launch(const float* bins, const float* weights,
   if (N <= 0) return 0;
   const size_t smem = smem_floats(C, n) * sizeof(float);
   if (C < 2 || n < 1 || smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      sample_pdf_det_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((N + TR - 1) / TR);
-  sample_pdf_det_kernel<<<blocks, TR, smem, (cudaStream_t)stream>>>(bins, weights, u, out,
-                                                                     N, C, n);
+  cudaError_t err;
+  // above 48 KB only (C in the hundreds): the call costs the host more than
+  // the kernel takes at the main path's shape
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(sample_pdf_det_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+          cudaSuccess)
+    return (int)err;
+  // persistent blocks: as many as are resident at once (the occupancy of
+  // the last shared-memory size asked, kept), or fewer for a small N
+  static size_t known_smem = 0;
+  static int known_per_sm = 0;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if (smem != known_smem) {
+    int per_sm = 0;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sample_pdf_det_kernel,
+                                                             WARPS * 32, smem)) != cudaSuccess)
+      return (int)err;
+    known_per_sm = per_sm > 0 ? per_sm : 1;
+    known_smem = smem;
+  }
+  const long long want = (N + WARPS - 1) / WARPS;
+  const long long resident = (long long)sms * known_per_sm;
+  const unsigned blocks = (unsigned)(want < resident ? want : resident);
+  sample_pdf_det_kernel<<<blocks, WARPS * 32, smem, (cudaStream_t)stream>>>(bins, weights, u,
+                                                                            out, N, C, n);
   return (int)cudaGetLastError();
 }

@@ -51,7 +51,7 @@ __all__ = ["pack_r2l_train_weights", "r2l_train_fwd", "r2l_train_bwd",
 MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 IN_ALIGN = 64      # the kernels stream weights in chunks of 64 rows
 WIDTH_ALIGN = 64   # ... and the width is a contraction length too
-MAX_WIDTH = 256    # the backward's eight warps of 32 output columns
+MAX_WIDTH = 256    # the backward's two warpgroups of 128 output columns
 MAX_OUT = 4        # rgb, or rgb + depth
 TILE = 64          # rays a block of the backward's pass 1 (a row of `part`)
 # Rays a pair of backward passes takes at most: pass 1's scratch is 3 bf16
@@ -69,10 +69,11 @@ _SIGNATURES = {
     #  embed_L, in_pad, W, n_block, out_dim, res_scale, global_residual,
     #  stream) -> cudaError_t
     "r2l_train_fwd_launch": (_I, (_P,) * 9 + (_I,) * 7 + (_F, _I, _P)),
-    # (x, hs, dout, head_w, head_b, body_w, body_b, tail_w, tail_b, dg2, dg1,
-    #  g1, dpre, emb, part, dx, B, hs_rows, x_cols, embed_L, in_pad, W,
-    #  n_block, out_dim, res_scale, global_residual, stream) -> cudaError_t
-    "r2l_train_bwd_launch": (_I, (_P,) * 16 + (_I,) * 8 + (_F, _I, _P)),
+    # (x, hs, dout, head_w, head_b, body_w, body_b, tail_w, tail_b, body_wt,
+    #  dg2, dg1, g1, dpre, emb, part, dx, B, hs_rows, x_cols, embed_L, in_pad,
+    #  W, n_block, out_dim, res_scale, global_residual, stream) -> cudaError_t
+    "r2l_train_bwd_launch": (_I, (_P,) * 17 + (_I,) * 8 + (_F, _I, _P)),
+    "r2l_train_bwd_stages": (_I, (_I,)),
 }
 _WGRAD_SIGNATURES = {
     # (n_rt, W, in_pad, n_block) -> floats of workspace
@@ -111,7 +112,9 @@ def pack_r2l_train_weights(params: Sequence[torch.Tensor], embed_L: int = 0,
     head_w [W, in_pad] in `dtype` (columns in the doubling order when
     embed_L > 0, zeros past in_dim), body_w [n_block, 2, W, W], tail_w
     [out_dim, W]; f32 biases head_b [W], body_b [n_block, 2, W], tail_b
-    [out_dim]. Also in_dim and embed_L.
+    [out_dim]; body_wt, body_w with each [W, W] layer transposed (the
+    backward's pass 1 reads its [k, n] products' weights K-major from it).
+    Also in_dim and embed_L.
     """
     n_block, rem = divmod(len(params) - 4, 4)
     if rem or n_block < 1:
@@ -128,10 +131,12 @@ def pack_r2l_train_weights(params: Sequence[torch.Tensor], embed_L: int = 0,
         body = params[2:-2]
         body_w = torch.stack([p.detach() for p in body[0::2]]).to(dtype)
         body_b = torch.stack([p.detach() for p in body[1::2]]).float()
+        body_w = body_w.reshape(n_block, 2, width, width).contiguous()
         return {
             "head_w": head_p,
             "head_b": params[1].detach().float().contiguous(),
-            "body_w": body_w.reshape(n_block, 2, width, width).contiguous(),
+            "body_w": body_w,
+            "body_wt": body_w.transpose(-1, -2).contiguous(),
             "body_b": body_b.reshape(n_block, 2, width).contiguous(),
             "tail_w": params[-2].detach().to(dtype).contiguous(),
             "tail_b": params[-1].detach().float().contiguous(),
@@ -472,6 +477,11 @@ def r2l_train_bwd_act(packed, x: torch.Tensor, hs: torch.Tensor,
             or not dout.is_contiguous() or dout.device != x.device:
         raise ValueError(f"r2l_train_bwd_act: dout must be a contiguous float32 "
                          f"[{B}, {out_dim}] tensor")
+    wt = packed.get("body_wt")
+    if wt is None or wt.shape != packed["body_w"].shape or wt.dtype != torch.bfloat16 \
+            or wt.device != x.device or not wt.is_contiguous():
+        raise ValueError("r2l_train_bwd_act: packed body_wt must be the transposed "
+                         "bf16 body that pack_r2l_train_weights makes")
     lib = _kernels("r2l_train_bwd_act", packed, "bwd")
     Bp = B + (-B % TILE)
 
@@ -487,7 +497,7 @@ def r2l_train_bwd_act(packed, x: torch.Tensor, hs: torch.Tensor,
         return act
     err = lib.r2l_train_bwd_launch(
         x.data_ptr(), hs.data_ptr(), dout.data_ptr(),
-        *(packed[k].data_ptr() for k in _OPERANDS),
+        *(packed[k].data_ptr() for k in _OPERANDS), wt.data_ptr(),
         *(act[k].data_ptr() for k in ("dg2", "dg1", "g1", "dpre", "emb", "part")),
         act["dx"].data_ptr() if need_dx else None,
         B, hs_rows, x.shape[1], packed["embed_L"], in_pad, width, n_block, out_dim,

@@ -83,10 +83,14 @@ def test_checks_and_empty(rng):
     assert out.shape == (0, 8)
 
 
+# (N, n, C): a ragged block of rays, many blocks, few levels, a 32,768-ray
+# chunk of the lego config's fine pass (more warps than are resident: the
+# blocks stride over the rays), and another coarse count
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,n", [(37, 128), (4099, 128), (300, 17)])
-def test_kernel_matches_plain_version_bitwise(N, n, cuda_device, rng):
-    bins, w = _inputs(rng, N)
+@pytest.mark.parametrize("N,n,C", [(37, 128, 63), (4099, 128, 63), (300, 17, 63),
+                                   (32768, 128, 63), (300, 64, 17)])
+def test_kernel_matches_plain_version_bitwise(N, n, C, cuda_device, rng):
+    bins, w = _inputs(rng, N, C)
     tb = torch.from_numpy(bins).to(cuda_device)
     tw = torch.from_numpy(w).to(cuda_device)
     launches = sp.sample_pdf_det_fused.launches
