@@ -255,7 +255,7 @@ _SP_CDF = """  if (lane == 0) {
   }
 """
 _SP_TOTAL = "  for (int i = 0; i < C - 1; ++i) total = __fadd_rn(total, __fadd_rn(w[i], 1e-5f));\n"
-_SP_LEVELS = "  for (int j = lane; j < n; j += 32) store(j, pdf_level(b, cdf, C, su[j]));\n"
+_SP_LEVELS = "  for (int j = lane; j < n; j += 32) o[j] = pdf_level(b, cdf, C, su[j]);\n"
 _FR_GLUE_F = ("    for (int r = warp; r < R; r += nw::NTHREADS / 32) {\n      float res[6];\n"
               "      composite_warp(")
 # kernel: (file built, {variant: [(file edited, old, new), ...]}); the
@@ -283,7 +283,7 @@ KERNELS = {
     }),
     "train_bwd": ("r2l_train.cu", {
         "shipped": [],
-        "no_stores": [("r2l_train.cu", _TB_STORE, ""),
+        "no_stores": [("r2l_train.cu", _TB_STORE, "      continue;\n"),
                       ("r2l_train.cu", _STORE, _STORE + "  if (c8 > 0) return;\n")],
         "no_products": [("r2l_train.cu", _TB_PRODUCTS, "")],
         "no_loads": [("r2l_train.cu", _TB_ISSUE, "    mbar_arrive(&full[st]);\n    return;\n")],

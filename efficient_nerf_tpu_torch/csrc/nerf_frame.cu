@@ -283,10 +283,8 @@ __global__ void __launch_bounds__(nw::NTHREADS, 1)
         // routine, so that the fine depths are its bit for bit
         float* zf = szf + r * S_f;
         float sum = 0.0f;
-        pdf_warp(sbins, w + 1, scdf + r * S_c, S_c - 1, su, S_f, lane, [&](int j, float v) {
-          zf[j] = v;
-          sum = __fadd_rn(sum, v);
-        });
+        pdf_warp(sbins, w + 1, scdf + r * S_c, S_c - 1, su, S_f, lane, zf);
+        for (int j = lane; j < S_f; j += 32) sum = __fadd_rn(sum, zf[j]);
         const float mean = __fdiv_rn(warp_sum(sum), (float)S_f);
         float ss = 0.0f;
         for (int j = lane; j < S_f; j += 32) {

@@ -20,9 +20,9 @@
 // resident, stride over the rays and stage the n levels once; each warp
 // loads its ray's C edges and C - 1 weights into its own row of shared
 // memory, neighbouring lanes on neighbouring words (coalesced, and no bank
-// conflict: a warp's row is contiguous), builds the CDF in place of the
-// weights (the total by every lane and the sequential sum by lane 0 in
-// order, the divisions over the lanes) and spreads the n levels over its
+// conflict: a warp's row is contiguous), builds the CDF beside them (the
+// total by every lane and the sequential sum by lane 0 in order, the
+// divisions over the lanes) and spreads the n levels over its
 // lanes, each a binary search of the CDF, the stores coalesced. The two sums
 // in order take a warp instruction a weight each: on the card the kernel is
 // bound by its instructions, not by its bytes (PERF.md). One thread a ray
@@ -39,9 +39,9 @@ using enerf::pdf_warp;
 
 constexpr int WARPS = 8;  // rays a block works on at a time, one a warp
 
-// A warp's row: C edges, then C - 1 weights (the CDF in their place).
+// A warp's row: C edges, C - 1 weights, then their C - 1 CDF values.
 __host__ __device__ inline size_t smem_floats(int C, int n) {
-  return (size_t)WARPS * (2 * C - 1) + n;
+  return (size_t)WARPS * (3 * C - 2) + n;
 }
 
 __global__ void __launch_bounds__(WARPS * 32) sample_pdf_det_kernel(
@@ -50,8 +50,9 @@ __global__ void __launch_bounds__(WARPS * 32) sample_pdf_det_kernel(
   extern __shared__ float sm[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* su = sm;                                  // [n] levels
-  float* sb = su + n + (size_t)warp * (2 * C - 1); // this warp's [C] edges
-  float* sw = sb + C;                              // [C - 1] weights, then the CDF
+  float* sb = su + n + (size_t)warp * (3 * C - 2); // this warp's [C] edges
+  float* sw = sb + C;                              // [C - 1] weights
+  float* sc = sw + C - 1;                          // [C - 1] CDF
   for (int e = threadIdx.x; e < n; e += WARPS * 32) su[e] = u[e];
   __syncthreads();
   for (long long ray = (long long)blockIdx.x * WARPS + warp; ray < N;
@@ -59,8 +60,7 @@ __global__ void __launch_bounds__(WARPS * 32) sample_pdf_det_kernel(
     for (int i = lane; i < C; i += 32) sb[i] = bins[ray * C + i];
     for (int i = lane; i < C - 1; i += 32) sw[i] = weights[ray * (C - 1) + i];
     __syncwarp();
-    float* o = out + ray * n;
-    pdf_warp(sb, sw, sw, C, su, n, lane, [=](int j, float v) { o[j] = v; });
+    pdf_warp(sb, sw, sc, C, su, n, lane, out + ray * n);
     __syncwarp();  // the row is reloaded for the next ray
   }
 }

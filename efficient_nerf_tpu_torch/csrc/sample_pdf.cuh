@@ -40,19 +40,19 @@ __device__ __forceinline__ float pdf_level(const float* b, const float* cdf, int
 
 // One ray by the 32 lanes of a warp, which all call it: b its C bin edges, w
 // its C - 1 weights, su the n sorted levels (all in shared memory); cdf
-// C - 1 floats of the warp's shared memory (it may be w itself). w = weights
-// + 1e-5, pdf = w / sum(w), the CDF accumulated sequentially: the order of
-// both sums is semantics (the denom < 1e-5 guard reads cdf_hi - cdf_lo), so
-// every lane sums the total in order, the lanes divide, and lane 0
-// accumulates in order. Then store(j, sample) for the levels j = lane, lane +
-// 32, ... in that order.
-template <class Store>
-__device__ __forceinline__ void pdf_warp(const float* b, const float* w, float* cdf, int C,
-                                         const float* su, int n, int lane, Store store) {
+// C - 1 other floats of the warp's shared memory; o the n samples. w =
+// weights + 1e-5, pdf = w / sum(w), the CDF accumulated sequentially: the
+// order of both sums is semantics (the denom < 1e-5 guard reads cdf_hi -
+// cdf_lo), so every lane sums the total in order, the lanes divide, and lane
+// 0 accumulates in order. Then the levels j = lane, lane + 32, ... A call,
+// not inlined: inlined into the whole-ray kernel, whose field tile runs at
+// 255 registers, it moved ptxas's allocation there and cost that kernel 13%
+// (PERF.md).
+static __device__ __noinline__ void pdf_warp(const float* b, const float* w, float* cdf, int C,
+                                             const float* su, int n, int lane, float* o) {
   float total = 0.0f;
 #pragma unroll 8
   for (int i = 0; i < C - 1; ++i) total = __fadd_rn(total, __fadd_rn(w[i], 1e-5f));
-  __syncwarp();  // every lane has read w, which cdf may overwrite
   for (int i = lane; i < C - 1; i += 32) cdf[i] = __fdiv_rn(__fadd_rn(w[i], 1e-5f), total);
   __syncwarp();
   if (lane == 0) {
@@ -61,7 +61,7 @@ __device__ __forceinline__ void pdf_warp(const float* b, const float* w, float* 
     for (int i = 0; i < C - 1; ++i) cdf[i] = cdf_lo = __fadd_rn(cdf_lo, cdf[i]);
   }
   __syncwarp();
-  for (int j = lane; j < n; j += 32) store(j, pdf_level(b, cdf, C, su[j]));
+  for (int j = lane; j < n; j += 32) o[j] = pdf_level(b, cdf, C, su[j]);
 }
 
 }  // namespace enerf
