@@ -132,7 +132,7 @@ struct FwdArgs {
 // the operands g1s, dg2s, dg1s as [block][ray][col] and dpres as [1][ray][col]
 // with Bp rays (written in the same boxes).
 struct BwdMaps {
-  CUtensorMap body, body_t, hs, g1, dg2, dg1, dpre;
+  CUtensorMap body, body_t, hs, dg2, dg1, dpre;
 };
 
 struct BwdArgs {
@@ -141,6 +141,7 @@ struct BwdArgs {
   const float* x;                  // [B, x_cols]
   const __nv_bfloat16* hs;         // [n_block + 1, hs_rows, W], rows 0 .. B - 1 used
   const float* dout;               // [B, out_dim]
+  __nv_bfloat16* g1s;              // [n_block, Bp, W]
   __nv_bfloat16* embs;             // [Bp, in_pad]
   float* part;                     // [Bp / TB, W + 2 n_block W + out_dim W + out_dim]
   float* dx;                       // [B, x_cols], or null: need_dx off
@@ -315,6 +316,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int wgi = tid / 128, w4 = warp % 4, g = lane / 4, t = lane % 4, wr = w4 * 16;
   const int col0 = wgi * NT + 2 * t;
   const long long ray0 = (long long)blockIdx.x * TB;
+  const size_t Bp = (size_t)gridDim.x * TB;
   const __nv_bfloat16* tail_w = p.w.tail_w;
   // this tile's row of column sums: head_b | body_b | tail_w | tail_b
   float* part_head_b = p.part + blockIdx.x * (size_t)(W + 2 * nb * W + od * W + od);
@@ -506,15 +508,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
     col_partials(v, red2);
 
-    // g1 = relu(h_in @ W0^T + b0): the relu mask, and g1 in registers
-    // until both warpgroups have read h_in (b0 from its slot: the biases,
-    // 88 KB at W256 D88, do not stay in the L1 beside the tiles)
+    // g1 = relu(h_in @ W0^T + b0): the relu mask, and g1 straight from the
+    // registers to its rows of g1s (b0 from its slot: the biases, 88 KB at
+    // W256 D88, do not stay in the L1 beside the tiles)
     mbar_wait(hbar, (nb - 1 - blk) & 1);
     products(sh);
     const float* b0s = sb0 + (blk & 1) * W;
     a = at();
+    __nv_bfloat16* g1r = p.g1s + ((size_t)blk * Bp + ray0 + a.row) * W + a.col;
     unsigned long long mask = 0;
-    __nv_bfloat162 gp[NV];
 #pragma unroll
     for (int j = 0; j < NT / 8; ++j)
 #pragma unroll
@@ -524,23 +526,21 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const float v0 = acc[i] + b.x, v1 = acc[i + 1] + b.y;
         if (v0 > 0.0f) mask |= 1ull << i;
         if (v1 > 0.0f) mask |= 1ull << (i + 1);
-        gp[2 * j + hf] = __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+        wg::st_bf16x2(g1r + (size_t)(8 * hf) * W + 8 * j, fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
       }
     fence_proxy_async();
+    if (tid == 0) bulk_wait_read();  // dg1's store (blk + 1) has read its tile
     __syncthreads();  // A: dg2 is whole; both warpgroups have read h_in
     if (tid == 0) {
       store_t(&maps.dg2, sdg2, blk);
       bulk_commit();
+      if (blk > 0) {  // the h tile is free: the next block's input lands meanwhile
+        mbar_arrive_expect_tx(hbar, TB * WP * 2);
+        load_h(sh, blk - 1);
+      }
     }
     if (blk > 0) prefetch_b0(blk - 1);  // into the slot blk + 1 read before A
     combine(red2, part_body_b + (size_t)(2 * blk + 1) * W);
-    a = at();
-#pragma unroll
-    for (int j = 0; j < NT / 8; ++j)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        *reinterpret_cast<__nv_bfloat162*>(sh + wg::swz(a.row + 8 * hf, a.col + 8 * j)) =
-            gp[2 * j + hf];
 
     // dg1 = (dg2 @ W1) * (g1 > 0): bf16 operand, f32 bias gradient
     products(sdg2);
@@ -560,16 +560,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     fence_proxy_async();
     cp_async_wait<0>();              // b0 of blk - 1 has landed
     if (tid == 0) bulk_wait_read();  // dg2's store has read its tile
-    __syncthreads();  // B: g1 and dg1 are whole
+    __syncthreads();  // B: dg1 is whole
     if (tid == 0) {
-      store_t(&maps.g1, sh, blk);
       store_t(&maps.dg1, sdg1, blk);
       bulk_commit();
-      bulk_wait_read();  // both stores have read their tiles: the h tile takes hs[blk - 1]
-      if (blk > 0) {
-        mbar_arrive_expect_tx(hbar, TB * WP * 2);
-        load_h(sh, blk - 1);
-      }
     }
     combine(red1, part_body_b + (size_t)(2 * blk) * W);
 
@@ -791,7 +785,6 @@ extern "C" int r2l_train_bwd_launch(const float* x, const void* hs, const float*
       !encode(fn, &maps.body, body_w, W, W, 2LL * n_block, 2LL * W, 2LL * W * W, W) ||
       !encode(fn, &maps.body_t, body_wt, W, W, 2LL * n_block, 2LL * W, 2LL * W * W, W) ||
       !encode(fn, &maps.hs, hs, W, B, n_block + 1, 2LL * W, 2LL * W * hs_rows, TB) ||
-      !encode(fn, &maps.g1, g1s, W, Bp, n_block, 2LL * W, 2LL * W * Bp, TB) ||
       !encode(fn, &maps.dg2, dg2s, W, Bp, n_block, 2LL * W, 2LL * W * Bp, TB) ||
       !encode(fn, &maps.dg1, dg1s, W, Bp, n_block, 2LL * W, 2LL * W * Bp, TB) ||
       !encode(fn, &maps.dpre, dpres, W, Bp, 1, 2LL * W, 2LL * W * Bp, TB))
@@ -803,6 +796,7 @@ extern "C" int r2l_train_bwd_launch(const float* x, const void* hs, const float*
   p.x = x;
   p.hs = static_cast<const __nv_bfloat16*>(hs);
   p.dout = dout;
+  p.g1s = static_cast<__nv_bfloat16*>(g1s);
   p.embs = static_cast<__nv_bfloat16*>(embs);
   p.part = part;
   p.dx = dx;
