@@ -507,6 +507,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         v[2 * j + 1] = hf ? __fadd_rn(v[2 * j + 1], d1) : d1;
       }
     col_partials(v, red2);
+    fence_proxy_async();
+    if (tid == 0) bulk_wait_read();  // dg1's store (blk + 1) has read its tile
+    __syncthreads();  // A: dg2 is whole; both warpgroups' dh products have read dg1
+    if (tid == 0) {
+      store_t(&maps.dg2, sdg2, blk);
+      bulk_commit();
+    }
+    if (blk > 0) prefetch_b0(blk - 1);  // into the slot blk + 1 read before B (blk + 1)
+    combine(red2, part_body_b + (size_t)(2 * blk + 1) * W);
 
     // g1 = relu(h_in @ W0^T + b0): the relu mask, and g1 straight from the
     // registers to its rows of g1s (b0 from its slot: the biases, 88 KB at
@@ -528,19 +537,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         if (v1 > 0.0f) mask |= 1ull << (i + 1);
         wg::st_bf16x2(g1r + (size_t)(8 * hf) * W + 8 * j, fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
       }
-    fence_proxy_async();
-    if (tid == 0) bulk_wait_read();  // dg1's store (blk + 1) has read its tile
-    __syncthreads();  // A: dg2 is whole; both warpgroups have read h_in
-    if (tid == 0) {
-      store_t(&maps.dg2, sdg2, blk);
-      bulk_commit();
-      if (blk > 0) {  // the h tile is free: the next block's input lands meanwhile
-        mbar_arrive_expect_tx(hbar, TB * WP * 2);
-        load_h(sh, blk - 1);
-      }
-    }
-    if (blk > 0) prefetch_b0(blk - 1);  // into the slot blk + 1 read before A
-    combine(red2, part_body_b + (size_t)(2 * blk + 1) * W);
 
     // dg1 = (dg2 @ W1) * (g1 > 0): bf16 operand, f32 bias gradient
     products(sdg2);
@@ -560,10 +556,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     fence_proxy_async();
     cp_async_wait<0>();              // b0 of blk - 1 has landed
     if (tid == 0) bulk_wait_read();  // dg2's store has read its tile
-    __syncthreads();  // B: dg1 is whole
+    __syncthreads();  // B: dg1 is whole; both warpgroups have read h_in and dg2
     if (tid == 0) {
       store_t(&maps.dg1, sdg1, blk);
       bulk_commit();
+      if (blk > 0) {  // the h tile is free: the next block's input lands meanwhile
+        mbar_arrive_expect_tx(hbar, TB * WP * 2);
+        load_h(sh, blk - 1);
+      }
     }
     combine(red1, part_body_b + (size_t)(2 * blk) * W);
 
