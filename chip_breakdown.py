@@ -50,9 +50,8 @@ train_bwd: the training backward's two passes at 98,304 rays (the training
 step's), need_dx off, the global residual on. Pass 1, csrc/r2l_train.cu
 (its wgmma tile):
   shipped          the kernel as the port runs it
-  no_stores        no stores of pass 2's operands (no TMA stores of g1, dg2,
-                   dg1 and dpre, no copy-out of the embed): the activation
-                   chain alone
+  no_stores        no TMA stores of dg2, dg1 and dpre and no copy-out of
+                   the embed (g1's stores from the registers stay)
   no_products      no wgmma: the weight stream, the h loads, the epilogues,
                    stores and block barriers
   no_loads         no TMA weight copies (each stage completes on the loading

@@ -7,15 +7,13 @@ so that a kernel and its parent are compared on the same card in one call.
     python3 chip_compare.py --tree new=. --tree parent=path/to/parent [--rounds 2]
 
 Each tree's two sources are built with the port's nvcc flags into
-build/compare/<label>/ (chip_breakdown.py's builder: the tree's headers
-beside the source) and called through their C entry points on the same
+build/compare/<label>/ (as chip_breakdown.py builds a variant: the tree's
+headers beside the source) and called through their C entry points on the same
 inputs, made by this checkout's package at the main path's shapes:
   sampler  a 32,768-ray chunk of the lego config's fine pass (C 63 coarse
            bin edges, 62 weights, 128 levels), sorted random edges in
            [2, 6] and uniform weights; its output against the plain
-           version, bit for bit; timed queued behind a spin kernel (the
-           card's clock: the kernel is shorter than its wrapper's host
-           time) and paced by the host, as chip_smoke.py times it;
+           version, bit for bit;
   pass 1   98,304 rays (the training step's) at W256 D88, the global
            residual on, need_dx off; each tree's scratch turned into the
            weight gradients by this checkout's pass 2 and held against the
@@ -148,18 +146,15 @@ def main() -> None:
             cs.fail(f"{label}'s kernels disagree")
         del g
 
-    times = {label: {"sampler_queued_ms": [], "sampler_call_ms": [], "pass1_ms": []}
-             for label in runs}
+    times = {label: {"sampler_ms": [], "pass1_ms": []} for label in runs}
     order = list(runs)
     for r in range(args.rounds):
         for label in (order if r % 2 == 0 else order[::-1]):
             sampler, pass1 = runs[label]
             t = times[label]
-            t["sampler_queued_ms"].append(cs.queued_ms(torch, sampler, 20))
-            t["sampler_call_ms"].append(cs.cuda_ms(torch, sampler, 20))
+            t["sampler_ms"].append(cs.cuda_ms(torch, sampler, 20))
             t["pass1_ms"].append(cs.cuda_ms(torch, pass1, 5))
-            print(f"round {r} {label}: sampler {t['sampler_queued_ms'][-1]:.4f} ms queued, "
-                  f"{t['sampler_call_ms'][-1]:.4f} ms a call; pass 1 "
+            print(f"round {r} {label}: sampler {t['sampler_ms'][-1]:.4f} ms; pass 1 "
                   f"{t['pass1_ms'][-1]:.3f} ms", flush=True)
     card = cs.gpu_line()
     print(card, flush=True)

@@ -9,10 +9,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
   build         nvcc builds every csrc/*.cu into build/kernels/ (one nvcc per
                 source, all started together); prints the time and ptxas's
                 report, and for the two forward kernels on the wgmma tile
-                (csrc/r2l_wgmma.cuh) each instantiation's registers, spill
-                bytes and dynamic shared memory; the warpgroup MMAs in the
-                SASS of the two int8 kernels (cuobjdump), which must hold
-                integer ones (IGMMA).
+                (csrc/r2l_wgmma.cuh) and the backward's pass 1 (its own
+                wgmma tile in csrc/r2l_train.cu) each instantiation's
+                registers, spill bytes and dynamic shared memory, and pass
+                1's weight-ring stages at each width; the warpgroup MMAs in
+                the SASS (cuobjdump): the two int8 kernels' must hold integer
+                ones (IGMMA), each of pass 1's 8 instantiations bf16 ones
+                (HGMMA).
   trig          the fast_sincos device helper (csrc/trig.cuh) against its
                 plain torch version over |y| <= 4e3.
   kernel        the fused R2L kernel at W256 D88, n_sample 16, L 10, B 8192
@@ -84,10 +87,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 (2 field-eval and 1 sampler launch per chunk); frame checks,
                 the frame's mean acc and its share of rays with acc in
                 (0.01, 0.99); the frame against the same frame rendered on
-                the card through the plain versions; frame time, and each
-                kernel's time at the coarse and the fine chunk beside its
-                bound, its plain version and (field eval) the unfused
-                nerf_embed -> bf16 NeRFMLP cuBLAS path.
+                the card through the plain versions; the sampler on the
+                main path's chunk (its coarse weights) against its plain
+                version, bit for bit; frame time, and each kernel's time at
+                the coarse and the fine chunk beside its bound, its plain
+                version and (field eval) the unfused nerf_embed -> bf16
+                NeRFMLP cuBLAS path.
   pseudo        StreamingPseudoGenerator over 6 frames through its one-frame
                 pipeline (ms a frame beside render_image alone), and
                 export_pseudo_shards for 4 poses into a temporary directory:
@@ -312,25 +317,6 @@ def cuda_ms(torch, fn, n: int, warmup: int = 2) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
-def queued_ms(torch, fn, n: int, warmup: int = 2) -> float:
-    """Mean milliseconds of fn() over n calls, by CUDA events, with the calls
-    queued behind a spin kernel of about 20 ms: the card then runs them back
-    to back, so that a kernel shorter than its wrapper's host time is timed
-    by the card's clock and not by the host's pace (cuda_ms)."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(40_000_000)   # ~20 ms at the card's ~2 GHz: longer than n calls' host time
     start.record()
     for _ in range(n):
         fn()
@@ -1633,10 +1619,7 @@ def phase_teacher(sm: Smoke) -> None:
     if n_zdiff:
         fail("inverse-CDF kernel differs from its plain version on the main path's chunk")
     del z_s, z_sp
-    # kernel 6 is shorter than its wrapper's host time: timed queued, and
-    # paced by the host (a call as the renderer makes it) beside that
-    pdf_ms = queued_ms(torch, lambda: sample_pdf_det_fused(bins, w, T_IMPORTANCE), 20)
-    pdf_call_ms = cuda_ms(torch, lambda: sample_pdf_det_fused(bins, w, T_IMPORTANCE), 20)
+    pdf_ms = cuda_ms(torch, lambda: sample_pdf_det_fused(bins, w, T_IMPORTANCE), 20)
     pdf_plain_ms = cuda_ms(torch, lambda: sample_pdf_det_fused_ref(bins, w, T_IMPORTANCE),
                            2, warmup=1)
 
@@ -1664,8 +1647,7 @@ def phase_teacher(sm: Smoke) -> None:
     print(f"teacher: render_image {frame_ms:.3f} ms/frame ({n_rays / frame_ms * 1e3 / 1e6:.3f} "
           f"M rays/s); the frame's field evals bound {frame_bound[0]:.3f} ms "
           f"({frame_flops / 1e12:.3f} TFLOP, {frame_bound[1]}); sample_pdf_det_fused "
-          f"{pdf_ms:.4f} ms at {n} rays queued ({pdf_call_ms:.4f} ms a call paced by the "
-          f"host), bound {pdf_bound[0]:.4f} ms ({pdf_bound[1]}), "
+          f"{pdf_ms:.4f} ms at {n} rays, bound {pdf_bound[0]:.4f} ms ({pdf_bound[1]}), "
           f"plain version {pdf_plain_ms:.3f} ms; the library path is {lib_err:.3g} from "
           f"the plain version on the coarse chunk", flush=True)
     sm.teacher_frame_ms = frame_ms

@@ -67,34 +67,39 @@
 //     loads, as r2l_wgmma.cuh says why) loads each [W, 64] chunk of W0,
 //     W1^T and W0^T, block by block in reverse, by one box from 3-D tensor
 //     maps over body_w and body_wt into a ring of as many stages as fit (3 at
-//     W256), each with a full and an empty mbarrier.
+//     W256), each with a full and an empty mbarrier. Its depth matters most:
+//     2 stages took 10.1 ms a step against 7.9 for 3; 7 stages of [W, 32]
+//     chunks (the 64-byte swizzle) took 9.1 against 7.5 (PERF.md).
 //   * TMA for the activation tiles. hs[blk] lands by TMA (rows past B as
-//     zeros) into the h tile; g1, dg2, dg1 and dpre leave shared memory by
-//     TMA stores from the swizzled tiles (g1: from the h tile, which h_in
-//     has left), thread 0 waiting (cp.async.bulk.wait_group.read) before a
-//     tile is rewritten or refilled.
-//   * Two block barriers a block, where a product's A is complete: A after
-//     g1's products (dg2 written, h_in read by both warpgroups), B after
-//     dg1's epilogue. A block's schedule:
-//       dg2 = dh rs -> dg2 tile; g1 products (h tile); mask, g1 in registers;
-//       A; store dg2; g1 -> h tile; dg1 products (dg2 tile); dg1 -> dg1
-//       tile; B; store g1 and dg1, then hs[blk - 1] into the h tile; dh
-//       products (dg1 tile).
-//     One h tile does: the next block's hs lands during the dh products.
-//     Separate g1 and dg1 tiles would take a fourth 32 KB tile (and a ring
-//     stage, at W256); g1 in the dg1 tile would take a third barrier (the
-//     dh products must leave it in both warpgroups first).
+//     zeros) into the h tile; dg2, dg1 and dpre leave shared memory by TMA
+//     stores from the swizzled tiles the products read, thread 0 waiting
+//     (cp.async.bulk.wait_group.read) before a tile is rewritten. g1, which
+//     no product of this pass reads, goes from the registers to g1s, 4
+//     bytes a store: the h tile is then free once g1's products have read
+//     it, and thread 0 stalls on no store before it loads the next hs (a g1
+//     tile stored by TMA took 7.9 ms against 7.5, PERF.md).
+//   * Two block barriers a block, each where a product's A is complete. A
+//     block's schedule:
+//       dg2 = dh rs -> dg2 tile; A; store dg2; g1 products (h tile); mask,
+//       g1 -> g1s; dg1 products (dg2 tile); dg1 -> dg1 tile; B; store dg1,
+//       hs[blk - 1] -> h tile; dh products (dg1 tile).
+//     A also orders the dh products of the block before (both warpgroups
+//     read the dg1 tile) before this block's dg1 writes, and B the products
+//     that read h and dg2 before their refills; between g1's and dg1's
+//     products there is none. One h tile does: the next block's hs lands
+//     during the dh products.
 //   * The bias sums: each warp's column sums of its 16 rows by a shuffle
 //     butterfly (each step halves the values a lane keeps), its partials in
 //     shared memory, added by one thread a column in a fixed order after the
-//     next barrier: the same bits every run.
+//     next barrier: the same bits every run. b0 comes by cp.async into one
+//     of two shared slots a block ahead.
 // The dx chain (need_dx, off in the training step) keeps its product on
 // r2l_mma.cuh's mma_stream_kn over the shared memory the body leaves.
 //
 // Shared memory of the backward (W = 256): the ring (3 x 32 KB), the h, dg2
-// and dg1 tiles (32 KB each), the bias partials (2 x 4 KB) and dt: 201 KB;
-// the embed (64 x in_pad bf16, 129 KB at in_pad 1024) and dx's tiles overlay
-// them at the end.
+// and dg1 tiles (32 KB each), the bias partials (2 x 4 KB), dt and b0: 204
+// KB; the embed (64 x in_pad bf16, 129 KB at in_pad 1024) and dx's tiles
+// overlay them at the end.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -129,7 +134,7 @@ struct FwdArgs {
 // The backward's tensor maps: the weights as [layer][out][in] in boxes of 64
 // columns x W rows (body over body_w, body_t over body_wt); hs as [block][ray]
 // [col] with B rays (read in boxes of 64 columns x 64 rays, zeros past B);
-// the operands g1s, dg2s, dg1s as [block][ray][col] and dpres as [1][ray][col]
+// the operands dg2s, dg1s as [block][ray][col] and dpres as [1][ray][col]
 // with Bp rays (written in the same boxes).
 struct BwdMaps {
   CUtensorMap body, body_t, hs, dg2, dg1, dpre;
@@ -302,7 +307,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const BwdLayout lay = bwd_layout(s.in_pad, WP);
   const int W = WP, nb = s.n_block, od = s.out_dim, K = s.x_cols, L = s.embed_L;
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + lay.ring);
-  __nv_bfloat16* sh = reinterpret_cast<__nv_bfloat16*>(smem + lay.h);     // h_in, then g1
+  __nv_bfloat16* sh = reinterpret_cast<__nv_bfloat16*>(smem + lay.h);     // h_in
   __nv_bfloat16* sdg2 = reinterpret_cast<__nv_bfloat16*>(smem + lay.dg2); // dg2, then dpre
   __nv_bfloat16* sdg1 = reinterpret_cast<__nv_bfloat16*>(smem + lay.dg1); // hs[nb], then dg1
   float* red2 = reinterpret_cast<float*>(smem + lay.red2);  // [4 warps][W] partials of dg2 (dpre)
@@ -622,7 +627,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     for (int nc = 0; nc < s.in_pad; nc += W) {
       const int ncols = min(W, s.in_pad - nc);
       mma_stream_kn(dpa, lda, p.w.head_w + nc, s.in_pad, W, ncols, W,
-                    reinterpret_cast<__nv_bfloat16*>(smem + lay.dx_ring), [&](Frag& a) {
+                    reinterpret_cast<__nv_bfloat16*>(smem + lay.dx_ring), [&](Frag& f) {
         for (int i = 0; i < RT; ++i)
           for (int j = 0; j < NJ; ++j)
             for (int e = 0; e < 4; ++e) {
@@ -630,7 +635,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
               const long long ray = ray0 + row;
               const int n = nc + col;
               if (col >= ncols || ray >= s.B) continue;
-              const float val = a[i][j][e];
+              const float val = f[i][j][e];
               if (L == 0) {
                 if (n < K) dxg[ray * K + n] = val;
                 continue;

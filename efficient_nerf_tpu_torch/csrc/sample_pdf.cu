@@ -22,13 +22,14 @@
 // memory, neighbouring lanes on neighbouring words (coalesced, and no bank
 // conflict: a warp's row is contiguous), builds the CDF beside them (the
 // total by every lane and the sequential sum by lane 0 in order, the
-// divisions over the lanes) and spreads the n levels over its
-// lanes, each a binary search of the CDF, the stores coalesced. The two sums
-// in order take a warp instruction a weight each: on the card the kernel is
-// bound by its instructions, not by its bytes (PERF.md). One thread a ray
-// (PR 4's design) walked 62 intervals and 128 levels, each with a true
-// division, in 32-thread blocks of which 6 fit on an SM: latency-bound at
-// 192 threads of 2,048.
+// divisions over the lanes) and spreads the n levels over its lanes, each a
+// binary search of the CDF, the stores coalesced. The two sums in order take
+// a warp instruction a weight each, and with them the kernel is bound by its
+// instructions, not its bytes: without them it takes about two thirds of
+// its time (chip_breakdown.py --kernel sampler, PERF.md). A lane a level
+// range (one search, then a walk) with the samples staged for wider stores,
+// and the next ray's row copied by cp.async during this one's, measured the
+// same and are not kept.
 #include <cuda_runtime.h>
 
 #include "sample_pdf.cuh"
