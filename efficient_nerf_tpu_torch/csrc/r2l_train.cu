@@ -627,7 +627,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     for (int nc = 0; nc < s.in_pad; nc += W) {
       const int ncols = min(W, s.in_pad - nc);
       mma_stream_kn(dpa, lda, p.w.head_w + nc, s.in_pad, W, ncols, W,
-                    reinterpret_cast<__nv_bfloat16*>(smem + lay.dx_ring), [&](Frag& f) {
+                    reinterpret_cast<__nv_bfloat16*>(smem + lay.dx_ring), [&](Frag& fr) {
         for (int i = 0; i < RT; ++i)
           for (int j = 0; j < NJ; ++j)
             for (int e = 0; e < 4; ++e) {
@@ -635,7 +635,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
               const long long ray = ray0 + row;
               const int n = nc + col;
               if (col >= ncols || ray >= s.B) continue;
-              const float val = f[i][j][e];
+              const float val = fr[i][j][e];
               if (L == 0) {
                 if (n < K) dxg[ray * K + n] = val;
                 continue;
