@@ -102,7 +102,8 @@ def _imported_modules(path: Path):
 
 def test_no_port_file_imports_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "chip_breakdown.py"]
+                                          ROOT / "chip_breakdown.py",
+                                          ROOT / "chip_compare.py"]
     assert len(files) > 10
     for f in files:
         for mod in _imported_modules(f):
