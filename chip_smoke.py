@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's R2L serving and training paths and the NeRF
-teacher's rendering and pseudo-data paths on one CUDA card, and holds their
-kernels against their plain versions.
+"""Drives the PyTorch port's R2L serving and training paths, the NeRF
+teacher's rendering, pseudo-data and training paths, and the distillation
+from the teacher's shards on one CUDA card, and holds their kernels
+against their plain versions.
 
     python3 chip_smoke.py [--seed N] [--phases build,kernel,...]
 
@@ -127,6 +128,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 whole-ray launch and no other teacher kernel per chunk); the
                 frame against the composed kernel path's frame of the
                 teacher phase; frame time beside the composed path's.
+  teacher_train make_teacher_train_step on the lego config (coarse and fine
+                NeRFMLP D8 W256 from torch's seeded init, f32, Adam at 5e-4
+                with lrate_decay 500) on 20 sphere frames of 400x400 made in
+                memory (data.synthetic.render_sphere_frame): first one step
+                on the card against the same step on the CPU (f32 without
+                TF32, the same weights and t_rand/u draws: the loss, every
+                gradient and the weights after Adam); then 1000 steps of 1024
+                pixels of a random frame (the central half for the first
+                500), ms a step by CUDA events, the loss and PSNR every 50
+                steps (the last 50 below the first 50); the held-out frames'
+                PSNR and SSIM (metrics) before and after, f32 unfused (at
+                least 3 dB gained) and through the bf16 kernels (the launch
+                counters set to 0 just before and read just after: 2 field
+                evals and 1 sampler launch a chunk); the trained teacher's
+                int8 frame against its bf16 frame (reported, not gated).
+  distill       the trained teacher's pseudo shards (export_pseudo_shards, 8
+                poses, the bf16 kernels) and its 20 training frames as
+                train_ shards (data.convert.rays_to_shards) in a temporary
+                directory; the native shard reader built from
+                runtime/shard_reader.cpp into build/runtime/, a batch of 20
+                shards from it against the numpy path's, bit for bit, its
+                time beside the host link's; RayShardDataset and
+                ShardLoader(use_native=True) feeding 20 make_r2l_train_step
+                steps of the train phase's student (98,304 rays), the launch
+                counters set to 0 just before and read just after (one of
+                each training kernel a step), the loss falling, the step's
+                waits on the loader, the student's held-out frame against
+                the teacher's. Needs teacher_train in the same run.
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. --phases runs the named phases only (each
@@ -136,7 +165,8 @@ Weights are random, made from --seed: the student's with each block's
 second linear scaled by 0.1 so that the 88-layer output is not saturated
 by the sigmoid; the teacher's lecun-normal kernels
 (normal, std 1/sqrt(fan_in)) and normal biases of std 0.01, a bf16 NeRFMLP
-(no teacher checkpoint is in the repository). Imports nothing of JAX.
+(no teacher checkpoint is in the repository); the teacher_train phase
+trains its own. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -274,6 +304,48 @@ INT8_TEACHER_TOL = 6e-2
 # whose coarse and fine acc stay.
 INT8_PSNR_MIN = 30.0
 INT8_FLIP_SHARE = 2e-2
+
+# Teacher training at the lego config (config/scenes/lego.txt, main.py's
+# no_batching loop): N_rand 1024 pixels of one random frame a step, from the
+# central precrop_frac 0.5 for the first precrop_iters 500 steps, Adam at
+# lrate 5e-4 with lrate_decay 500, f32 (--compute_dtype's default). 1000
+# steps: the precrop's 500 and as many on the whole frame, whose edge the
+# crop never shows (the sphere spans ~380 of the 400 pixels) and which the
+# held-out frames and the loss of the last steps cover.
+TT_TRAIN_FRAMES, TT_HELD_OUT = 20, 2
+TT_N_RAND, TT_STEPS, TT_WARMUP = 1024, 1000, 10
+TT_PRECROP_ITERS, TT_PRECROP_FRAC = 500, 0.5
+TT_LRATE, TT_LRATE_DECAY = 5e-4, 500
+TT_PSNR_GAIN = 3.0        # dB over the untrained teacher, held-out frames
+# One step on the card against the same step on the CPU, f32 without TF32,
+# the same weights and t_rand/u draws, on TT_CHECK_RAYS rays; with exact
+# embeds (the step's own arithmetic) and with the training config's fast
+# embed. The loss: f32 sums in another order (cuBLAS against the CPU's
+# BLAS), measured 1.2e-7 relative in the first card run. Gradients, as
+# max |card - cpu| over max |cpu| of each tensor: the fast embed's
+# double-angle recurrence carries a one-ulp difference of the CUDA and CPU
+# sin/cos (or of an FMA) through 9 doublings, 2^9 ulps of a high-frequency
+# feature: the first run measured 1.5e-3 on the coarse network (1.4e-6
+# with exact embeds), and 5e-3 is 3.3x that. The fine network sees the
+# coarse weights through the inverse CDF, where a depth in a low-weight
+# interval moves by up to ~1e-3 with them and the embed's 2^9 frequency
+# turns that into a few per cent of a gradient's largest entry (2.1e-2
+# measured; 9.1e-4 with exact embeds): it is held by ||card - cpu|| /
+# ||cpu|| (9.7e-3 measured; 3e-2). Weights after Adam, whose first step
+# moves each weight by lr * g / (|g| + eps): where the two gradients agree
+# to a tenth (|card - cpu| <= |cpu| / 10) the updates agree to a tenth of
+# lr at most; the other entries are noise-level gradients whose sign is
+# not determined, and their share is printed.
+TT_CHECK_RAYS = 128
+TT_CHECK_TOL = {"loss": 1e-5, "coarse_grad": 5e-3, "fine_grad_norm": 3e-2,
+                "update_lr": 0.1}
+# The student distilled from the trained teacher's shards: 8 poses of pseudo
+# shards (the bf16 teacher through kernels 5 and 6) and the 20 training
+# frames as train_ shards, 20 shards a batch (--N_rand 20), the train
+# phase's student and step (hard_ratio 0.2, --warmup_lr 0.0001,200).
+DISTILL_POSES, DISTILL_SHARDS, DISTILL_STEPS = 8, 20, 20
+# The card's host link: PCIe Gen5 x16, 64 GB/s a direction (data sheet)
+H100_HOST_BYTES = 64e9
 
 
 def fail(msg: str) -> None:
@@ -2159,6 +2231,402 @@ def phase_teacher_frame(sm: Smoke) -> None:
     sm.entries["nerf_render_rays_fused"]["launches"] = launches[0]
 
 
+def _sphere_frames(sm: Smoke):
+    """The training and held-out frames of the sphere scene in memory, as
+    data.synthetic.make_synthetic_scene poses them: training poses at random
+    theta in (-180, 180) and phi in (-75, -15), held-out ones evenly round
+    at phi -30, radius 4; each frame composited on white. Returns [(pose
+    [4, 4], rgb [H, W, 3] numpy)] for each."""
+    import numpy as np
+
+    from efficient_nerf_tpu_torch.core.poses import pose_spherical
+    from efficient_nerf_tpu_torch.data import render_sphere_frame
+
+    rng = np.random.default_rng(sm.seed)
+
+    def frame(pose):
+        img = render_sphere_frame(pose, FRAME_H, FRAME_W, T_FOCAL)
+        return pose, img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
+
+    train = [frame(pose_spherical(rng.uniform(-180, 180), rng.uniform(-75, -15), 4.0))
+             for _ in range(TT_TRAIN_FRAMES)]
+    held = [frame(pose_spherical(-180 + 360 * i / TT_HELD_OUT, -30.0, 4.0))
+            for i in range(TT_HELD_OUT)]
+    return train, held
+
+
+def _teacher_pair(torch, dev, dtype=None, like=None):
+    """Coarse and fine lego-config NeRFMLPs on `dev`: fresh ones from torch's
+    seeded default init, or copies of `like`'s weights with compute dtype
+    `dtype`."""
+    from efficient_nerf_tpu_torch.models import NeRFMLP
+
+    pair = []
+    for i in range(2):
+        m = NeRFMLP(depth=T_DEPTH, width=T_WIDTH, dtype=dtype or torch.float32)
+        if like is not None:
+            m.load_state_dict(like[i].state_dict())
+        pair.append(m.to(dev))
+    return pair
+
+
+def _step_check(sm: Smoke, models, cfg, schedule, frames) -> dict:
+    """One teacher step on the card against the same step on the CPU, from
+    copies of `models`, with the same t_rand/u draws: the loss's relative
+    error; each network's gradients as max |card - cpu| / max |cpu| and in
+    norm, with the worst tensor; the weights after Adam in units of lr where
+    the gradients agree to a tenth, and the share of entries where they do
+    not."""
+    import numpy as np
+
+    from efficient_nerf_tpu_torch.core.rays import get_rays_np
+    from efficient_nerf_tpu_torch.core.sampling import sorted_uniform
+    from efficient_nerf_tpu_torch.train import init_train_state, make_teacher_train_step
+
+    torch = sm.torch
+    rng = np.random.default_rng(sm.seed + 1)
+    pose, rgb = frames[0]
+    o, d = get_rays_np(FRAME_H, FRAME_W, T_FOCAL, pose[:3, :4])
+    pick = rng.permutation(FRAME_H * FRAME_W)[:TT_CHECK_RAYS]
+    batch = [torch.from_numpy(np.ascontiguousarray(x.reshape(-1, 3)[pick], np.float32))
+             for x in (o, d, rgb)]
+    g = torch.Generator().manual_seed(sm.seed)
+    noise = {"t_rand": torch.rand(TT_CHECK_RAYS, T_SAMPLES, generator=g),
+             "u": sorted_uniform((TT_CHECK_RAYS, T_IMPORTANCE), g)}
+    out = []
+    for dev in (sm.dev, torch.device("cpu")):
+        pair = _teacher_pair(torch, dev, like=models)
+        opt = torch.optim.Adam([p for m in pair for p in m.parameters()], lr=TT_LRATE,
+                               betas=(0.9, 0.999), eps=1e-8)
+        step = make_teacher_train_step(pair[0], pair[1], opt, cfg, schedule=schedule,
+                                       device=dev)
+        state = init_train_state(torch.nn.ModuleDict({"coarse": pair[0], "fine": pair[1]}),
+                                 opt)
+        _, met = step(state, None, *[x.to(dev) for x in batch],
+                      noise={k: v.to(dev) for k, v in noise.items()})
+        out.append({"loss": met["loss"].item(),
+                    "params": [{k: (p.detach().cpu(), p.grad.cpu())
+                                for k, p in m.named_parameters()} for m in pair]})
+    card, cpu = out
+    err = {"loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+           "loss_value": cpu["loss"]}
+    for i, name in enumerate(("coarse", "fine")):
+        worst = {"grad": (0.0, ""), "grad_norm": (0.0, ""), "update_lr": (0.0, "")}
+        undetermined = total = 0
+        for k, (w_a, g_a) in card["params"][i].items():
+            w_b, g_b = cpu["params"][i][k]
+            dg = (g_a - g_b).abs()
+            sure = dg <= g_b.abs() / 10
+            undetermined += int((~sure).sum())
+            total += g_b.numel()
+            moved = ((w_a - w_b).abs()[sure].max().item() / TT_LRATE) if sure.any() else 0.0
+            for key, v in (("grad", (dg.max() / g_b.abs().max()).item()),
+                           ("grad_norm", ((g_a - g_b).norm() / g_b.norm()).item()),
+                           ("update_lr", moved)):
+                worst[key] = max(worst[key], (v, k))
+        for key, (v, k) in worst.items():
+            err[f"{name}_{key}"], err[f"{name}_{key}_at"] = v, k
+        err[f"{name}_undetermined"] = undetermined / total
+    err["update_lr"] = max(err["coarse_update_lr"], err["fine_update_lr"])
+    return err
+
+
+def _frame_quality(sm: Smoke, res, gt) -> tuple:
+    """(PSNR, SSIM) of a rendered frame against its ground truth."""
+    from efficient_nerf_tpu_torch.metrics import psnr, ssim_image
+
+    want = sm.torch.as_tensor(gt, dtype=sm.torch.float32, device=sm.dev)
+    return psnr(res.rgb, want).item(), ssim_image(res.rgb, want).item()
+
+
+def phase_teacher_train(sm: Smoke) -> None:
+    import dataclasses
+
+    import numpy as np
+
+    from efficient_nerf_tpu_torch.core.rays import get_rays
+    from efficient_nerf_tpu_torch.ops.nerf_forward import nerf_forward_fused
+    from efficient_nerf_tpu_torch.ops.sample_pdf import sample_pdf_det_fused
+    from efficient_nerf_tpu_torch.render import render_image
+    from efficient_nerf_tpu_torch.train import (init_train_state, make_lr_schedule,
+                                                make_teacher_train_step)
+
+    torch, dev = sm.torch, sm.dev
+    t0 = time.perf_counter()
+    train, held = _sphere_frames(sm)
+    data_s = time.perf_counter() - t0
+    cfg = teacher_config()                    # perturbed, the unfused field eval
+    eval_f32 = dataclasses.replace(cfg.eval_mode(), fused_teacher=False)
+    schedule = make_lr_schedule(TT_LRATE, TT_LRATE_DECAY)
+    torch.manual_seed(sm.seed)
+    models = _teacher_pair(torch, dev)
+
+    for label, c in (("exact embeds", dataclasses.replace(cfg, fast_embed=False)),
+                     ("the training config", cfg)):
+        ck = _step_check(sm, models, c, schedule, train)
+        print(f"teacher_train: one step on the card against the CPU with {label}, f32 "
+              f"without TF32, {TT_CHECK_RAYS} rays, the same weights and t_rand/u draws: loss "
+              f"{ck['loss_value']:.6f}, relative error {ck['loss']:.3g}; "
+              + "; ".join(
+                  f"{n} gradients {ck[f'{n}_grad']:.3g} of their largest entry "
+                  f"({ck[f'{n}_grad_at']}), {ck[f'{n}_grad_norm']:.3g} in norm "
+                  f"({ck[f'{n}_grad_norm_at']}), weights after Adam {ck[f'{n}_update_lr']:.3g} "
+                  f"lr ({ck[f'{n}_update_lr_at']}) where the gradients agree to a tenth, "
+                  f"{ck[f'{n}_undetermined']:.2e} of the entries not"
+                  for n in ("coarse", "fine"))
+              + f" (tol {json.dumps(TT_CHECK_TOL)})", flush=True)
+        for k, tol in TT_CHECK_TOL.items():
+            if not ck[k] <= tol:
+                fail(f"the teacher step on the card differs from the CPU's with {label}: "
+                     f"{k} {ck[k]:.3g} (tol {tol})")
+
+    def held_out(pair, c):
+        return [render_image(pair[0], pair[1], FRAME_H, FRAME_W, T_FOCAL, pose[:3, :4], c)
+                for pose, _ in held]
+
+    before = [_frame_quality(sm, r, gt)
+              for r, (_, gt) in zip(held_out(models, eval_f32), held)]
+
+    # the frames on the card: rays and targets of every training frame
+    rays = [get_rays(FRAME_H, FRAME_W, T_FOCAL, pose[:3, :4], device=dev) for pose, _ in train]
+    all_o = torch.stack([o.reshape(-1, 3) for o, _ in rays])
+    all_d = torch.stack([d.reshape(-1, 3) for _, d in rays])
+    all_t = torch.stack([torch.as_tensor(rgb.reshape(-1, 3), dtype=torch.float32)
+                         for _, rgb in train]).to(dev)
+    dH, dW = int(FRAME_H // 2 * TT_PRECROP_FRAC), int(FRAME_W // 2 * TT_PRECROP_FRAC)
+    crop = ((torch.arange(FRAME_H // 2 - dH, FRAME_H // 2 + dH, device=dev)[:, None] * FRAME_W
+             + torch.arange(FRAME_W // 2 - dW, FRAME_W // 2 + dW, device=dev)).reshape(-1))
+
+    opt = torch.optim.Adam([p for m in models for p in m.parameters()], lr=TT_LRATE,
+                           betas=(0.9, 0.999), eps=1e-8)
+    step = make_teacher_train_step(models[0], models[1], opt, cfg, schedule=schedule)
+    state = init_train_state(torch.nn.ModuleDict({"coarse": models[0], "fine": models[1]}),
+                             opt)
+    gen = torch.Generator(device=dev).manual_seed(sm.seed)
+    rng = np.random.default_rng(sm.seed)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    metrics = []
+    t0 = time.perf_counter()
+    for i in range(1, TT_STEPS + 1):
+        if i == TT_WARMUP + 1:
+            start.record()
+        f = int(rng.integers(TT_TRAIN_FRAMES))
+        # main.py's _select_coords: N_rand pixels without replacement, from
+        # the central crop while i < precrop_iters
+        pool = crop if i < TT_PRECROP_ITERS else None
+        n_pool = FRAME_H * FRAME_W if pool is None else pool.numel()
+        sel = torch.randperm(n_pool, generator=gen, device=dev)[:TT_N_RAND]
+        if pool is not None:
+            sel = pool[sel]
+        state, met = step(state, gen, all_o[f, sel], all_d[f, sel], all_t[f, sel])
+        metrics.append(met)
+    end.record()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    step_ms = start.elapsed_time(end) / (TT_STEPS - TT_WARMUP)
+    loss = np.array([m["loss"].item() for m in metrics])
+    psnr_curve = np.array([m["psnr"].item() for m in metrics])
+    print(f"teacher_train: {TT_STEPS} steps of {TT_N_RAND} rays ({T_SAMPLES} + "
+          f"{T_IMPORTANCE} samples, f32, the unfused path under autograd) in {loop_s:.1f} s: "
+          f"{step_ms:.3f} ms/step ({TT_N_RAND / step_ms * 1e3:.0f} rays/s) over the steps "
+          f"after {TT_WARMUP}; loss and fine PSNR, the mean of each 50 steps: "
+          + "; ".join(f"{k + 50}: {loss[k:k + 50].mean():.5f} {psnr_curve[k:k + 50].mean():.2f} dB"
+                      for k in range(0, TT_STEPS, 50)), flush=True)
+    if not np.isfinite(loss).all():
+        fail("a teacher training loss is not finite")
+    if not loss[-50:].mean() < loss[:50].mean():
+        fail(f"the teacher's loss did not fall: {loss[:50].mean():.5f} over the first 50 "
+             f"steps, {loss[-50:].mean():.5f} over the last 50")
+
+    after = [_frame_quality(sm, r, gt) for r, (_, gt) in zip(held_out(models, eval_f32), held)]
+    bf = _teacher_pair(torch, dev, torch.bfloat16, like=models)
+    ecfg = cfg.eval_mode()
+    chunks = -(-FRAME_H * FRAME_W // T_CHUNK)
+    torch.cuda.synchronize()
+    nerf_forward_fused.launches = 0
+    sample_pdf_det_fused.launches = 0
+    bf_frames = held_out(bf, ecfg)
+    torch.cuda.synchronize()
+    launches = (nerf_forward_fused.launches, sample_pdf_det_fused.launches)
+    bf_q = [_frame_quality(sm, r, gt) for r, (_, gt) in zip(bf_frames, held)]
+    gain = np.mean([a[0] for a in after]) - np.mean([b[0] for b in before])
+    print(f"teacher_train: held-out PSNR / SSIM against the sphere frames: untrained f32 "
+          + ", ".join(f"{p:.2f} dB / {q:.4f}" for p, q in before)
+          + "; trained f32 (unfused) " + ", ".join(f"{p:.2f} dB / {q:.4f}" for p, q in after)
+          + "; trained bf16 through the kernels " + ", ".join(f"{p:.2f} dB / {q:.4f}" for p, q in bf_q)
+          + f"; gain {gain:.2f} dB (at least {TT_PSNR_GAIN:g}); the bf16 render launched "
+          f"nerf_forward_fused {launches[0]} and sample_pdf_det_fused {launches[1]} times over "
+          f"{len(held)} frames of {chunks} chunks; {TT_TRAIN_FRAMES + TT_HELD_OUT} frames "
+          f"made in {data_s:.1f} s", flush=True)
+    if launches != (2 * chunks * len(held), chunks * len(held)):
+        fail(f"the trained teacher's bf16 render launched {launches}, expected 2 field-eval "
+             f"and 1 sampler launch a chunk")
+    if not gain >= TT_PSNR_GAIN:
+        fail(f"the trained teacher's held-out PSNR rose by {gain:.2f} dB only")
+
+    # the int8 frame of the trained teacher against its bf16 frame (reported,
+    # not gated: the JAX package gates it at INT8_PSNR_MIN on its own trained
+    # teacher, tests/test_quality_e2e.py:270)
+    cfg8 = dataclasses.replace(cfg, teacher_quant="int8").eval_mode()
+    q8 = held_out(bf, cfg8)[0]
+    ref = bf_frames[0]
+    n_rays = FRAME_H * FRAME_W
+    flip = (((q8.acc0 - ref.acc0).abs() > 0.5) | ((q8.acc - ref.acc).abs() > 0.5)).reshape(n_rays)
+    d2 = ((q8.rgb - ref.rgb) ** 2).reshape(n_rays, 3)
+    psnr_all = -10.0 * math.log10(max(d2.mean().item(), 1e-30))
+    psnr_kept = -10.0 * math.log10(max(d2[~flip].mean().item(), 1e-30))
+    q8_gt = _frame_quality(sm, q8, held[0][1])
+    print(f"teacher_train: the trained teacher's int8 frame against its bf16 frame "
+          f"(held-out 0): rays whose coarse or fine acc moves by more than 0.5: share "
+          f"{flip.float().mean().item():.2e}; PSNR {psnr_all:.2f} dB over the frame, "
+          f"{psnr_kept:.2f} dB over the other rays (the JAX package's gate on its trained "
+          f"teacher: {INT8_PSNR_MIN:g} dB over the frame; reported, not gated here); int8 "
+          f"against the sphere frame {q8_gt[0]:.2f} dB / {q8_gt[1]:.4f}", flush=True)
+    sm.trained = {"bf16": bf, "train": train, "held": held, "bf_frame0": bf_frames[0],
+                  "cfg": cfg}
+
+
+def phase_distill(sm: Smoke) -> None:
+    import numpy as np
+
+    from efficient_nerf_tpu_torch.data import (RayShardDataset, ShardLoader,
+                                               export_pseudo_shards, native, rays_to_shards)
+    from efficient_nerf_tpu_torch.data.convert import _pack_image_rays
+
+    if not hasattr(sm, "trained"):
+        fail("distill reads the teacher_train phase's teacher: run both")
+    tr = sm.trained
+    t0 = time.perf_counter()
+    lib = native.build_library()
+    print(f"distill: native shard reader {lib} ({time.perf_counter() - t0:.2f} s, from "
+          f"{native.RUNTIME_SRC})", flush=True)
+    if lib.parent != native.BUILD_DIR or lib.parent.parts[-2:] != ("build", "runtime") \
+            or not lib.exists():
+        fail(f"the native reader was not built into build/runtime/: {lib}")
+
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        export_pseudo_shards(tr["bf16"][0], tr["bf16"][1], tr["cfg"], FRAME_H, FRAME_W,
+                             T_FOCAL, out, DISTILL_POSES, seed=sm.seed)
+        pseudo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = np.concatenate([_pack_image_rays(FRAME_H, FRAME_W, T_FOCAL, pose[:3, :4], rgb)
+                               for pose, rgb in tr["train"]])
+        n_real = rays_to_shards(rows, out, rng=np.random.default_rng(sm.seed))
+        real_s = time.perf_counter() - t0
+        del rows
+        ds = RayShardDataset(out, pseudo_ratio=-1, rng=np.random.default_rng(sm.seed))
+        print(f"distill: {ds.n_pseudo} pseudo shards from {DISTILL_POSES} poses "
+              f"({pseudo_s:.2f} s), {n_real} train_ shards of the {TT_TRAIN_FRAMES} frames "
+              f"({real_s:.2f} s); {len(ds)} shards of [4096, 9]", flush=True)
+        if ds.n_original != n_real or ds.n_pseudo != DISTILL_POSES * FRAME_H * FRAME_W // 4096:
+            fail(f"the shard directory holds {ds.n_pseudo} pseudo and {ds.n_original} real "
+                 f"shards")
+        loader = ShardLoader(ds, DISTILL_SHARDS, rng=np.random.default_rng(sm.seed),
+                             use_native=True)
+        try:
+            _distill_steps(sm, ds, loader)
+        finally:
+            loader.close()
+
+
+def _distill_steps(sm: Smoke, ds, loader) -> None:
+    """The loader's batch against the numpy path's and its times, then the
+    student's steps on its batches."""
+    import numpy as np
+
+    from efficient_nerf_tpu_torch.data import infinite_indices
+    from efficient_nerf_tpu_torch.device import to_device
+    from efficient_nerf_tpu_torch.metrics import psnr
+    from efficient_nerf_tpu_torch.ops import r2l_train as rt
+    from efficient_nerf_tpu_torch.render import r2l_render_image
+    from efficient_nerf_tpu_torch.train import (hard_pool_init, init_train_state,
+                                                make_lr_schedule, make_r2l_train_step,
+                                                parse_warmup)
+
+    torch, dev, tr = sm.torch, sm.dev, sm.trained
+    # a batch of the native reader against the numpy path's, same shards
+    idxs = [i for i, _ in zip(infinite_indices(len(ds), np.random.default_rng(1)),
+                              range(DISTILL_SHARDS))]
+    native_batch = loader.load_batch(idxs)
+    numpy_batch = ds.split_columns(np.concatenate([ds.load(i) for i in idxs]).astype(np.float32))
+    same = all(np.array_equal(a, b) for a, b in zip(native_batch, numpy_batch))
+    load_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        loader.load_batch(idxs)
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ds.split_columns(np.concatenate([ds.load(i) for i in idxs]).astype(np.float32))
+    numpy_ms = (time.perf_counter() - t0) * 1e3 / 3
+    n_bytes = sum(a.nbytes for a in native_batch)
+    pinned = [torch.from_numpy(a).pin_memory() for a in native_batch]
+    h2d_ms = cuda_ms(torch, lambda: [p.to(dev, non_blocking=True) for p in pinned], 10)
+    print(f"distill: a batch of {DISTILL_SHARDS} shards ({n_bytes / 1e6:.2f} MB) from the "
+          f"native reader equals the numpy path's bit for bit: {same}; the reader "
+          f"{np.median(load_ms):.3f} ms a batch (median of 10; numpy path {numpy_ms:.3f} ms): "
+          f"{n_bytes / np.median(load_ms) / 1e6:.2f} GB/s, against the host-to-card copy of "
+          f"those bytes: {n_bytes / H100_HOST_BYTES * 1e3:.3f} ms at the link's "
+          f"{H100_HOST_BYTES / 1e9:g} GB/s, {h2d_ms:.3f} ms measured (pinned)", flush=True)
+    if not same:
+        fail("the native reader's batch differs from the numpy path's")
+
+    model = sm.model(random_state_dict(sm.seed + 2, torch), use_residual=True,
+                     dtype=torch.bfloat16)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4, betas=(0.9, 0.999), eps=1e-8,
+                           fused=True)
+    step = make_r2l_train_step(
+        model, opt, near=NEAR, far=FAR, n_sample=N_SAMPLE, L=L_FREQ, perturb=True,
+        hard=TRAIN_HARD, schedule=make_lr_schedule(5e-4, 500, parse_warmup("0.0001,200")))
+    state = init_train_state(model, opt)
+    pool = hard_pool_init(TRAIN_POOL)
+    gen = torch.Generator(device=dev).manual_seed(sm.seed)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(DISTILL_STEPS)]
+    losses, waits, next_ms = [], 0, []
+    torch.cuda.synchronize()
+    rt.r2l_train_fwd.launches = 0
+    rt.r2l_train_bwd_act.launches = 0
+    rt.r2l_train_wgrad.launches = 0
+    t_loop = time.perf_counter()
+    for ev in events:
+        waits += loader._q.empty()
+        t0 = time.perf_counter()
+        o, d, t = next(loader)
+        next_ms.append((time.perf_counter() - t0) * 1e3)
+        o, d, t = (to_device(x, dev) for x in (o, d, t))
+        ev[0].record()
+        state, pool, met = step(state, pool, gen, o, d, t)
+        ev[1].record()
+        losses.append(met["loss_rgb"])
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t_loop
+    launches = (rt.r2l_train_fwd.launches, rt.r2l_train_bwd_act.launches,
+                rt.r2l_train_wgrad.launches)
+    losses = [v.item() for v in losses]
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    n_rays = TRAIN_BATCH + TRAIN_HARD[1]
+    pose, _ = tr["held"][0]
+    with torch.no_grad():
+        student = r2l_render_image(model, pose[:3, :4], FRAME_H, FRAME_W, T_FOCAL,
+                                        NEAR, FAR, N_SAMPLE, L_FREQ)
+    s_psnr = psnr(student.float(), tr["bf_frame0"].rgb).item()
+    print(f"distill: {DISTILL_STEPS} steps of {n_rays} rays ({TRAIN_BATCH} from the loader + "
+          f"{TRAIN_HARD[1]} hard) in {loop_s:.2f} s: step {np.median(step_ms[2:]):.3f} ms "
+          f"(median after 2; CUDA events around the step); next(loader) {np.median(next_ms):.3f} "
+          f"ms median, {max(next_ms):.3f} max, the queue empty before {waits} of "
+          f"{DISTILL_STEPS} steps; launches r2l_train_fwd {launches[0]}, r2l_train_bwd_act "
+          f"{launches[1]}, r2l_train_wgrad {launches[2]}; loss_rgb "
+          + " ".join(f"{v:.5f}" for v in losses)
+          + f"; the student's held-out frame against the teacher's bf16 frame {s_psnr:.2f} dB",
+          flush=True)
+    if launches != (DISTILL_STEPS,) * 3:
+        fail(f"expected one launch of each training kernel a step, counted {launches}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"the student's loss did not fall: {losses[0]:.5f} -> {losses[-1]:.5f}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2169,7 +2637,7 @@ def main() -> None:
               phase_kernel_int8, phase_main_int8, phase_train_kernel, phase_train,
               phase_teacher_kernel, phase_teacher, phase_pseudo,
               phase_teacher_int8_kernel, phase_teacher_int8, phase_frame_kernel,
-              phase_teacher_frame)
+              phase_teacher_frame, phase_teacher_train, phase_distill)
     chosen = [p for p in args.phases.split(",") if p]
     unknown = set(chosen) - {p.__name__[len("phase_"):] for p in phases}
     if unknown:

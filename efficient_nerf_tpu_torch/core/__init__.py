@@ -1,5 +1,6 @@
-from .rays import (apply_trans_origin, get_rays, ndc_rays, plucker_rays,
-                   translate_origin_fixed, translate_origin_to_sphere)
+from .rays import (apply_trans_origin, get_rays, get_rays_np, ndc_rays,
+                   pixel_dirs, plucker_rays, translate_origin_fixed,
+                   translate_origin_to_sphere)
 from .sampling import (linear_zvals, merge_sorted, sample_pdf, sorted_uniform,
                        stratified_sample, stratify_zvals)
 from .encoding import nerf_embed, nerf_embed_dim, ray_embed, ray_embed_dim

@@ -2,8 +2,10 @@
 
 Pixel (x, y) maps to the camera-space direction ((x - W/2)/f, -(y - H/2)/f, -1),
 rotated into the world frame by the camera-to-world matrix; ray origins are
-the camera position. `ndc_rays` projects forward-facing (LLFF) rays to NDC;
-the origin translations are the pseudo-data generator's `trans_origin` modes.
+the camera position. `get_rays_np` is the numpy twin for host-side data
+preparation (the synthetic scene, the shard converter). `ndc_rays` projects
+forward-facing (LLFF) rays to NDC; the origin translations are the
+pseudo-data generator's `trans_origin` modes.
 """
 from __future__ import annotations
 
@@ -14,8 +16,9 @@ import torch
 
 from ..device import DeviceLike, resolve_device, to_device
 
-__all__ = ["get_rays", "plucker_rays", "ndc_rays", "translate_origin_fixed",
-           "translate_origin_to_sphere", "apply_trans_origin"]
+__all__ = ["pixel_dirs", "get_rays", "get_rays_np", "plucker_rays", "ndc_rays",
+           "translate_origin_fixed", "translate_origin_to_sphere",
+           "apply_trans_origin"]
 
 
 @functools.lru_cache(maxsize=32)
@@ -37,6 +40,12 @@ def _pixel_dirs(H: int, W: int, focal: float, device: torch.device) -> torch.Ten
     """_pixel_dirs_np on `device`, made once per camera and device (the JAX
     package gets the same from XLA's constant folding)."""
     return to_device(_pixel_dirs_np(H, W, focal).copy(), device)
+
+
+def pixel_dirs(H: int, W: int, focal: float, device: DeviceLike = None) -> torch.Tensor:
+    """[H, W, 3] camera-frame direction for each pixel (z = -1 plane), on
+    `device`."""
+    return _pixel_dirs(H, W, float(focal), resolve_device(device))
 
 
 def get_rays(H: int, W: int, focal: float, c2w, focal_scale=1.0,
@@ -67,6 +76,17 @@ def get_rays(H: int, W: int, focal: float, c2w, focal_scale=1.0,
     # run in TF32 on the card and corrupt the directions
     rays_d = torch.sum(dirs[..., None, :] * c2w[:3, :3], dim=-1)
     rays_o = c2w[:3, -1].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
+def get_rays_np(H: int, W: int, focal: float, c2w):
+    """Numpy twin of get_rays for host-side data preparation: (rays_o,
+    rays_d), each [H, W, 3], in the JAX package's operations (an einsum over
+    the f32 pixel grid), so that the two agree bit for bit."""
+    c2w = np.asarray(c2w)
+    dirs = _pixel_dirs_np(H, W, float(focal))
+    rays_d = np.einsum("hwc,rc->hwr", dirs, c2w[:3, :3])
+    rays_o = np.broadcast_to(c2w[:3, -1], rays_d.shape)
     return rays_o, rays_d
 
 

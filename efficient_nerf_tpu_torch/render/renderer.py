@@ -172,15 +172,32 @@ def _needs_bf16(models, path: str) -> None:
                          f"model with dtype=torch.bfloat16")
 
 
+def _no_autograd(path: str, models, *tensors) -> None:
+    """The kernels have no backward: a kernel path asked for while autograd
+    would track its inputs raises instead of returning outputs that carry
+    no gradient. Training takes the unfused path (fused_teacher,
+    teacher_quant and frame_fused off, as the JAX package's training config
+    has them); evaluation runs under torch.no_grad(), as render_image does."""
+    if not torch.is_grad_enabled():
+        return
+    if any(t is not None and t.requires_grad for t in tensors) or any(
+            p.requires_grad for m in models for p in m.parameters()):
+        raise RuntimeError(
+            f"the teacher's {path} has no backward, and autograd is tracking its "
+            f"inputs: train with fused_teacher, teacher_quant and frame_fused off, "
+            f"or evaluate under torch.no_grad()")
+
+
 def _render_frame(model, model_fine, rays_o, rays_d, viewdirs,
                   cfg: RenderConfig) -> RenderResult:
     """render_rays through the whole-ray kernel."""
     if model_fine is not None and not _teacher_profile_ok(model_fine, cfg):
         raise ValueError("nerf_render_rays_fused requires matching coarse/fine "
                          "architectures; the fine model is not the teacher profile")
+    models = (model,) if model_fine is None else (model, model_fine)
     if rays_o.is_cuda:
-        _needs_bf16((model,) if model_fine is None else (model, model_fine),
-                    "whole-ray render (frame_fused)")
+        _needs_bf16(models, "whole-ray render (frame_fused)")
+    _no_autograd("whole-ray kernel (frame_fused)", models, rays_o, rays_d, viewdirs)
     out = nerf_render_rays_fused(
         _packed(model), None if model_fine is None else _packed(model_fine),
         rays_o.contiguous(), rays_d.contiguous(), viewdirs.contiguous(), cfg.near,
@@ -197,6 +214,7 @@ def _query_int8(model, pts, viewdirs, cfg: RenderConfig) -> torch.Tensor:
         raise ValueError("teacher_quant=int8 requires the standard viewdir teacher profile")
     if pts.is_cuda:
         _needs_bf16((model,), "int8 field eval (teacher_quant='int8')")
+    _no_autograd("int8 field eval (teacher_quant='int8')", (model,), pts, viewdirs)
     packed, packed_f32 = _packed_int8(model)
     scales = calibrate_nerf_int8(packed_f32, pts.reshape(-1, 3)[:1024], cfg.multires)
     return nerf_forward_int8(packed, pts.contiguous(), viewdirs.contiguous(), cfg.multires,
@@ -225,6 +243,7 @@ def _field(model, rays_o, rays_d, z_vals, viewdirs, cfg: RenderConfig,
     if pts.is_cuda:
         _needs_bf16((model,), "fused field eval (fused_teacher=False and fast_embed=False "
                     "take the unfused path)")
+    _no_autograd("fused field eval (fused_teacher)", (model,), pts, viewdirs)
     return nerf_forward_fused(_packed(model), pts.contiguous(),
                               viewdirs.contiguous(), cfg.multires,
                               cfg.multires_views)
@@ -242,6 +261,10 @@ def render_rays(model, model_fine, rays_o: torch.Tensor, rays_d: torch.Tensor,
     n_importance] and noise [N, n_samples] are the determinism hooks; noise
     is the coarse pass's sigma noise, as in the JAX package (the fine pass
     draws its own from `generator` when raw_noise_std > 0).
+
+    The unfused path is differentiable in the models' parameters (the fine
+    depths are detached, as the JAX package stops their gradient); a kernel
+    path raises RuntimeError while autograd tracks its inputs.
     """
     _check_modes(cfg)
     if _frame_fused_eligible(model, cfg, near, far, t_rand, u, noise):

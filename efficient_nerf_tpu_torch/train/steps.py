@@ -1,5 +1,6 @@
-"""The R2L student's training step, after
-`efficient_nerf_tpu.train.steps.make_r2l_train_step` (:40-185).
+"""The training steps: the R2L student's, after
+`efficient_nerf_tpu.train.steps.make_r2l_train_step` (:40-185), and the
+NeRF teacher's, after `make_teacher_train_step` (:248-308).
 
 One step: draw the hard rows and append them to the batch, sample the
 points (perturbed), compute the MSE loss, take the gradient, run one Adam
@@ -13,7 +14,12 @@ On a CUDA device the flagship profile goes through the fused training
 kernels (`ops.r2l_train_apply`, csrc/r2l_train.cu); on the CPU the unfused
 `R2LNet` autograd path runs, as the JAX package takes XLA off the TPU.
 `mesh` and `interpret` are not ported: multi-GPU training is ROADMAP queue
-1 item 10, and the kernels' plain versions take interpret mode's place.
+1 item 8, and the kernels' plain versions take interpret mode's place.
+
+The teacher's step runs `render.render_rays` under autograd on its unfused
+path (`nerf_embed` -> `NeRFMLP`, cuBLAS products on the card): the JAX
+package's training config turns on neither the fused field eval nor the
+int8 teacher, and the kernels have no backward.
 """
 from __future__ import annotations
 
@@ -24,18 +30,21 @@ import torch
 
 from ..core.encoding import ray_embed
 from ..core.ray_sampler import sample_ray_points
-from ..core.rays import plucker_rays
+from ..core.rays import ndc_rays, plucker_rays
 from ..device import DeviceLike, resolve_device
 from ..ops import fused_r2l_train_available
 from ..ops.r2l_train import r2l_train_apply, train_profile_eligible
+from ..render.renderer import RenderConfig, render_rays
 from .hard_mining import HardPool, pick_hard_rays, update_hard_pool
 
 __all__ = ["TrainState", "init_train_state", "make_r2l_train_step",
-           "mse_to_psnr"]
+           "make_teacher_train_step", "mse_to_psnr"]
 
 
 class TrainState(NamedTuple):
-    model: torch.nn.Module            # parameters, updated in place
+    # parameters, updated in place; the teacher's coarse and fine models
+    # as an nn.ModuleDict({"coarse": ..., "fine": ...})
+    model: torch.nn.Module
     optimizer: torch.optim.Optimizer  # Adam state, updated in place
     step: int                         # updates taken so far
 
@@ -47,6 +56,22 @@ def init_train_state(model: torch.nn.Module,
 
 def mse_to_psnr(mse: torch.Tensor) -> torch.Tensor:
     return -10.0 * torch.log(mse) / math.log(10.0)
+
+
+def _check_device(model: torch.nn.Module, dev: torch.device) -> None:
+    if next(model.parameters()).device != dev:
+        raise ValueError(f"model is on {next(model.parameters()).device}, "
+                         f"training on {dev}: move the model with model.to(device)")
+
+
+def _set_lr(optimizer: torch.optim.Optimizer, schedule, step: int) -> None:
+    """Each param group's lr at schedule(step): optax evaluates the schedule
+    at the update count before it increments, so step 0 runs at
+    schedule(0)."""
+    if schedule is not None:
+        lr = schedule(step)
+        for group in optimizer.param_groups:
+            group["lr"] = lr
 
 
 def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
@@ -91,9 +116,7 @@ def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
     test can feed the JAX step's own random numbers.
     """
     dev = resolve_device(device)
-    if next(model.parameters()).device != dev:
-        raise ValueError(f"model is on {next(model.parameters()).device}, "
-                         f"training on {dev}: move the model with model.to(device)")
+    _check_device(model, dev)
     if fused is None or fused:
         eligible = train_profile_eligible(model)
         if fused and not eligible:
@@ -152,10 +175,7 @@ def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         for p, g in zip(params, grads):
             p.grad = g
-        if schedule is not None:
-            lr = schedule(state.step)
-            for group in optimizer.param_groups:
-                group["lr"] = lr
+        _set_lr(optimizer, schedule, state.step)
         optimizer.step()
 
         if hard is not None:
@@ -167,5 +187,75 @@ def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
         metrics = {"loss_rgb": loss_rgb, "loss_depth": loss_d.detach(),
                    "psnr": mse_to_psnr(loss_rgb / lw_rgb)}
         return state._replace(step=state.step + 1), pool, metrics
+
+    return step
+
+
+def make_teacher_train_step(model, model_fine, optimizer: torch.optim.Optimizer,
+                            cfg: RenderConfig,
+                            hwf: Optional[Tuple[int, int, float]] = None,
+                            schedule: Optional[Callable[[int], float]] = None,
+                            device: DeviceLike = None):
+    """Build the NeRF teacher's step (coarse + fine MSE losses).
+
+    step(state, generator, rays_o, rays_d, target, noise=None) ->
+        (state, metrics)
+
+    state = init_train_state(nn.ModuleDict({"coarse": model, "fine":
+    model_fine}), optimizer), with the optimizer over both models'
+    parameters: `torch.optim.Adam(..., betas=(0.9, 0.999))` as the JAX
+    package's factory builds optax.adam. model_fine=None trains one network
+    for both passes, as the JAX step does when the params have no 'fine'.
+    The models and the optimizer are updated in place; with a schedule, the
+    lr is schedule(state.step) for this update. metrics holds 0-dim tensors
+    on the device: loss (fine MSE, plus the coarse MSE when n_importance >
+    0) and psnr (of the fine MSE alone).
+
+    rays_o/rays_d [B, 3] are RAW world rays in every mode. With cfg.ndc the
+    step applies the projection itself: viewdirs are normalised from the
+    PRE-NDC world dirs, then o/d are projected before z is sampled in [0,
+    1] (reference main.py:148-162); hwf=(H, W, focal) is required for that.
+
+    cfg is the training config: perturbed sampling, and the unfused field
+    eval (a kernel path raises under autograd, render_rays). generator
+    draws the sampling's random numbers on the device; noise, an optional
+    dict with 't_rand' [B, n_samples], 'u' [B, n_importance] and 'noise'
+    [B, n_samples] (the coarse pass's sigma noise), replaces those draws
+    through render_rays' hooks, so that a test can feed the JAX step's own
+    random numbers. The fine pass's sigma noise (raw_noise_std > 0) always
+    comes from `generator`.
+    """
+    dev = resolve_device(device)
+    for m in (model,) if model_fine is None else (model, model_fine):
+        _check_device(m, dev)
+    if cfg.ndc and hwf is None:
+        raise ValueError("cfg.ndc requires hwf=(H, W, focal) so the step "
+                         "can project raw rays itself")
+    has_fine = cfg.n_importance > 0
+
+    def step(state: TrainState, generator: Optional[torch.Generator],
+             rays_o: torch.Tensor, rays_d: torch.Tensor, target: torch.Tensor,
+             noise: Optional[Dict[str, torch.Tensor]] = None):
+        noise = noise or {}
+        viewdirs = None
+        if cfg.use_viewdirs:
+            viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        ro, rd = rays_o, rays_d
+        if cfg.ndc:
+            H, W, focal = hwf
+            ro, rd = ndc_rays(H, W, focal, 1.0, ro, rd)
+        res = render_rays(model, model_fine, ro, rd, viewdirs, cfg,
+                          t_rand=noise.get("t_rand"), u=noise.get("u"),
+                          noise=noise.get("noise"), generator=generator)
+        loss_fine = torch.mean((res.rgb - target) ** 2)
+        loss = loss_fine
+        if has_fine:
+            loss = loss + torch.mean((res.rgb0 - target) ** 2)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        _set_lr(optimizer, schedule, state.step)
+        optimizer.step()
+        metrics = {"loss": loss.detach(), "psnr": mse_to_psnr(loss_fine.detach())}
+        return state._replace(step=state.step + 1), metrics
 
     return step
