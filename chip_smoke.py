@@ -67,6 +67,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 plain version and its library yardstick: the unfused cuBLAS
                 autograd forward, its backward against the two passes' sum,
                 and one cuBLAS bmm of pass 2's body products.
+  train_mlp     the README student command's own network (body_arch "mlp":
+                head, 86 plain linears, global residual, sigmoid tail; flax's
+                init from --seed), which no kernel covers: one f32 step of
+                make_r2l_train_step on the card against the same step on the
+                CPU (2,048 rays with injected t_rand and hard-pool draws;
+                exact and fast embeds: the loss, every gradient, the weights
+                after Adam); fused=True
+                raising ValueError; 10 f32 steps at the train phase's batch
+                and targets with the held-out MSE after each; ms a step and
+                rays/s in f32 and bf16 (fused Adam) beside the step's floor;
+                one bf16 r2l_render_image frame of the trained student beside
+                the main phase's; no kernel's launch counter may move in the
+                phase. Needs train in the same run.
   teacher_kernel  the teacher's field-eval kernel at W256 D8, L 10/4 (the lego
                 config's NeRFMLP) on points of frame rays at 512 rays x 64,
                 256 x 192 and a ragged 37 x 64 and 37 x 192 (one case
@@ -252,6 +265,39 @@ WGRAD_TOL = 1e-4
 INT8_TOL = {"static": 8e-3, "dynamic": 8e-3}
 INT8_CAL = 1024   # calibration rays, as bench.py calibrates
 
+
+# The README student command's own network (README.md:88-91, no
+# --trial.ON: factory.py:62 builds body_arch 'mlp'): head 1008 -> 256, 86
+# plain linears, a global residual (--use_residual), sigmoid tail, f32
+# (--compute_dtype's default). It trains at the train phase's batch and
+# targets. MLP_STEPS steps give the held-out MSE's trend.
+MLP_STEPS = 10
+H100_F32_FLOPS = 67e12    # dense f32 (no tensor cores), H100 SXM data sheet
+# One step on the card against the same step on the CPU (f32, TF32 off, the
+# same weights and t_rand/hard-pool draws) on MLP_CHECK_RAYS rays, with
+# exact embeds and with the command's fast embed. The loss: f32 sums in
+# another order (6.4e-8 relative with exact embeds, 1.4e-6 with the fast
+# one, in the first card runs). Gradients: the backward passes 86 relu
+# masks, and a pre-activation within the two sides' rounding of 0 flips its
+# mask and moves that ray's whole gradient below it, so the error grows
+# from the tail down to body.0 (printed by layer). The first card runs
+# measured body.0's gradient 8.2e-3 apart at its largest entry and 6.9e-3
+# in norm with exact embeds; with the fast embed, whose doubling recurrence
+# turns a one-ulp difference of the CUDA and CPU sin/cos into 2^9 ulps of a
+# high-frequency feature and so flips more masks, 2.65e-2 and 2.48e-2. So
+# each tensor's gradient is held in norm, ||card - cpu|| / ||cpu||: 2e-2
+# with exact embeds, 5e-2 with the fast one; a wrong layer, mask or
+# orientation gives errors of order 1. Weights after Adam, in units of lr,
+# where the gradients agree to a tenth: at most a tenth of lr (0.021 and
+# 0.024 measured); the other entries' gradients are noise-level and their
+# share is printed.
+MLP_CHECK_RAYS, MLP_CHECK_HARD = 2048, 512
+MLP_CHECK_TOL = {"loss": 1e-5, "grad_norm": {False: 2e-2, True: 5e-2},
+                 "update_lr": 0.1}
+# the layers whose gradient error the check prints, from the tail down
+MLP_CHECK_LAYERS = ("tail.0.weight", f"body.{2 * (DEPTH - 3)}.weight",
+                    f"body.{2 * ((DEPTH - 2) // 2)}.weight", "body.0.weight",
+                    "head.0.weight")
 
 # Teacher at the lego config (efficient_nerf_tpu/config/scenes/lego.txt):
 # NeRFMLP D8 W256, skip after layer 4, viewdirs, multires 10 / 4, 64 coarse
@@ -679,6 +725,7 @@ def phase_main(sm: Smoke) -> None:
     frame_ms = cuda_ms(torch, lambda: r2l_render_image(
         model, c2ws[1], FRAME_H, FRAME_W, FOCAL, NEAR, FAR, N_SAMPLE, L_FREQ,
         device=dev), 10)
+    sm.main_frame_ms = frame_ms
     n_rays = FRAME_H * FRAME_W
     fo, fd = rays[0][0].reshape(-1, 3).contiguous(), rays[0][1].reshape(-1, 3).contiguous()
     kern_ms = cuda_ms(torch, lambda: r2l_forward_fused(
@@ -1116,6 +1163,7 @@ def phase_train(sm: Smoke) -> None:
     teacher = sm.model(random_state_dict(sm.seed + 1, torch)).eval()
     all_t = r2l_forward_rays(teacher, all_o, all_d, NEAR, FAR, N_SAMPLE, L_FREQ)
     ev = torch.randint(0, all_o.shape[0], (EVAL_B,), generator=gen, device=dev)
+    sm.train_data = (all_o, all_d, all_t, ev)
 
     model = sm.model(sm.sd, use_residual=True, dtype=torch.bfloat16)
     # fused: one multi-tensor kernel; the default foreach Adam is bound by
@@ -1346,6 +1394,232 @@ def phase_train(sm: Smoke) -> None:
         "max_abs_err": max(errs["wgrad_abs"], passes["wgrad_abs"]),
         "ms": pass_ms[1], "plain_ms": plain_wgrad,
         "bound_ms": wgrad_bound[0], "bound_by": wgrad_bound[1], "library_ms": lib_wgrad}
+
+
+def mlp_state_dict(seed: int, torch):
+    """Reference-layout state_dict of the README student command's network
+    (body_arch 'mlp', W256 D88, input 1008), initialised as flax initialises
+    it: lecun-normal kernels (a normal truncated at 2 std, of std
+    1/sqrt(fan_in) after the truncation) and zero biases."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def lin(fan_in, fan_out):
+        w = rng.normal(size=(fan_out, fan_in))
+        out = np.abs(w) > 2.0
+        while out.any():
+            w[out] = rng.normal(size=int(out.sum()))
+            out = np.abs(w) > 2.0
+        w *= 1.0 / np.sqrt(fan_in) / 0.87962566103423978
+        return torch.tensor(w.astype(np.float32)), torch.zeros(fan_out)
+
+    sd = {}
+    sd["head.0.weight"], sd["head.0.bias"] = lin(IN_DIM, WIDTH)
+    for i in range(DEPTH - 2):
+        sd[f"body.{2 * i}.weight"], sd[f"body.{2 * i}.bias"] = lin(WIDTH, WIDTH)
+    sd["tail.0.weight"], sd["tail.0.bias"] = lin(WIDTH, 3)
+    return sd
+
+
+def _kernel_launches():
+    """{kernel: launch count} of every wrapper of the port."""
+    from efficient_nerf_tpu_torch.ops import (nerf_forward, nerf_frame, nerf_int8,
+                                              r2l_forward, r2l_int8, r2l_train,
+                                              sample_pdf, trig)
+
+    fns = (r2l_forward.r2l_forward_fused, r2l_int8.r2l_forward_int8,
+           r2l_train.r2l_train_fwd, r2l_train.r2l_train_bwd_act,
+           r2l_train.r2l_train_wgrad, nerf_forward.nerf_forward_fused,
+           nerf_int8.nerf_forward_int8, sample_pdf.sample_pdf_det_fused,
+           nerf_frame.nerf_render_rays_fused, trig.fast_sincos_cuda)
+    return {f.__name__: f.launches for f in fns}
+
+
+def _mlp_step_check(sm: Smoke, sd, schedule, fast_embed: bool) -> dict:
+    """One step of the mlp student (f32) on the card against the same step
+    on the CPU, from the same weights and t_rand/hard-pool draws, on
+    MLP_CHECK_RAYS rays: the loss's relative error; the gradients as max
+    |card - cpu| / max |cpu| and in norm, with the worst tensor, and in norm
+    for MLP_CHECK_LAYERS; the weights
+    after Adam in units of lr where the gradients agree to a tenth, and the
+    share of entries where they do not."""
+    from efficient_nerf_tpu_torch.models import R2LNet
+    from efficient_nerf_tpu_torch.train import (hard_pool_init, init_train_state,
+                                                make_r2l_train_step)
+
+    torch = sm.torch
+    all_o, all_d, all_t, _ = sm.train_data
+    n_hard = MLP_CHECK_HARD
+    n_batch = MLP_CHECK_RAYS - n_hard
+    g = torch.Generator().manual_seed(sm.seed)
+    pick = torch.randint(0, all_o.shape[0], (n_batch,), generator=g).to(sm.dev)
+    batch = [x[pick].cpu() for x in (all_o, all_d, all_t)]
+    noise = {"t_rand": torch.rand(MLP_CHECK_RAYS, N_SAMPLE, generator=g),
+             "idx_out": torch.randperm(n_batch, generator=g)[:n_hard],
+             "batch_idx": torch.randint(0, n_batch, (n_hard,), generator=g)}
+    out = []
+    for dev in (sm.dev, torch.device("cpu")):
+        model = R2LNet(IN_DIM, DEPTH, WIDTH, body_arch="mlp", use_residual=True)
+        model.load_state_dict(sd)
+        model.to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=5e-4, betas=(0.9, 0.999), eps=1e-8)
+        step = make_r2l_train_step(model, opt, near=NEAR, far=FAR, n_sample=N_SAMPLE,
+                                   L=L_FREQ, perturb=True, hard=(n_hard, n_hard),
+                                   fast_embed=fast_embed, schedule=schedule,
+                                   device=dev)
+        _, _, met = step(init_train_state(model, opt), hard_pool_init(n_batch, device=dev),
+                         None, *[x.to(dev) for x in batch],
+                         noise={k: v.to(dev) for k, v in noise.items()})
+        out.append({"loss": met["loss_rgb"].item(),
+                    "params": {k: (p.detach().cpu(), p.grad.cpu())
+                               for k, p in model.named_parameters()}})
+    card, cpu = out
+    err = {"loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+           "loss_value": cpu["loss"],
+           **_grad_agreement(card["params"], cpu["params"], schedule(0))}
+    err["by_layer"] = {k: ((card["params"][k][1] - cpu["params"][k][1]).norm()
+                           / cpu["params"][k][1].norm()).item()
+                       for k in MLP_CHECK_LAYERS}
+    return err
+
+
+def phase_train_mlp(sm: Smoke) -> None:
+    """The README student command's own network (body_arch 'mlp', no
+    kernel covers it: the unfused cuBLAS path), trained on the train
+    phase's rays and targets and served."""
+    from efficient_nerf_tpu_torch.models import R2LNet
+    from efficient_nerf_tpu_torch.render import r2l_forward_rays, r2l_render_image
+    from efficient_nerf_tpu_torch.train import (hard_pool_init, init_train_state,
+                                                make_lr_schedule, make_r2l_train_step,
+                                                parse_warmup)
+
+    torch, dev, gen = sm.torch, sm.dev, sm.gen
+    if not hasattr(sm, "train_data"):
+        fail("train_mlp reads the train phase's rays and targets: run both")
+    all_o, all_d, all_t, ev = sm.train_data
+    n_rays = TRAIN_BATCH + TRAIN_HARD[1]
+    sd = mlp_state_dict(sm.seed, torch)
+    schedule = make_lr_schedule(5e-4, 500, parse_warmup("0.0001,200"))
+    before = _kernel_launches()
+
+    # ---- agreement: one f32 step on the card against the CPU
+    for fast in (False, True):
+        err = _mlp_step_check(sm, sd, schedule, fast)
+        tol = dict(MLP_CHECK_TOL, grad_norm=MLP_CHECK_TOL["grad_norm"][fast])
+        print(f"train_mlp: one f32 step on the card against the CPU, "
+              f"{'fast' if fast else 'exact'} embed ({MLP_CHECK_RAYS} rays, "
+              f"{MLP_CHECK_HARD} of them hard, the same weights and draws): loss "
+              f"{err['loss_value']:.6f}, relative error {err['loss']:.3g} (tol "
+              f"{tol['loss']:g}); gradients ||card - cpu|| / ||cpu|| "
+              f"{err['grad_norm']:.3g} at {err['grad_norm_at']} (tol "
+              f"{tol['grad_norm']:g}), by layer from the tail down "
+              + ", ".join(f"{k} {v:.3g}" for k, v in err["by_layer"].items())
+              + f"; max |card - cpu| / max |cpu| {err['grad']:.3g} at "
+              f"{err['grad_at']}; weights after Adam {err['update_lr']:.3g} lr at "
+              f"{err['update_lr_at']} where the gradients agree to a tenth (tol "
+              f"{tol['update_lr']:g}), {err['undetermined'] * 100:.3f}% of the "
+              f"entries where they do not", flush=True)
+        for key in ("loss", "grad_norm", "update_lr"):
+            if not err[key] <= tol[key]:
+                fail(f"the mlp step on the card differs from the CPU's "
+                     f"({'fast' if fast else 'exact'} embed): {key} {err[key]:.3g} "
+                     f"(tol {tol[key]})")
+
+    def student(dtype):
+        m = R2LNet(IN_DIM, DEPTH, WIDTH, body_arch="mlp", use_residual=True, dtype=dtype)
+        m.load_state_dict(sd)
+        return m.to(dev)
+
+    def eval_mse(m):
+        with torch.no_grad():
+            rgb = r2l_forward_rays(m, all_o[ev], all_d[ev], NEAR, FAR, N_SAMPLE, L_FREQ)
+            return ((rgb - all_t[ev]) ** 2).mean().item()
+
+    def batch():
+        i = torch.randint(0, all_o.shape[0], (TRAIN_BATCH,), generator=gen, device=dev)
+        return all_o[i], all_d[i], all_t[i]
+
+    # ---- the command's step: fused=True has no kernel to take
+    model = student(torch.float32)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4, betas=(0.9, 0.999),
+                           eps=1e-8, fused=True)
+    try:
+        make_r2l_train_step(model, opt, near=NEAR, far=FAR, n_sample=N_SAMPLE,
+                            L=L_FREQ, hard=TRAIN_HARD, fused=True)
+        fail("make_r2l_train_step(fused=True) accepted the mlp student")
+    except ValueError as e:
+        print(f"train_mlp: fused=True on the mlp student raises ValueError: {e}",
+              flush=True)
+
+    steps_ms, floor = {}, {}
+    mac = IN_DIM * WIDTH + (DEPTH - 2) * WIDTH * WIDTH + WIDTH * 3
+    # forward, weight gradients, input gradients but the head's
+    flop = 2 * (3 * mac - IN_DIM * WIDTH) * n_rays
+    floor["bfloat16"] = flop / H100_BF16_FLOPS * 1e3
+    floor["float32"] = flop / H100_F32_FLOPS * 1e3
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype is torch.bfloat16:
+            trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            model = student(dtype)
+            model.load_state_dict(trained)
+            opt = torch.optim.Adam(model.parameters(), lr=5e-4, betas=(0.9, 0.999),
+                                   eps=1e-8, fused=True)
+        step = make_r2l_train_step(model, opt, near=NEAR, far=FAR, n_sample=N_SAMPLE,
+                                   L=L_FREQ, perturb=True, hard=TRAIN_HARD,
+                                   schedule=schedule)
+        state = init_train_state(model, opt)
+        pool = hard_pool_init(TRAIN_POOL)
+        name = str(dtype).split(".")[-1]
+        if dtype is torch.float32:
+            # the held-out MSE over the command's first steps
+            mses = [eval_mse(model)]
+            losses = []
+            for _ in range(MLP_STEPS):
+                state, pool, met = step(state, pool, gen, *batch())
+                losses.append(met["loss_rgb"])
+                mses.append(eval_mse(model))
+            losses = [v.item() for v in losses]
+            print(f"train_mlp: {MLP_STEPS} f32 steps of {n_rays} rays: loss_rgb "
+                  + " ".join(f"{v:.5f}" for v in losses) + f"; held-out MSE on "
+                  f"{EVAL_B} rays " + " ".join(f"{v:.6f}" for v in mses)
+                  + f" ({'fell' if mses[-1] < mses[0] else 'did NOT fall'})",
+                  flush=True)
+            if not all(math.isfinite(v) for v in losses + mses):
+                fail("a loss or held-out MSE of the mlp student is not finite")
+        o, d, t = batch()
+        steps_ms[name] = cuda_ms(torch, lambda: step(state, pool, gen, o, d, t), 5,
+                                 warmup=2)
+        print(f"train_mlp: {name} step {steps_ms[name]:.3f} ms at {n_rays} rays "
+              f"({n_rays / steps_ms[name] * 1e3 / 1e6:.3f} M rays/s); floor "
+              f"{floor[name]:.3f} ms ({flop / 1e12:.3f} TFLOP at "
+              f"{(H100_BF16_FLOPS if dtype is torch.bfloat16 else H100_F32_FLOPS) / 1e12:.0f} "
+              f"TFLOP/s) -> {floor[name] / steps_ms[name] * 100:.1f}% of it; TF32 "
+              f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}",
+              flush=True)
+
+    # ---- serving the trained student in bf16 (the model above)
+    model.eval()
+    c2w = sm.poses[1][:3, :4]
+    img = r2l_render_image(model, c2w, FRAME_H, FRAME_W, FOCAL, NEAR, FAR,
+                           N_SAMPLE, L_FREQ)
+    torch.cuda.synchronize()
+    if img.shape != (FRAME_H, FRAME_W, 3) or not torch.isfinite(img).all() \
+            or img.min() < 0 or img.max() > 1:
+        fail("the mlp student's frame has the wrong shape or values outside [0, 1]")
+    frame_ms = cuda_ms(torch, lambda: r2l_render_image(
+        model, c2w, FRAME_H, FRAME_W, FOCAL, NEAR, FAR, N_SAMPLE, L_FREQ), 5)
+    main_ms = getattr(sm, "main_frame_ms", None)
+    print(f"train_mlp: r2l_render_image of the trained mlp student, bf16 unfused "
+          f"(cuBLAS): {frame_ms:.3f} ms/frame ({FRAME_H * FRAME_W / frame_ms * 1e3 / 1e6:.2f} "
+          f"M rays/s); the main phase's resmlp frame through kernel 1: "
+          + (f"{main_ms:.3f} ms" if main_ms is not None else "not run"), flush=True)
+
+    after = _kernel_launches()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    print(f"train_mlp: kernel launches in this phase: {moved or 'none'}", flush=True)
+    if moved:
+        fail(f"a kernel launched for the mlp student: {moved}")
 
 
 def teacher_model(seed: int, torch, dev):
@@ -2311,23 +2585,35 @@ def _step_check(sm: Smoke, models, cfg, schedule, frames) -> dict:
     err = {"loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
            "loss_value": cpu["loss"]}
     for i, name in enumerate(("coarse", "fine")):
-        worst = {"grad": (0.0, ""), "grad_norm": (0.0, ""), "update_lr": (0.0, "")}
-        undetermined = total = 0
-        for k, (w_a, g_a) in card["params"][i].items():
-            w_b, g_b = cpu["params"][i][k]
-            dg = (g_a - g_b).abs()
-            sure = dg <= g_b.abs() / 10
-            undetermined += int((~sure).sum())
-            total += g_b.numel()
-            moved = ((w_a - w_b).abs()[sure].max().item() / TT_LRATE) if sure.any() else 0.0
-            for key, v in (("grad", (dg.max() / g_b.abs().max()).item()),
-                           ("grad_norm", ((g_a - g_b).norm() / g_b.norm()).item()),
-                           ("update_lr", moved)):
-                worst[key] = max(worst[key], (v, k))
-        for key, (v, k) in worst.items():
-            err[f"{name}_{key}"], err[f"{name}_{key}_at"] = v, k
-        err[f"{name}_undetermined"] = undetermined / total
+        err.update({f"{name}_{k}": v for k, v in _grad_agreement(
+            card["params"][i], cpu["params"][i], TT_LRATE).items()})
     err["update_lr"] = max(err["coarse_update_lr"], err["fine_update_lr"])
+    return err
+
+
+def _grad_agreement(card: dict, cpu: dict, lr: float) -> dict:
+    """One network's {name: (weight after Adam, gradient)} on the card
+    against the CPU's: the worst tensor's max |card - cpu| / max |cpu| of
+    the gradient ("grad") and its norm ratio ("grad_norm"), the weights'
+    largest difference in units of lr where the gradients agree to a tenth
+    ("update_lr"), each with the tensor's name (key + "_at"), and the share
+    of entries where they do not ("undetermined")."""
+    worst = {"grad": (0.0, ""), "grad_norm": (0.0, ""), "update_lr": (0.0, "")}
+    undetermined = total = 0
+    for k, (w_a, g_a) in card.items():
+        w_b, g_b = cpu[k]
+        dg = (g_a - g_b).abs()
+        sure = dg <= g_b.abs() / 10
+        undetermined += int((~sure).sum())
+        total += g_b.numel()
+        moved = ((w_a - w_b).abs()[sure].max().item() / lr) if sure.any() else 0.0
+        for key, v in (("grad", (dg.max() / g_b.abs().max()).item()),
+                       ("grad_norm", ((g_a - g_b).norm() / g_b.norm()).item()),
+                       ("update_lr", moved)):
+            worst[key] = max(worst[key], (v, k))
+    err = {"undetermined": undetermined / total}
+    for key, (v, k) in worst.items():
+        err[key], err[f"{key}_at"] = v, k
     return err
 
 
@@ -2635,7 +2921,7 @@ def main() -> None:
     args = ap.parse_args()
     phases = (phase_build, phase_trig, phase_kernel, phase_main,
               phase_kernel_int8, phase_main_int8, phase_train_kernel, phase_train,
-              phase_teacher_kernel, phase_teacher, phase_pseudo,
+              phase_train_mlp, phase_teacher_kernel, phase_teacher, phase_pseudo,
               phase_teacher_int8_kernel, phase_teacher_int8, phase_frame_kernel,
               phase_teacher_frame, phase_teacher_train, phase_distill)
     chosen = [p for p in args.phases.split(",") if p]

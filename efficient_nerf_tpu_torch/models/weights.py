@@ -4,11 +4,13 @@ A copy of the numpy converters of `efficient_nerf_tpu.models.torch_import`
 (which this package must not import) plus the torch side. Keys follow the
 reference models. The `NeRF_v3_2` student: `head.0`, `body.{b}.body.{2j}`
 (linears at even indices of a Sequential, activations between) and `tail.0`
-(or `tail` with `linear_tail`). The `NeRF` teacher: `pts_linears.{i}`,
-`feature_linear`, `views_linears.0`, `rgb_linear` and `alpha_linear` (or
-`output_linear` without viewdirs). torch `nn.Linear.weight` is [out, in];
-flax `Dense.kernel` is [in, out]; the JAX student body stacks its blocks
-along axis 0.
+(or `tail` with `linear_tail`). The port's plain student bodies ('mlp' and
+`layerwise_widths`), which the JAX converters do not read: `head.0`,
+`body.{2i}` for the JAX `body_{i}` and the tail as above. The `NeRF`
+teacher: `pts_linears.{i}`, `feature_linear`, `views_linears.0`,
+`rgb_linear` and `alpha_linear` (or `output_linear` without viewdirs).
+torch `nn.Linear.weight` is [out, in]; flax `Dense.kernel` is [in, out];
+the JAX student body stacks its blocks along axis 0.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import numpy as np
 import torch
 
 __all__ = ["r2l_params_from_state_dict", "r2l_state_dict_from_params",
-           "r2l_state_dict_from_jax", "nerf_params_from_state_dict",
+           "r2l_state_dict_from_jax", "plain_r2l_state_dict_from_jax",
+           "nerf_params_from_state_dict",
            "nerf_state_dict_from_params", "nerf_state_dict_from_jax"]
 
 
@@ -94,6 +97,24 @@ def r2l_state_dict_from_jax(params_np, n_learnable: int = 2,
     f32 CPU tensors that `efficient_nerf_tpu_torch.models.R2LNet` loads."""
     sd = r2l_state_dict_from_params(params_np, n_learnable, linear_tail)
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+
+
+def plain_r2l_state_dict_from_jax(params_np, depth: int,
+                                  linear_tail: bool = False) -> Dict[str, torch.Tensor]:
+    """The JAX R2LNet param tree of a plain body ('mlp' or
+    `layerwise_widths`: `head`, `body_0` ... `body_{depth-3}`, `tail`;
+    leaves as numpy arrays) -> a state_dict of f32 CPU tensors in the port's
+    Sequential layout: linears at the even indices, `body.{2i}` for
+    `body_{i}`."""
+    names = [("head", "head.0")]
+    names += [(f"body_{i}", f"body.{2 * i}") for i in range(depth - 2)]
+    names.append(("tail", "tail" if linear_tail else "tail.0"))
+    sd = {}
+    for theirs, ours in names:
+        w, b = _undense(params_np[theirs])
+        sd[f"{ours}.weight"] = torch.tensor(np.asarray(w, np.float32))
+        sd[f"{ours}.bias"] = torch.tensor(np.asarray(b, np.float32))
+    return sd
 
 
 def nerf_params_from_state_dict(state_dict, depth: int = 8,

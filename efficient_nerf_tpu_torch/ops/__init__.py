@@ -26,6 +26,9 @@
   * `fast_sin` / `fast_cos` / `fast_sincos` (trig.py, csrc/trig.cuh): the
     polynomial trig the kernels call as device helpers.
 
+Beside them, `ray_points_embed` (ray_embed.py): the linearized sampling +
+embedding, plain torch (no TPU kernel stands behind it).
+
 The gate is the tensor's device: a kernel runs on CUDA tensors, its plain
 version on CPU tensors. There is no switch that turns a kernel off.
 """
@@ -46,6 +49,7 @@ from .nerf_int8 import (calibrate_nerf_int8, nerf_forward_int8, nerf_forward_int
                         pack_nerf_weights_int8)
 from .sample_pdf import sample_pdf_det_fused, sample_pdf_det_fused_ref
 from .trig import fast_cos, fast_sin, fast_sincos, fast_sincos_cuda
+from .ray_embed import ray_points_embed
 
 __all__ = ["fused_r2l_available", "fused_r2l_train_available",
            "pack_r2l_weights", "r2l_forward_fused", "r2l_forward_fused_ref",
@@ -59,7 +63,8 @@ __all__ = ["fused_r2l_available", "fused_r2l_train_available",
            "pack_nerf_weights_int8", "calibrate_nerf_int8", "nerf_forward_int8",
            "nerf_forward_int8_ref", "nerf_render_rays_fused", "nerf_render_rays_fused_ref",
            "sample_pdf_det_fused", "sample_pdf_det_fused_ref",
-           "fast_sin", "fast_cos", "fast_sincos", "fast_sincos_cuda"]
+           "fast_sin", "fast_cos", "fast_sincos", "fast_sincos_cuda",
+           "ray_points_embed"]
 
 
 def fused_r2l_available(device: torch.device) -> bool:

@@ -81,8 +81,12 @@ def test_state_dict_keys_follow_reference_layout():
           for p in ("weight", "bias"))}
 
 
-@pytest.mark.parametrize("kw", [{"body_arch": "mlp"},
-                                {"layerwise_widths": (16, 16, 16, 16)}])
-def test_unported_bodies_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kw", [
+    # the global residual adds body layer depth - 2 (16 wide) to the head
+    # (32 wide): the JAX module's apply fails to broadcast them
+    dict(layerwise_widths=(32, 16, 24, 40, 16), use_residual=True),
+    # fewer than depth - 2 widths: the JAX module's apply indexes past them
+    dict(layerwise_widths=(32, 16, 24))])
+def test_invalid_layerwise_shapes_raise(kw):
+    with pytest.raises(ValueError, match="R2LNet"):
         R2LNet(30, depth=6, width=16, **kw)

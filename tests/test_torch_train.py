@@ -13,7 +13,8 @@ from efficient_nerf_tpu.train import hard_mining as jhard
 from efficient_nerf_tpu.train import schedules as jsched
 from efficient_nerf_tpu_torch.core import ray_sampler, sampling
 from efficient_nerf_tpu_torch.models import R2LNet
-from efficient_nerf_tpu_torch.models.weights import r2l_state_dict_from_params
+from efficient_nerf_tpu_torch.models.weights import (plain_r2l_state_dict_from_jax,
+                                                     r2l_state_dict_from_params)
 from efficient_nerf_tpu_torch.ops import r2l_train as rt
 from efficient_nerf_tpu_torch.ops.r2l_forward import r2l_forward_fused
 from efficient_nerf_tpu_torch.render.r2l_renderer import _packed
@@ -127,20 +128,20 @@ def test_mse_to_psnr_matches_jax():
                                np.asarray(jpsnr(jnp.asarray(m))), rtol=1e-6)
 
 
-def _models(rng, learn_depth):
+def _models(rng, learn_depth, body_arch="resmlp"):
     # flax is imported here, not at the top, like every JAX model use in the
     # port's tests
     from efficient_nerf_tpu.models import R2LNet as JaxR2LNet
 
     out_dim = 4 if learn_depth else 3
     jm = JaxR2LNet(input_dim=IN_DIM, depth=DEPTH, width=WIDTH, output_dim=out_dim,
-                   use_residual=True, dtype=jnp.float32)
+                   use_residual=True, body_arch=body_arch, dtype=jnp.float32)
     p = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, IN_DIM)))["params"]
     params = jax.tree_util.tree_map(
         lambda v: (np.asarray(v) + rng.normal(scale=0.02, size=v.shape)
                    ).astype(np.float32), p)
-    tm = R2LNet(IN_DIM, DEPTH, WIDTH, output_dim=out_dim, use_residual=True
-                ).load_jax_params(params)
+    tm = R2LNet(IN_DIM, DEPTH, WIDTH, output_dim=out_dim, use_residual=True,
+                body_arch=body_arch).load_jax_params(params)
     return jm, params, tm
 
 
@@ -183,11 +184,23 @@ PARAM_TOL_LR = 0.02
 @pytest.mark.parametrize("fused,learn_depth", [(False, False), (True, False),
                                                (True, True)])
 def test_three_train_steps_match_jax(fused, learn_depth, rng):
+    _three_steps(fused, learn_depth, "resmlp", rng)
+
+
+@pytest.mark.parametrize("learn_depth", [False, True])
+def test_three_mlp_train_steps_match_jax(learn_depth, rng):
+    # the README student command's body: no kernel covers it, so both
+    # packages take their unfused paths (fused=False on the JAX side, as its
+    # auto mode decides for this body)
+    _three_steps(False, learn_depth, "mlp", rng)
+
+
+def _three_steps(fused, learn_depth, body_arch, rng):
     import optax
 
     from efficient_nerf_tpu.train import steps as jsteps
 
-    jm, params, tm = _models(rng, learn_depth)
+    jm, params, tm = _models(rng, learn_depth, body_arch)
     jsched_fn = jsched.make_lr_schedule(LR, DECAY, WARMUP)
     jstep = jsteps.make_r2l_train_step(
         jm, optax.adam(jsched_fn, b1=0.9, b2=0.999), near=NEAR, far=FAR,
@@ -225,8 +238,10 @@ def test_three_train_steps_match_jax(fused, learn_depth, rng):
         # the pool holds the same rays (their ranking by MSE agrees)
         np.testing.assert_allclose(pool.rays.numpy(), np.asarray(jpool.rays),
                                    atol=1e-6, rtol=0)
-        want = r2l_state_dict_from_params(
-            jax.tree_util.tree_map(np.asarray, jstate.params))
+        jparams = jax.tree_util.tree_map(np.asarray, jstate.params)
+        want = ({k: v.numpy() for k, v in
+                 plain_r2l_state_dict_from_jax(jparams, DEPTH).items()}
+                if body_arch == "mlp" else r2l_state_dict_from_params(jparams))
         lr_max = max(jsched_fn(s) for s in range(i + 1))
         for k, v in tm.state_dict().items():
             diff = np.abs(v.numpy() - want[k]).max()
@@ -249,6 +264,27 @@ def test_train_step_gates(rng):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_r2l_train_step(tm, opt, near=NEAR, far=FAR, n_sample=N_SAMPLE)
+
+
+def test_fused_train_step_refuses_the_mlp_body(rng, monkeypatch):
+    # no kernel covers the 'mlp' body: fused=True raises, as the JAX step
+    # does (steps.py:83-94), and auto mode takes the unfused path even where
+    # the kernels are available
+    from efficient_nerf_tpu_torch.train import steps
+
+    _, _, tm = _models(rng, False, "mlp")
+    opt = torch.optim.Adam(tm.parameters())
+    kw = dict(near=NEAR, far=FAR, n_sample=N_SAMPLE, device="cpu")
+    with pytest.raises(ValueError, match="profile"):
+        make_r2l_train_step(tm, opt, fused=True, **kw)
+    monkeypatch.setattr(steps, "fused_r2l_train_available", lambda dev: True)
+    calls = []
+    monkeypatch.setattr(steps, "r2l_train_apply", lambda *a, **k: calls.append(1))
+    step = make_r2l_train_step(tm, opt, **kw)
+    o = torch.from_numpy(rng.normal(size=(B, 3)).astype(np.float32))
+    _, _, met = step(init_train_state(tm, opt), None, torch.Generator().manual_seed(0),
+                     o, o, torch.rand(B, 3))
+    assert not calls and np.isfinite(float(met["loss_rgb"]))
 
 
 def test_auto_mode_takes_the_unfused_path_on_the_cpu(rng, monkeypatch):
