@@ -169,6 +169,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 each training kernel a step), the loss falling, the step's
                 waits on the loader, the student's held-out frame against
                 the teacher's. Needs teacher_train in the same run.
+  driver        the README pipeline through the port's own CLI, in process
+                (efficient_nerf_tpu_torch.main.main / create_data.main with
+                the README's argv plus iteration limits) on a 400x400 sphere
+                scene written by data.synthetic.make_synthetic_scene into a
+                temporary directory (--half_res False: no cv2 on the card's
+                machine): the untrained teacher's test frames, then the
+                teacher (lego.txt) for 1000 steps (its test PSNR at least 3
+                dB over the untrained one's); create_data rand (8 poses,
+                --test_teacher) and rand with --teacher_quant int8 (2
+                poses); the README student command (mlp, f32) and the
+                flagship (--trial.ON --trial.body_arch resmlp
+                --compute_dtype bf16) for 30 steps each (3a, pass 1 and pass
+                2 once a step); from the flagship's checkpoint --render_only
+                --render_test, --benchmark (bf16, --inference_quant int8,
+                --no_pallas: no kernel launch) and --convert_to_onnx (the
+                reloaded torch.export program against eager); create_data
+                16x16patches (2 poses) and the conv student (resblock, BN,
+                3x3) for 10 steps, then its --render_only --render_test.
+                Each command's wall seconds and kernel launches (counters set
+                to 0 just before, read just after), the driver's ms a step
+                beside the direct phases', the benchmark frames beside the
+                main and main_int8 phases', every test render's PSNR/SSIM.
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. --phases runs the named phases only (each
@@ -956,6 +978,7 @@ def phase_main_int8(sm: Smoke) -> None:
                                 "tail_w", "tail_b")) + scales.numel() * 4
     bound_ms, bound_by = bound(ops16, n_rays * (3 * 4 * 2 + 3 * 4) + weight_bytes,
                                int8_ops=ops8)
+    sm.int8_frame_ms = frame_ms
     print(f"main_int8: r2l_render_image(quant='int8') {frame_ms:.3f} ms/frame "
           f"({n_rays / frame_ms * 1e3 / 1e6:.2f} M rays/s); kernel {kern_ms:.3f} ms "
           f"static, {dyn_ms:.3f} ms dynamic, at B={n_rays}; bound {bound_ms:.3f} ms "
@@ -1299,6 +1322,7 @@ def phase_train(sm: Smoke) -> None:
         for p, v in zip(model.parameters(), saved):
             p.copy_(v)
     parts["other (loss, concatenations, autograd)"] = step_ms - sum(parts.values())
+    sm.train_step_ms = step_ms
     print(f"train: step {step_ms:.3f} ms ({n_rays / step_ms * 1e3 / 1e6:.3f} M "
           f"rays/s); parts, each timed alone at the step's shapes: "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in parts.items()), flush=True)
@@ -1422,18 +1446,22 @@ def mlp_state_dict(seed: int, torch):
     return sd
 
 
-def _kernel_launches():
-    """{kernel: launch count} of every wrapper of the port."""
+def _kernel_fns():
+    """Every kernel wrapper of the port (each counts its launches)."""
     from efficient_nerf_tpu_torch.ops import (nerf_forward, nerf_frame, nerf_int8,
                                               r2l_forward, r2l_int8, r2l_train,
                                               sample_pdf, trig)
 
-    fns = (r2l_forward.r2l_forward_fused, r2l_int8.r2l_forward_int8,
-           r2l_train.r2l_train_fwd, r2l_train.r2l_train_bwd_act,
-           r2l_train.r2l_train_wgrad, nerf_forward.nerf_forward_fused,
-           nerf_int8.nerf_forward_int8, sample_pdf.sample_pdf_det_fused,
-           nerf_frame.nerf_render_rays_fused, trig.fast_sincos_cuda)
-    return {f.__name__: f.launches for f in fns}
+    return (r2l_forward.r2l_forward_fused, r2l_int8.r2l_forward_int8,
+            r2l_train.r2l_train_fwd, r2l_train.r2l_train_bwd_act,
+            r2l_train.r2l_train_wgrad, nerf_forward.nerf_forward_fused,
+            nerf_int8.nerf_forward_int8, sample_pdf.sample_pdf_det_fused,
+            nerf_frame.nerf_render_rays_fused, trig.fast_sincos_cuda)
+
+
+def _kernel_launches():
+    """{kernel: launch count} of every wrapper of the port."""
+    return {f.__name__: f.launches for f in _kernel_fns()}
 
 
 def _mlp_step_check(sm: Smoke, sd, schedule, fast_embed: bool) -> dict:
@@ -1598,6 +1626,7 @@ def phase_train_mlp(sm: Smoke) -> None:
               f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}",
               flush=True)
 
+    sm.mlp_steps_ms = steps_ms
     # ---- serving the trained student in bf16 (the model above)
     model.eval()
     c2w = sm.poses[1][:3, :4]
@@ -2710,6 +2739,7 @@ def phase_teacher_train(sm: Smoke) -> None:
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     step_ms = start.elapsed_time(end) / (TT_STEPS - TT_WARMUP)
+    sm.teacher_step_ms = step_ms
     loss = np.array([m["loss"].item() for m in metrics])
     psnr_curve = np.array([m["psnr"].item() for m in metrics])
     print(f"teacher_train: {TT_STEPS} steps of {TT_N_RAND} rays ({T_SAMPLES} + "
@@ -2913,6 +2943,243 @@ def _distill_steps(sm: Smoke, ds, loader) -> None:
         fail(f"the student's loss did not fall: {losses[0]:.5f} -> {losses[-1]:.5f}")
 
 
+# The driver phase: the README pipeline through the port's own CLI
+# (efficient_nerf_tpu_torch.main / create_data), in process. The scene is a
+# 400x400 sphere scene written by data.synthetic.make_synthetic_scene (20
+# training, 2 validation and 2 test frames; the card's machine has no cv2,
+# so --half_res False at the half-res lego's own size). The teacher runs
+# the lego config (lego.txt: viewdirs, which the teacher kernels need); the
+# students the README's lego_noview.txt.
+DRV_TEACHER_STEPS = 1000
+DRV_POSES, DRV_INT8_POSES, DRV_PATCH_POSES = 8, 2, 2
+DRV_STUDENT_STEPS, DRV_PATCH_STEPS = 30, 10
+DRV_PSNR_GAIN = 3.0        # dB over the untrained teacher (PR 12's gate)
+# the README student command (README.md:88-91)
+DRV_STUDENT = ["--model_name", "R2L", "--data_mode", "rays", "--netdepth", "88",
+               "--netwidth", "256", "--n_sample_per_ray", "16", "--use_residual",
+               "--N_rand", "20", "--hard_ratio", "0.2", "--warmup_lr", "0.0001,200"]
+DRV_FLAGSHIP = ["--trial.ON", "--trial.body_arch", "resmlp", "--compute_dtype", "bf16"]
+# the conv student on 16x16 patches: the command's widths, 3x3 convs, 4
+# shards (64 patches of 256 rays) a step
+DRV_PATCHES = ["--model_name", "R2L", "--data_mode", "patches", "--netdepth", "88",
+               "--netwidth", "256", "--n_sample_per_ray", "16", "--body_arch", "resblock",
+               "--use_bn", "--kernel_size", "3", "--N_rand", "4"]
+
+
+def _drv_run(sm: Smoke, label: str, fn, argv, log: list):
+    """fn(argv) in process with the kernels' launch counters set to 0 just
+    before and read just after, its output captured; returns (result,
+    {kernel: launches}, captured text). Prints the wall time and the
+    launches."""
+    import contextlib
+    import io
+
+    sm.torch.cuda.synchronize()
+    for f in _kernel_fns():
+        f.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn(argv)
+        sm.torch.cuda.synchronize()
+    except Exception as e:
+        print(buf.getvalue()[-4000:], flush=True)
+        fail(f"driver: {label} raised {type(e).__name__}: {e}")
+    wall = time.perf_counter() - t0
+    launches = _kernel_launches()
+    text = buf.getvalue()
+    keep = [ln for ln in text.splitlines()
+            if re.search(r"\[(TRAIN|TEST|BENCH|TEST TEACHER)\]|Exported|Wrote|Appended", ln)]
+    print(f"driver: {label}: {wall:.1f} s; launches "
+          + (", ".join(f"{k} {v}" for k, v in launches.items() if v) or "none")
+          + "".join(f"\n  {ln}" for ln in keep[-8:]), flush=True)
+    log.append({"command": label, "seconds": round(wall, 1),
+                "launches": {k: v for k, v in launches.items() if v}})
+    return out, launches, text
+
+
+def _drv_step_ms(text: str):
+    """The driver's ms a step from its [TRAIN] lines: (steps, ms) of each
+    interval between two metric reads."""
+    rows, last = [], 1        # the clock's first mark is step 1's read
+    for m in re.finditer(r"\[TRAIN\] Iter (\d+) .*ms/step (\S+)", text):
+        i = int(m.group(1))
+        if m.group(2) != "None":
+            rows.append((f"{last + 1}-{i}", float(m.group(2))))
+        last = i
+    return rows
+
+
+def _drv_test(text: str):
+    m = re.findall(r"\[TEST\] Iter \d+ TestPSNR (\S+) .*TestSSIM (\S+)", text)
+    return (float(m[-1][0]), float(m[-1][1])) if m else None
+
+
+def phase_driver(sm: Smoke) -> None:
+    import glob
+    import os
+
+    from efficient_nerf_tpu_torch import create_data, main
+    from efficient_nerf_tpu_torch.config.options import SCENES_DIR
+    from efficient_nerf_tpu_torch.data.synthetic import make_synthetic_scene
+
+    torch = sm.torch
+    torch.cuda.empty_cache()
+    log = []
+    lego = ["--config", os.path.join(SCENES_DIR, "lego.txt")]
+    noview = ["--config", os.path.join(SCENES_DIR, "lego_noview.txt")]
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = os.path.join(tmp, "scene")
+        t0 = time.perf_counter()
+        make_synthetic_scene(scene, n_train=20, n_val=2, n_test=2, H=FRAME_H, W=FRAME_W,
+                             seed=sm.seed)
+        print(f"driver: 400x400 sphere scene (20 train, 2 val, 2 test PNGs) written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        def flags(name, *extra):
+            return ["--datadir", scene, "--half_res", "False", "--testskip", "1",
+                    "--basedir", os.path.join(tmp, "logs"), "--expname", name,
+                    "--i_video", "1000000", *extra]
+
+        def weights(name, file="ckpt.tar"):
+            found = glob.glob(os.path.join(tmp, "logs", "Experiments", f"{name}_*",
+                                           "weights", file))
+            if len(found) != 1:
+                fail(f"driver: {name} wrote no {file}: {found}")
+            return found[0]
+
+        # ---- 1. the teacher: untrained test frames, then 1000 steps
+        untrained, _, _ = _drv_run(sm, "teacher --render_only --render_test (untrained)",
+                                   main.main, lego + flags("teacher0", "--model_name", "nerf",
+                                                           "--render_only", "--render_test"),
+                                   log)
+        _, tl, text = _drv_run(
+            sm, f"teacher: main --config lego.txt --model_name nerf ({DRV_TEACHER_STEPS} steps)",
+            main.main, lego + flags("teacher", "--model_name", "nerf",
+                                    "--N_iters", str(DRV_TEACHER_STEPS), "--i_print", "100",
+                                    "--i_testset", str(DRV_TEACHER_STEPS),
+                                    "--i_weights", str(DRV_TEACHER_STEPS)), log)
+        teacher = weights("teacher")
+        trained = _drv_test(text)
+        t_steps = _drv_step_ms(text)
+        gain = trained[0] - untrained["test_psnr"]
+        print(f"driver: the teacher's test frames: untrained PSNR {untrained['test_psnr']:.2f} "
+              f"dB / SSIM {untrained['test_ssim']:.4f}, after {DRV_TEACHER_STEPS} steps "
+              f"{trained[0]:.2f} dB / {trained[1]:.4f}; gain {gain:.2f} dB (at least "
+              f"{DRV_PSNR_GAIN:g}); ms/step " + ", ".join(f"{k} {v:.3f}" for k, v in t_steps)
+              + "; the teacher_train phase's step: "
+              + (f"{sm.teacher_step_ms:.3f} ms" if hasattr(sm, "teacher_step_ms") else "not run"),
+              flush=True)
+        if not gain >= DRV_PSNR_GAIN:
+            fail(f"driver: the teacher's test PSNR rose by {gain:.2f} dB only")
+        if not (tl["nerf_forward_fused"] and tl["sample_pdf_det_fused"]):
+            fail(f"driver: the teacher's test renders launched no field-eval or sampler "
+                 f"kernel: {tl}")
+
+        # ---- 2. the shards: bf16 (and --test_teacher), then int8
+        kd, kd8, kdp = (os.path.join(tmp, d) for d in ("kd", "kd8", "kdp"))
+        n, _, _ = _drv_run(sm, f"create_data rand --n_pose_kd {DRV_POSES} --test_teacher",
+                           create_data.main,
+                           lego + flags("cd", "--model_name", "nerf", "--teacher_ckpt", teacher,
+                                        "--create_data", "rand", "--datadir_kd",
+                                        f"blender:{kd}", "--n_pose_kd", str(DRV_POSES),
+                                        "--test_teacher"), log)
+        n8, l8, _ = _drv_run(sm, f"create_data rand --n_pose_kd {DRV_INT8_POSES} "
+                             "--teacher_quant int8", create_data.main,
+                             lego + flags("cd8", "--model_name", "nerf", "--teacher_ckpt",
+                                          teacher, "--create_data", "rand", "--datadir_kd",
+                                          f"blender:{kd8}", "--n_pose_kd", str(DRV_INT8_POSES),
+                                          "--teacher_quant", "int8"), log)
+        if n != DRV_POSES * FRAME_H * FRAME_W // 4096 or n8 < 1:
+            fail(f"driver: create_data wrote {n} and {n8} shards")
+        if not l8["nerf_forward_int8"]:
+            fail(f"driver: --teacher_quant int8 launched nerf_forward_int8 no time: {l8}")
+
+        # ---- 3. the README student command (mlp body, f32)
+        every = ["--N_iters", str(DRV_STUDENT_STEPS), "--i_print", "10",
+                 "--i_testset", str(DRV_STUDENT_STEPS), "--i_weights", str(DRV_STUDENT_STEPS)]
+        _, _, text = _drv_run(sm, f"README student command (mlp, f32, {DRV_STUDENT_STEPS} steps)",
+                              main.main, noview + flags("mlp", *DRV_STUDENT, "--datadir_kd",
+                                                        f"blender:{kd}", *every), log)
+        mlp_ms, mlp_test = _drv_step_ms(text), _drv_test(text)
+        direct = getattr(sm, "mlp_steps_ms", {}).get("float32")
+        print(f"driver: the README command's ms/step " + ", ".join(
+            f"{k} {v:.3f}" for k, v in mlp_ms) + "; the train_mlp phase's f32 step: "
+            + (f"{direct:.3f} ms" if direct else "not run") + f"; test PSNR / SSIM "
+            f"{mlp_test[0]:.2f} dB / {mlp_test[1]:.4f}", flush=True)
+
+        # ---- 4. the flagship: resmlp, bf16, through kernels 3a and 3b
+        _, fl, text = _drv_run(sm, f"flagship student (resmlp, bf16, {DRV_STUDENT_STEPS} steps)",
+                               main.main, noview + flags("flag", *DRV_STUDENT, *DRV_FLAGSHIP,
+                                                         "--datadir_kd", f"blender:{kd}",
+                                                         *every), log)
+        flag_ms, flag_test = _drv_step_ms(text), _drv_test(text)
+        print(f"driver: the flagship's ms/step " + ", ".join(
+            f"{k} {v:.3f}" for k, v in flag_ms) + "; the train phase's step: "
+            + (f"{sm.train_step_ms:.3f} ms" if hasattr(sm, "train_step_ms") else "not run")
+            + f"; test PSNR / SSIM {flag_test[0]:.2f} dB / {flag_test[1]:.4f}", flush=True)
+        per_step = (fl["r2l_train_fwd"], fl["r2l_train_bwd_act"], fl["r2l_train_wgrad"])
+        if per_step != (DRV_STUDENT_STEPS,) * 3:
+            fail(f"driver: the flagship launched r2l_train_fwd / bwd_act / wgrad {per_step} "
+                 f"times in {DRV_STUDENT_STEPS} steps, expected once a step each")
+        ckpt = ["--pretrained_ckpt", weights("flag")]
+        flag_args = noview + DRV_STUDENT + DRV_FLAGSHIP + ckpt
+        rt, rl, _ = _drv_run(sm, "flagship --render_only --render_test", main.main,
+                             flags("flag_rt", *flag_args, "--render_only", "--render_test"), log)
+        bench = {}
+        for label, extra in (("bf16", []), ("int8", ["--inference_quant", "int8"]),
+                             ("no_pallas", ["--no_pallas"])):
+            dt, bl, _ = _drv_run(sm, f"flagship --benchmark {' '.join(extra)}".strip(),
+                                 main.main, flags(f"bench_{label}", *flag_args, "--benchmark",
+                                                  *extra), log)
+            bench[label] = (dt * 1e3, bl)
+        path, _, _ = _drv_run(sm, "flagship --convert_to_onnx", main.main,
+                              flags("export", *flag_args, "--convert_to_onnx"), log)
+        if not rl["r2l_forward_fused"] or not bench["bf16"][1]["r2l_forward_fused"]:
+            fail(f"driver: --render_only / --benchmark launched r2l_forward_fused no time: "
+                 f"{rl}, {bench['bf16'][1]}")
+        if not bench["int8"][1]["r2l_forward_int8"]:
+            fail(f"driver: --inference_quant int8 launched r2l_forward_int8 no time: "
+                 f"{bench['int8'][1]}")
+        if any(bench["no_pallas"][1].values()):
+            fail(f"driver: --no_pallas launched a kernel: {bench['no_pallas'][1]}")
+        main_ms, int8_ms = getattr(sm, "main_frame_ms", None), getattr(sm, "int8_frame_ms", None)
+        print(f"driver: --benchmark frame {bench['bf16'][0]:.3f} ms (the main phase's "
+              + (f"{main_ms:.3f}" if main_ms else "not run") + f"), int8 "
+              f"{bench['int8'][0]:.3f} ms (main_int8's "
+              + (f"{int8_ms:.3f}" if int8_ms else "not run") + f"), --no_pallas "
+              f"{bench['no_pallas'][0]:.3f} ms; --render_only --render_test PSNR / SSIM "
+              f"{rt['test_psnr']:.2f} dB / {rt['test_ssim']:.4f}; export verified at {path}",
+              flush=True)
+
+        # ---- 5. the patch modes and the conv student
+        n16, _, _ = _drv_run(sm, f"create_data 16x16patches --n_pose_kd {DRV_PATCH_POSES}",
+                             create_data.main,
+                             lego + flags("cdp", "--model_name", "nerf", "--teacher_ckpt",
+                                          teacher, "--create_data", "16x16patches",
+                                          "--datadir_kd", f"blender:{kdp}", "--n_pose_kd",
+                                          str(DRV_PATCH_POSES)), log)
+        _, _, text = _drv_run(sm, f"conv student (resblock, BN, {DRV_PATCH_STEPS} steps)",
+                              main.main, noview + flags("conv", *DRV_PATCHES, "--datadir_kd",
+                                                        f"blender:{kdp}", "--N_iters",
+                                                        str(DRV_PATCH_STEPS), "--i_print", "5",
+                                                        "--i_testset", "1000000",
+                                                        "--i_weights", str(DRV_PATCH_STEPS)),
+                              log)
+        conv_ms = _drv_step_ms(text)
+        crt, cl, _ = _drv_run(sm, "conv student --render_only --render_test", main.main,
+                              flags("conv_rt", *noview, *DRV_PATCHES, "--pretrained_ckpt",
+                                    weights("conv"), "--render_only", "--render_test"), log)
+        if any(cl.values()):
+            fail(f"driver: the conv student's render launched a kernel: {cl}")
+        print(f"driver: {n16} patch shards; the conv student's ms/step "
+              + ", ".join(f"{k} {v:.3f}" for k, v in conv_ms)
+              + f"; its test PSNR / SSIM {crt['test_psnr']:.2f} dB / {crt['test_ssim']:.4f}",
+              flush=True)
+    print("driver: commands " + json.dumps(log), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2923,7 +3190,7 @@ def main() -> None:
               phase_kernel_int8, phase_main_int8, phase_train_kernel, phase_train,
               phase_train_mlp, phase_teacher_kernel, phase_teacher, phase_pseudo,
               phase_teacher_int8_kernel, phase_teacher_int8, phase_frame_kernel,
-              phase_teacher_frame, phase_teacher_train, phase_distill)
+              phase_teacher_frame, phase_teacher_train, phase_distill, phase_driver)
     chosen = [p for p in args.phases.split(",") if p]
     unknown = set(chosen) - {p.__name__[len("phase_"):] for p in phases}
     if unknown:

@@ -3,8 +3,8 @@
 
 The student consumes a whole ray as one input: n_sample points along it are
 flattened into the feature dimension ([B, n_sample*3]). Stratified jitter
-is on in training (an augmentation) and off at test; `sample_patch_points`
-arrives with the conv student.
+is on in training (an augmentation) and off at test. `sample_patch_points`
+feeds the conv student: rays [N, ph, pw, 3], one jitter a patch.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from ..device import DeviceLike
 from .rays import get_rays, plucker_rays
 from .sampling import linear_zvals, stratify_zvals
 
-__all__ = ["sample_ray_points", "sample_image_points"]
+__all__ = ["sample_ray_points", "sample_image_points", "sample_patch_points"]
 
 
 def sample_ray_points(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float,
@@ -30,6 +30,33 @@ def sample_ray_points(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float,
     z = z.expand(rays_o.shape[:-1] + (n_sample,))
     if perturb:
         z = stratify_zvals(z, t_rand, generator)
+    pts = rays_o[..., None, :] + rays_d[..., None, :] * z[..., :, None]
+    return pts.reshape(pts.shape[:-2] + (n_sample * 3,))
+
+
+def sample_patch_points(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float,
+                        far: float, n_sample: int, perturb: bool = False,
+                        generator: Optional[torch.Generator] = None,
+                        t_rand: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """CNN-style patch sampling: rays [N, ph, pw, 3] -> [N, ph, pw, S*3],
+    after `efficient_nerf_tpu.core.ray_sampler.sample_patch_points` (:46).
+
+    The stratified jitter draws ONE uniform per patch (t_rand [N], or drawn
+    from `generator`) broadcast over all its pixels and samples, so the
+    whole patch shifts coherently (reference PointSampler.sample_train2,
+    nerf_raybased.py:129-173).
+    """
+    N = rays_o.shape[0]
+    z = linear_zvals(near, far, n_sample, device=rays_o.device)  # [S]
+    z = z.expand(rays_o.shape[:-1] + (n_sample,))
+    if perturb:
+        mids = 0.5 * (z[..., 1:] + z[..., :-1])
+        upper = torch.cat([mids, z[..., -1:]], -1)
+        lower = torch.cat([z[..., :1], mids], -1)
+        if t_rand is None:
+            t_rand = torch.rand((N,), generator=generator, device=rays_o.device)
+        t = t_rand.reshape((N,) + (1,) * (z.ndim - 1))
+        z = lower + (upper - lower) * t
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z[..., :, None]
     return pts.reshape(pts.shape[:-2] + (n_sample * 3,))
 

@@ -5,8 +5,9 @@ JAX one).
 As the reference's dataset/load_blender.py:31-121 minus its debug side
 effects (the reference unconditionally overwrites render_poses with 200
 random poses and writes two scatter PDFs into CWD, load_blender.py:88-104;
-here that is the opt-in `random_render_poses` flag). `imageio` and `cv2`
-are imported when a scene is read, so the package imports without them.
+here that is the opt-in `random_render_poses` flag). The PNGs are read
+with the port's own codec (utils/images.read_png), since the card's machine
+has no `imageio`; `cv2` is imported only to halve frames (`half_res`).
 
 Returns plain numpy; the caller moves arrays to its device.
 """
@@ -19,6 +20,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 
 from ..core.poses import random_spherical_pose, spherical_render_poses
+from ..utils.images import read_png
 
 __all__ = ["BlenderData", "load_blender_data", "composite_white"]
 
@@ -29,12 +31,6 @@ class BlenderData(NamedTuple):
     render_poses: np.ndarray  # [n_pose, 4, 4]
     hwf: tuple                # (H, W, focal)
     splits: tuple             # (i_train, i_val, i_test)
-
-
-def _imread(path: str) -> np.ndarray:
-    import imageio.v2 as imageio
-
-    return np.asarray(imageio.imread(path))
 
 
 def _resize_half(img: np.ndarray) -> np.ndarray:
@@ -65,7 +61,7 @@ def load_blender_data(basedir: str, half_res: bool = False, testskip: int = 1,
         imgs, poses = [], []
         for frame in meta["frames"][::skip]:
             fname = os.path.join(basedir, frame["file_path"] + ".png")
-            imgs.append(_imread(fname))
+            imgs.append(read_png(fname))
             poses.append(np.array(frame["transform_matrix"], np.float32))
         imgs = (np.array(imgs) / 255.0).astype(np.float32)
         all_imgs.append(imgs)

@@ -3,7 +3,8 @@
 
 Layout: {basedir}/{split}/{scene}/ with intrinsics.txt, pose/*.txt and
 rgb/*.png; 512x512 frames; poses stored c2w with y/z flipped relative to the
-NeRF convention. `imageio` is imported when a scene is read.
+NeRF convention. The PNGs are read with the port's own codec
+(utils/images.read_png).
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import os
 from typing import NamedTuple
 
 import numpy as np
+
+from ..utils.images import read_png
 
 __all__ = ["DeepVoxelsData", "load_dv_data"]
 
@@ -48,11 +51,9 @@ def _load_poses(posedir: str) -> np.ndarray:
 
 
 def _load_rgb(imgdir: str, skip: int = 1) -> np.ndarray:
-    import imageio.v2 as imageio
-
     files = [f for f in sorted(os.listdir(imgdir)) if f.endswith("png")]
     return np.stack(
-        [imageio.imread(os.path.join(imgdir, f)) / 255.0 for f in files[::skip]],
+        [read_png(os.path.join(imgdir, f)) / 255.0 for f in files[::skip]],
         0,
     ).astype(np.float32)
 

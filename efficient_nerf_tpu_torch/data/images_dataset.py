@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..utils.images import read_png
+
 __all__ = ["ImageFrameDataset", "setup_image_datadir", "append_pseudo_frames",
            "pseudo_ratio_schedule"]
 
@@ -49,11 +51,9 @@ def setup_image_datadir(datadir_old: str, datadir_new: str,
                         half_res: bool = False, white_bkgd: bool = True):
     """PNG train frames -> .npy images + copied transforms json
     (reference setup_blender_datadir_v2, load_blender.py:151-182). Reads the
-    PNGs with imageio (and halves them with cv2), imported here."""
+    PNGs with the port's own codec (utils/images.read_png) and halves them
+    with cv2, imported only for half_res."""
     import shutil
-
-    import cv2
-    import imageio.v2 as imageio
 
     if os.path.exists(datadir_new):
         shutil.rmtree(datadir_new) if os.path.isdir(datadir_new) \
@@ -63,9 +63,10 @@ def setup_image_datadir(datadir_old: str, datadir_new: str,
     for name in os.listdir(os.path.join(datadir_old, "train")):
         if not name.endswith(".png"):
             continue
-        rgb = np.asarray(imageio.imread(
-            os.path.join(datadir_old, "train", name))) / 255.0
+        rgb = read_png(os.path.join(datadir_old, "train", name)) / 255.0
         if half_res:
+            import cv2
+
             H, W = rgb.shape[:2]
             rgb = cv2.resize(rgb, (W // 2, H // 2),
                              interpolation=cv2.INTER_AREA)

@@ -4,8 +4,8 @@ numpy copy of `efficient_nerf_tpu.data.synthetic`.
 `render_sphere_frame` gives a frame in memory, which is how a teacher is
 trained on the card with nothing downloaded. The two writers lay out a
 blender-format (transforms_*.json + PNGs) or an LLFF-format scene on disk;
-they import `imageio` when called, since a machine without it can still
-render frames in memory.
+they write their PNGs with the port's own codec (utils/images.write_png),
+so they run on a machine without `imageio`.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import numpy as np
 
 from ..core.poses import pose_spherical
 from ..core.rays import get_rays_np
+from ..utils.images import write_png
 
 __all__ = ["render_sphere_frame", "make_synthetic_scene",
            "make_forward_facing_scene", "CAMERA_ANGLE_X"]
@@ -60,8 +61,6 @@ def make_synthetic_scene(outdir: str, n_train: int = 20, n_val: int = 2,
                          radius: float = 1.3,
                          seed: int = 0) -> Tuple[int, int, float]:
     """Write a blender-format sphere scene; returns (H, W, focal)."""
-    import imageio.v2 as imageio
-
     rng = np.random.default_rng(seed)
     focal = 0.5 * W / np.tan(0.5 * CAMERA_ANGLE_X)
     for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
@@ -77,8 +76,8 @@ def make_synthetic_scene(outdir: str, n_train: int = 20, n_val: int = 2,
             pose = pose_spherical(theta, phi, 4.0)
             img = render_sphere_frame(pose, H, W, focal, radius=radius)
             fname = f"./{split}/r_{i}"
-            imageio.imwrite(os.path.join(outdir, fname + ".png"),
-                            (img * 255).astype(np.uint8))
+            write_png(os.path.join(outdir, fname + ".png"),
+                      (img * 255).astype(np.uint8))
             frames.append({"file_path": fname,
                            "transform_matrix": pose.tolist()})
         with open(os.path.join(outdir, f"transforms_{split}.json"), "w") as f:
@@ -97,8 +96,6 @@ def make_forward_facing_scene(outdir: str, n_images: int = 12,
     focal]) and [near, far] depth bounds. Cameras sit near the origin looking
     down world -z with small x/y/z jitter.
     """
-    import imageio.v2 as imageio
-
     rng = np.random.default_rng(seed)
     focal = 0.9 * W
     os.makedirs(os.path.join(outdir, "images"), exist_ok=True)
@@ -112,8 +109,8 @@ def make_forward_facing_scene(outdir: str, n_images: int = 12,
         img = render_sphere_frame(c2w, H, W, focal, radius=radius,
                                   center=center)
         rgb = img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])  # white bg
-        imageio.imwrite(os.path.join(outdir, "images", f"img_{i:03d}.png"),
-                        (rgb * 255).astype(np.uint8))
+        write_png(os.path.join(outdir, "images", f"img_{i:03d}.png"),
+                  (rgb * 255).astype(np.uint8))
         # invert the loader's column swap [down,right,back]->[right,up,back]:
         # store columns [-y, x, z]
         stored = np.stack([-c2w[:, 1], c2w[:, 0], c2w[:, 2], c2w[:, 3],

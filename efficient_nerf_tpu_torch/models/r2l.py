@@ -12,10 +12,15 @@ global residual, and a Linear+sigmoid tail. The body is one of:
     default student when the trial flags are off).
   * `layerwise_widths` (any body_arch): the 'mlp' body with per-layer widths.
 
+`R2LConvNet` is the conv student of the patch modes (`--data_mode
+patches`): 1x1 conv head, a body of SAME-padded convs or residual conv
+pairs, optional BatchNorm, 1x1 conv + sigmoid tail, over NHWC patches.
+
 This is the unfused path, the port's counterpart of the JAX XLA path: its
 `nn.Linear`s go through cuBLAS on the card. The served path for the flagship
 profile (the resmlp body) is the fused kernel in ops/r2l_forward.py; no
-kernel covers the 'mlp' and layerwise bodies, in either package.
+kernel covers the 'mlp' and layerwise bodies or the conv student, in
+either package.
 """
 from __future__ import annotations
 
@@ -25,9 +30,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .weights import plain_r2l_state_dict_from_jax, r2l_state_dict_from_jax
+from .weights import (conv_state_dict_from_jax, plain_r2l_state_dict_from_jax,
+                      r2l_state_dict_from_jax)
 
-__all__ = ["R2LNet", "ResBlock", "get_activation"]
+__all__ = ["R2LNet", "R2LConvNet", "ResBlock", "get_activation"]
 
 
 def get_activation(name: str) -> Optional[nn.Module]:
@@ -188,3 +194,115 @@ def _plain_widths(layerwise_widths: Tuple[int, ...], depth: int, width: int,
             f"R2LNet: the global residual adds the body's output ({last} wide) "
             f"to the head's ({widths[0]} wide); they must be equal")
     return widths
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm over NCHW with flax's arithmetic and its state_dict keys as
+    nn.BatchNorm2d's. flax's `momentum=0.99`, `epsilon=1e-5` are torch's
+    `momentum=0.01`, `eps=1e-5`. Training normalizes with the batch's mean
+    and its biased variance E[x^2] - E[x]^2 (flax's fast variance, clipped
+    at 0; nn.BatchNorm2d would put the unbiased variance into its running
+    statistic), in f32; y = (x - mean) * (rsqrt(var + eps) * scale) + bias,
+    cast to `dtype`."""
+
+    def __init__(self, width: int, dtype: torch.dtype = torch.float32):
+        super().__init__(width, eps=1e-5, momentum=0.01)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.copy_(keep * self.running_mean + self.momentum * mean)
+                self.running_var.copy_(keep * self.running_var + self.momentum * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(self.dtype)
+
+
+class R2LConvNet(nn.Module):
+    """CNN-style patch student, after `efficient_nerf_tpu.models.r2l.
+    R2LConvNet` (:156-220).
+
+    Input [N, ph, pw, C] (NHWC, as in JAX), permuted to NCHW for the convs;
+    output [N, ph, pw, output_dim] f32. Head 1x1 conv (+ BatchNorm) + act,
+    then a body of depth - 2 convs ('conv') or max(1, (depth - 2) // 2)
+    residual conv pairs h + res_scale * bn(conv(act(bn(conv(h))))) with no
+    act after the pair ('resblock'), then a 1x1 conv + sigmoid tail. Body
+    convs are kernel_size x kernel_size with SAME padding, so patch
+    geometry and residual shapes stay. `use_bn` puts a `FlaxBatchNorm2d`
+    after every conv but the tail: in train mode it normalizes with the
+    batch's statistics and updates its running ones, in eval mode it uses
+    them. Modules carry the flax names (head, head_bn, body_{i},
+    body_bn_{i}, block{b}_conv{0,1}, block{b}_bn{0,1}, tail).
+    """
+
+    def __init__(self, input_dim: int, depth: int = 6, width: int = 64,
+                 output_dim: int = 3, kernel_size: int = 3,
+                 body_arch: str = "resblock", use_bn: bool = False,
+                 act: str = "relu", res_scale: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if body_arch not in ("conv", "resblock"):
+            raise ValueError(f"R2LConvNet: unknown body_arch {body_arch!r}")
+        self.input_dim, self.depth, self.width = input_dim, depth, width
+        self.output_dim, self.kernel_size = output_dim, kernel_size
+        self.body_arch, self.use_bn, self.act = body_arch, use_bn, act
+        self.res_scale, self.dtype = res_scale, dtype
+        self._act = get_activation(act) or nn.Identity()
+
+        def conv(name, c_in, c_out, k=kernel_size):
+            self.add_module(name, nn.Conv2d(c_in, c_out, k, padding="same"))
+
+        def bn(name):
+            if use_bn:
+                self.add_module(name, FlaxBatchNorm2d(width, dtype))
+
+        conv("head", input_dim, width, 1)
+        bn("head_bn")
+        if body_arch == "conv":
+            for i in range(depth - 2):
+                conv(f"body_{i}", width, width)
+                bn(f"body_bn_{i}")
+        else:
+            for b in range(self._n_block()):
+                for j in range(2):
+                    conv(f"block{b}_conv{j}", width, width)
+                    bn(f"block{b}_bn{j}")
+        conv("tail", width, output_dim, 1)
+
+    def _n_block(self) -> int:
+        return max(1, (self.depth - 2) // 2)
+
+    def _conv(self, name: str, h: torch.Tensor) -> torch.Tensor:
+        """The conv `name` in the compute dtype, as flax's Conv with dtype."""
+        layer, dt = getattr(self, name), self.dtype
+        return F.conv2d(h.to(dt), layer.weight.to(dt), layer.bias.to(dt), padding="same")
+
+    def _bn(self, name: str, h: torch.Tensor) -> torch.Tensor:
+        return getattr(self, name)(h) if self.use_bn else h
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        act = self._act
+        h = act(self._bn("head_bn", self._conv("head", x.permute(0, 3, 1, 2))))
+        if self.body_arch == "conv":
+            for i in range(self.depth - 2):
+                h = act(self._bn(f"body_bn_{i}", self._conv(f"body_{i}", h)))
+        else:
+            for b in range(self._n_block()):
+                g = act(self._bn(f"block{b}_bn0", self._conv(f"block{b}_conv0", h)))
+                g = self._bn(f"block{b}_bn1", self._conv(f"block{b}_conv1", g))
+                h = g * self.res_scale + h
+        return torch.sigmoid(self._conv("tail", h)).permute(0, 2, 3, 1).float()
+
+    def load_jax_params(self, params_np, batch_stats_np=None) -> "R2LConvNet":
+        """Load the JAX R2LConvNet's `params` (and `batch_stats`) trees,
+        leaves as numpy arrays."""
+        self.load_state_dict(conv_state_dict_from_jax(params_np, batch_stats_np))
+        return self

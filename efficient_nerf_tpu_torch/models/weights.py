@@ -21,7 +21,7 @@ import torch
 
 __all__ = ["r2l_params_from_state_dict", "r2l_state_dict_from_params",
            "r2l_state_dict_from_jax", "plain_r2l_state_dict_from_jax",
-           "nerf_params_from_state_dict",
+           "conv_state_dict_from_jax", "nerf_params_from_state_dict",
            "nerf_state_dict_from_params", "nerf_state_dict_from_jax"]
 
 
@@ -115,6 +115,33 @@ def plain_r2l_state_dict_from_jax(params_np, depth: int,
         sd[f"{ours}.weight"] = torch.tensor(np.asarray(w, np.float32))
         sd[f"{ours}.bias"] = torch.tensor(np.asarray(b, np.float32))
     return sd
+
+
+def conv_state_dict_from_jax(params_np, batch_stats_np=None) -> Dict[str, torch.Tensor]:
+    """The JAX R2LConvNet's variables (leaves as numpy arrays) -> a
+    state_dict of f32 CPU tensors that the port's `R2LConvNet` loads; its
+    modules carry the flax names. Conv kernels HWIO -> OIHW; a BatchNorm's
+    `scale`/`bias` become weight/bias, its `batch_stats` `mean`/`var` the
+    running statistics (the flax init's zeros and ones when
+    batch_stats_np is None)."""
+    sd = {}
+    for name, leaves in params_np.items():
+        if "kernel" in leaves:
+            sd[f"{name}.weight"] = np.asarray(leaves["kernel"]).transpose(3, 2, 0, 1)
+            sd[f"{name}.bias"] = np.asarray(leaves["bias"])
+        else:
+            width = np.asarray(leaves["scale"]).shape[0]
+            stats = (batch_stats_np or {}).get(
+                name, {"mean": np.zeros(width), "var": np.ones(width)})
+            sd[f"{name}.weight"] = np.asarray(leaves["scale"])
+            sd[f"{name}.bias"] = np.asarray(leaves["bias"])
+            sd[f"{name}.running_mean"] = np.asarray(stats["mean"])
+            sd[f"{name}.running_var"] = np.asarray(stats["var"])
+    out = {k: torch.tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+    for k in list(out):
+        if k.endswith(".running_mean"):
+            out[k[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    return out
 
 
 def nerf_params_from_state_dict(state_dict, depth: int = 8,

@@ -14,7 +14,13 @@ flagship profile and raises `ValueError` otherwise, on any device. A
 deliberate divergence: the JAX package's int8 branch raises off the TPU,
 where its Pallas kernel is unavailable; here a CPU device runs the int8
 kernel's plain version, so that the tests can hold the whole int8 path
-against the JAX package. The conv student is not ported yet.
+against the JAX package.
+
+The conv student (`R2LConvNet`) renders a full frame as one [1, H, W, C]
+patch and evaluates arbitrary rays as 1x1 patches (SAME-padded convs reduce
+to their centre taps), in eval mode (BatchNorm on its running statistics),
+always unfused: no kernel covers a conv body in either package, and
+`quant="int8"` raises for it as for every model off the flagship profile.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from ..core.encoding import ray_embed
 from ..core.ray_sampler import sample_image_points, sample_ray_points
 from ..core.rays import get_rays, plucker_rays
 from ..device import DeviceLike, resolve_device, to_device
-from ..models.r2l import R2LNet
+from ..models.r2l import R2LConvNet, R2LNet
 from ..ops import (calibrate_r2l_int8, fused_r2l_available, pack_r2l_weights,
                    pack_r2l_weights_int8, r2l_forward_fused, r2l_forward_int8)
 from ..ops.r2l_forward import MAX_WIDTH, WIDTH_ALIGN
@@ -36,15 +42,19 @@ __all__ = ["r2l_forward_rays", "r2l_render_image", "make_r2l_forward",
            "calibrate_serving_scales"]
 
 _PACKERS = {"": pack_r2l_weights, "int8": pack_r2l_weights_int8}
+_INT8_PROFILE = ("int8 inference requires the fused-kernel profile (R2LNet, uniform "
+                 "resmlp body, relu, sigmoid tail, eval mode, no Plucker input, a width "
+                 f"that is a multiple of {WIDTH_ALIGN} up to {MAX_WIDTH})")
 
 
 def _check_model(model, quant: str, dev: torch.device) -> None:
     if quant not in _PACKERS:
         raise ValueError(f"unknown quant mode {quant!r}")
-    if not isinstance(model, R2LNet):
-        raise NotImplementedError(
-            f"{type(model).__name__} is not ported: only the R2LNet student "
-            "is (the conv student R2LConvNet is still to be ported)")
+    if not isinstance(model, (R2LNet, R2LConvNet)):
+        raise NotImplementedError(f"{type(model).__name__} is not an R2L student: "
+                                  "the renderer serves R2LNet and R2LConvNet")
+    if quant == "int8" and not isinstance(model, R2LNet):
+        raise ValueError(_INT8_PROFILE)
     p = next(model.parameters())
     if p.device != dev:
         raise ValueError(f"model is on {p.device}, rendering on {dev}: move "
@@ -56,6 +66,7 @@ def _profile_eligible(model: R2LNet, plucker: bool, perturb: bool) -> bool:
     body, relu in-act, sigmoid tail, eval mode, non-Plucker, a width the
     kernels' warps cover."""
     return (not plucker and not perturb
+            and isinstance(model, R2LNet)
             and model.body_arch == "resmlp"
             and not model.layerwise_widths
             and model.n_learnable == 2
@@ -141,10 +152,7 @@ def r2l_forward_rays(model: R2LNet, rays_o, rays_d, near: float, far: float,
     _check_model(model, quant, dev)
     rays_o, rays_d = _as_rays(rays_o, dev), _as_rays(rays_d, dev)
     if quant == "int8" and not (allow_fused and _profile_eligible(model, plucker, perturb)):
-        raise ValueError("int8 inference requires the fused-kernel profile "
-                         "(uniform resmlp body, relu, sigmoid tail, eval mode, "
-                         f"no Plucker input, a width that is a multiple of "
-                         f"{WIDTH_ALIGN} up to {MAX_WIDTH})")
+        raise ValueError(_INT8_PROFILE)
     with torch.no_grad():
         if quant == "int8":
             return _forward_int8(model, rays_o, rays_d, near, far, n_sample, L,
@@ -159,7 +167,21 @@ def r2l_forward_rays(model: R2LNet, rays_o, rays_d, near: float, far: float,
         else:
             pts = sample_ray_points(rays_o, rays_d, near, far, n_sample,
                                     perturb=perturb)
-        return model(ray_embed(pts, L))
+        x = ray_embed(pts, L)
+        if isinstance(model, R2LConvNet):
+            return _conv_eval(model, x[:, None, None, :]).reshape(x.shape[0], -1)
+        return model(x)
+
+
+def _conv_eval(model: R2LConvNet, x: torch.Tensor) -> torch.Tensor:
+    """The conv student on NHWC patches x in eval mode (BatchNorm on its
+    running statistics); the model's mode is restored after."""
+    was_training = model.training
+    model.eval()
+    try:
+        return model(x)
+    finally:
+        model.train(was_training)
 
 
 def make_r2l_forward(model: R2LNet, near: float, far: float, n_sample: int,
@@ -179,28 +201,33 @@ def r2l_render_image(model: R2LNet, c2w, H: int, W: int, focal: float,
                      near: float, far: float, n_sample: int, L: int = 10,
                      plucker: bool = False, chunk: int = 0, quant: str = "",
                      device: DeviceLike = None,
-                     act_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     act_scales: Optional[torch.Tensor] = None,
+                     allow_fused: bool = True) -> torch.Tensor:
     """Render a full frame -> [H, W, output_dim] on `device` (default CUDA).
 
     Eligible models render the whole frame in one fused launch (quant="int8":
     the W8A8 kernel, act_scales from `calibrate_serving_scales`, which a
-    serving loop passes; None calibrates on the frame's first 1024 rays); the
-    unfused path evaluates `chunk` rays at a time when chunk > 0.
+    serving loop passes; None calibrates on the frame's first 1024 rays);
+    allow_fused=False forces the unfused path (and makes quant="int8"
+    raise). The unfused path evaluates `chunk` rays at a time when chunk >
+    0; the conv student evaluates the frame as one [1, H, W, C] patch.
     """
     dev = resolve_device(device)
     _check_model(model, quant, dev)
-    if quant == "int8" or _fused_eligible(model, plucker, perturb=False, dev=dev):
+    if quant == "int8" or (allow_fused and _fused_eligible(model, plucker, False, dev)):
         rays_o, rays_d = get_rays(H, W, focal, c2w, device=dev)
         rgb = r2l_forward_rays(model, rays_o.reshape(-1, 3),
                                rays_d.reshape(-1, 3), near, far, n_sample, L,
                                plucker=plucker, quant=quant, device=dev,
-                               act_scales=act_scales)
+                               act_scales=act_scales, allow_fused=allow_fused)
         return rgb.reshape(H, W, -1)
     with torch.no_grad():
         pts = sample_image_points(c2w, H, W, focal, near, far, n_sample,
                                   plucker=plucker, device=dev)
         x = ray_embed(pts, L)
-        if chunk and chunk < x.shape[0]:
+        if isinstance(model, R2LConvNet):
+            rgb = _conv_eval(model, x.reshape(1, H, W, x.shape[-1]))
+        elif chunk and chunk < x.shape[0]:
             rgb = torch.cat([model(xi) for xi in torch.split(x, chunk)])
         else:
             rgb = model(x)

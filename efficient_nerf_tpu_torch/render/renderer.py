@@ -81,6 +81,11 @@ class RenderConfig:
     frame_fused: bool = False
     frame_tile_r: int = 256
     frame_eval_chunks: int = 4
+    # the port's counterpart of the JAX driver's --no_pallas (an environment
+    # variable there): False takes the unfused path for every field eval
+    # and fine sampling, whatever fused_teacher and frame_fused say, and
+    # teacher_quant='int8', which has no unfused path, raises
+    kernels: bool = True
 
     def eval_mode(self) -> "RenderConfig":
         """Test-time variant: no jitter, no sigma noise, and the fused field
@@ -105,6 +110,9 @@ class RenderResult(NamedTuple):
 def _check_modes(cfg: RenderConfig) -> None:
     if cfg.teacher_quant not in ("", "int8"):
         raise ValueError(f"unknown teacher_quant {cfg.teacher_quant!r}")
+    if cfg.teacher_quant and not cfg.kernels:
+        raise ValueError("teacher_quant='int8' runs the int8 field-eval kernel; "
+                         "with kernels=False (--no_pallas) there is none to run")
 
 
 def _teacher_profile_ok(model, cfg: RenderConfig) -> bool:
@@ -121,7 +129,7 @@ def _teacher_profile_ok(model, cfg: RenderConfig) -> bool:
 
 
 def _nerf_profile_ok(model, cfg: RenderConfig) -> bool:
-    return cfg.fused_teacher and _teacher_profile_ok(model, cfg)
+    return cfg.kernels and cfg.fused_teacher and _teacher_profile_ok(model, cfg)
 
 
 def _cached(model, attr: str, make):

@@ -1,5 +1,6 @@
 """The training steps: the R2L student's, after
-`efficient_nerf_tpu.train.steps.make_r2l_train_step` (:40-185), and the
+`efficient_nerf_tpu.train.steps.make_r2l_train_step` (:40-185), the conv
+student's over patches, after `make_patch_train_step` (:188-245), and the
 NeRF teacher's, after `make_teacher_train_step` (:248-308).
 
 One step: draw the hard rows and append them to the batch, sample the
@@ -29,7 +30,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..core.encoding import ray_embed
-from ..core.ray_sampler import sample_ray_points
+from ..core.ray_sampler import sample_patch_points, sample_ray_points
 from ..core.rays import ndc_rays, plucker_rays
 from ..device import DeviceLike, resolve_device
 from ..ops import fused_r2l_train_available
@@ -38,7 +39,7 @@ from ..render.renderer import RenderConfig, render_rays
 from .hard_mining import HardPool, pick_hard_rays, update_hard_pool
 
 __all__ = ["TrainState", "init_train_state", "make_r2l_train_step",
-           "make_teacher_train_step", "mse_to_psnr"]
+           "make_patch_train_step", "make_teacher_train_step", "mse_to_psnr"]
 
 
 class TrainState(NamedTuple):
@@ -187,6 +188,50 @@ def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
         metrics = {"loss_rgb": loss_rgb, "loss_depth": loss_d.detach(),
                    "psnr": mse_to_psnr(loss_rgb / lw_rgb)}
         return state._replace(step=state.step + 1), pool, metrics
+
+    return step
+
+
+def make_patch_train_step(model, optimizer: torch.optim.Optimizer, *,
+                          near: float, far: float, n_sample: int, L: int = 10,
+                          perturb: bool = True, lw_rgb: float = 1.0,
+                          fast_embed: bool = True,
+                          schedule: Optional[Callable[[int], float]] = None,
+                          device: DeviceLike = None):
+    """Build the conv student's step over patches (`R2LConvNet`, the
+    consumer of the 16x16patches / 3x3rays / rand_tworays shards).
+
+    step(state, generator, rays_o, rays_d, target, t_rand=None) ->
+        (state, metrics)
+
+    rays and target are [N, ph, pw, 3]. The stratified jitter draws one
+    uniform a patch (`sample_patch_points`) from `generator`, or takes
+    t_rand [N] (the tests hand in the JAX step's draws). The model runs in
+    train mode: a BatchNorm normalizes with the batch's statistics and
+    updates its running ones in place (the JAX step threads flax's
+    batch_stats collection through instead). No kernel covers a conv body,
+    in either package: this is the unfused autograd path on every device.
+    metrics: loss_rgb, loss_depth (zero) and psnr, 0-dim tensors.
+    """
+    dev = resolve_device(device)
+    _check_device(model, dev)
+
+    def step(state: TrainState, generator: Optional[torch.Generator],
+             rays_o: torch.Tensor, rays_d: torch.Tensor, target: torch.Tensor,
+             t_rand: Optional[torch.Tensor] = None):
+        model.train()
+        pts = sample_patch_points(rays_o, rays_d, near, far, n_sample,
+                                  perturb=perturb, generator=generator, t_rand=t_rand)
+        rgb = model(ray_embed(pts, L, fast=fast_embed))
+        loss_rgb = torch.mean((rgb - target) ** 2) * lw_rgb
+        optimizer.zero_grad(set_to_none=True)
+        loss_rgb.backward()
+        _set_lr(optimizer, schedule, state.step)
+        optimizer.step()
+        loss_rgb = loss_rgb.detach()
+        metrics = {"loss_rgb": loss_rgb, "loss_depth": torch.zeros((), device=loss_rgb.device),
+                   "psnr": mse_to_psnr(loss_rgb / lw_rgb)}
+        return state._replace(step=state.step + 1), metrics
 
     return step
 
