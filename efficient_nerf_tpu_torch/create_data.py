@@ -36,7 +36,7 @@ from .data.pseudo import (SHARD_ROWS, export_pseudo_shards,
                           make_pseudo_frame_renderer, scene_pose_sampler)
 from .device import DeviceLike, resolve_device
 from .evaluate import render_path
-from .factory import create_models, teacher_for_eval
+from .factory import create_models
 from .main import load_scene
 from .utils.logging import Logger
 
@@ -105,7 +105,8 @@ def create_data(args, logger: Optional[Logger] = None, device: DeviceLike = None
     scene = load_scene(args)
     H, W, focal = scene.hwf
     teacher = _teacher_bundle(args, scene, dev)
-    coarse, fine = teacher_for_eval(teacher)
+    nets = teacher.model
+    coarse, fine = nets["coarse"], nets["fine"] if "fine" in nets else None
     log(f"Teacher loaded ({teacher.n_params / 1e6:.2f}M params) on {dev}")
 
     if args.test_teacher:

@@ -20,7 +20,6 @@ import torch
 
 from .core.rays import get_rays
 from .device import to_device
-from .factory import teacher_for_eval
 from .metrics import (default_pixels_per_degree, flip, img2mse, lpips,
                       lpips_available, mse2psnr, ssim)
 from .render.r2l_renderer import (calibrate_serving_scales, r2l_forward_rays,
@@ -76,7 +75,7 @@ def render_path(bundle, poses: Sequence[np.ndarray], hwf, *,
     dev, cfg = bundle.device, bundle.cfg_test
     model = bundle.model
     if model_name == "nerf":
-        coarse, fine = teacher_for_eval(bundle)
+        coarse, fine = model["coarse"], model["fine"] if "fine" in model else None
     rgbs, psnrs, ssims, errors, frame_times = [], [], [], [], []
     n_frames = len(poses) if given_rays is None else len(given_rays[0])
 

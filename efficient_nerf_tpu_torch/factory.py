@@ -14,7 +14,7 @@ JAX package's numbers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -27,7 +27,7 @@ from .train.checkpoints import import_reference_checkpoint
 from .train.schedules import make_lr_schedule, parse_warmup
 from .utils.meters import count_params
 
-__all__ = ["Bundle", "create_models", "render_config_from_args", "teacher_for_eval"]
+__all__ = ["Bundle", "create_models", "render_config_from_args"]
 
 
 class Bundle(NamedTuple):
@@ -180,30 +180,3 @@ def create_models(args, near: float, far: float, device: DeviceLike = None,
     return Bundle(model, optimizer, schedule, cfg_train, cfg_test, history,
                   restored_opt_state, input_dim, flops, count_params(model), dev)
 
-
-def _kernel_config(cfg: RenderConfig) -> bool:
-    return cfg.kernels and bool(cfg.fused_teacher or cfg.teacher_quant or cfg.frame_fused)
-
-
-def teacher_for_eval(bundle: Bundle, cfg: Optional[RenderConfig] = None
-                     ) -> Tuple[NeRFMLP, Optional[NeRFMLP]]:
-    """(coarse, fine) to render `cfg` (default cfg_test) with. The card's
-    teacher kernels run bf16 weights; a teacher of another compute dtype
-    on a card is rendered through bf16 copies of its weights (the JAX
-    package's Pallas kernels run the model's own dtype). Elsewhere, and on
-    the unfused path, the bundle's own networks."""
-    cfg = cfg or bundle.cfg_test
-    nets = bundle.model
-    coarse, fine = nets["coarse"], nets["fine"] if "fine" in nets else None
-    if bundle.device.type != "cuda" or not _kernel_config(cfg):
-        return coarse, fine
-
-    def bf16(m):
-        if m is None or m.dtype == torch.bfloat16:
-            return m
-        copy = NeRFMLP(m.depth, m.width, m.input_ch, m.input_ch_views, m.output_ch,
-                       m.skips, m.use_viewdirs, dtype=torch.bfloat16).to(bundle.device)
-        copy.load_state_dict(m.state_dict())
-        return copy
-
-    return bf16(coarse), bf16(fine)

@@ -42,7 +42,7 @@ from .data.llff import load_llff_data
 from .data.rays_dataset import RayShardDataset, ShardLoader, infinite_indices
 from .device import DeviceLike, resolve_device, to_device
 from .evaluate import load_given_rays, render_path
-from .factory import Bundle, create_models, teacher_for_eval
+from .factory import Bundle, create_models
 from .models import R2LConvNet
 from .render.r2l_renderer import (calibrate_serving_scales, r2l_forward_rays,
                                   r2l_render_image)
@@ -519,9 +519,10 @@ def _make_r2l_data_iterator(args, scene, rng, logger, device: torch.device):
             if k != "model_name" and hasattr(targs, k):
                 setattr(targs, k, v)
         teacher = create_models(targs, scene.near, scene.far, device=device)
-        coarse, fine = teacher_for_eval(teacher)
+        nets = teacher.model
         gen = StreamingPseudoGenerator(
-            coarse, fine, teacher.cfg_test, H, W, focal,
+            nets["coarse"], nets["fine"] if "fine" in nets else None, teacher.cfg_test,
+            H, W, focal,
             batch_rays=args.N_rand * 4096, buffer_rays=args.stream_buffer_rays,
             warmup_frames=args.stream_warmup_frames,
             frames_per_batch=args.stream_frames_per_batch,

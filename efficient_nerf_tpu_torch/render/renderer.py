@@ -27,8 +27,10 @@ Pallas kernels in interpret mode). Everything else (the training profile,
 `u`, perturbed sampling, other models) takes the unfused path: `nerf_embed`
 -> `NeRFMLP` -> `raw2outputs`, `core.sampling.sample_pdf`.
 
-The card's kernels run bf16 weights: a teacher on a kernel path there needs
-`dtype=torch.bfloat16`.
+The card's kernels take bf16 weights: on a CUDA tensor the kernel paths pack
+the teacher's weights in bf16, whatever its compute dtype, and the module
+itself keeps its own (a divergence: the JAX package's Pallas kernels run the
+model's own dtype). On the CPU the plain versions take the model's dtype.
 """
 from __future__ import annotations
 
@@ -132,10 +134,16 @@ def _nerf_profile_ok(model, cfg: RenderConfig) -> bool:
     return cfg.kernels and cfg.fused_teacher and _teacher_profile_ok(model, cfg)
 
 
-def _cached(model, attr: str, make):
+def _pack_dtype(model, on_card: bool) -> torch.dtype:
+    """The kernels' weight dtype: bf16 on the card, where the kernels take
+    nothing else; the model's own for the plain versions on the CPU."""
+    return torch.bfloat16 if on_card else model.dtype
+
+
+def _cached(model, attr: str, dtype: torch.dtype, make):
     """make() of the model's weights, kept on the model and made again when a
-    parameter changes (`param_version_key`)."""
-    key = (model.skips[0], model.dtype) + param_version_key(model)
+    parameter or the pack's dtype changes (`param_version_key`)."""
+    key = (model.skips[0], dtype) + param_version_key(model)
     cached = getattr(model, attr, None)
     if cached is None or cached[0] != key:
         with torch.no_grad():
@@ -144,20 +152,23 @@ def _cached(model, attr: str, make):
     return cached[1]
 
 
-def _packed(model) -> dict:
-    """The model's kernel operands in its compute dtype."""
-    return _cached(model, "_nerf_pack", lambda: pack_nerf_weights(
-        model.state_dict(), skip=model.skips[0], dtype=model.dtype))
+def _packed(model, on_card: bool) -> dict:
+    """The model's kernel operands in `_pack_dtype`."""
+    dtype = _pack_dtype(model, on_card)
+    return _cached(model, "_nerf_pack", dtype, lambda: pack_nerf_weights(
+        model.state_dict(), skip=model.skips[0], dtype=dtype))
 
 
-def _packed_int8(model):
-    """(the int8 kernel's operands in the model's compute dtype, an f32 pack
-    that the per-call calibration reads)."""
+def _packed_int8(model, on_card: bool):
+    """(the int8 kernel's operands in `_pack_dtype`, an f32 pack that the
+    per-call calibration reads)."""
+    dtype = _pack_dtype(model, on_card)
+
     def make():
         sd, skip = model.state_dict(), model.skips[0]
-        return (pack_nerf_weights_int8(sd, skip, model.dtype),
+        return (pack_nerf_weights_int8(sd, skip, dtype),
                 pack_nerf_weights(sd, skip, torch.float32))
-    return _cached(model, "_nerf_pack_int8", make)
+    return _cached(model, "_nerf_pack_int8", dtype, make)
 
 
 def _frame_fused_eligible(model, cfg: RenderConfig, near, far, t_rand, u, noise) -> bool:
@@ -171,13 +182,6 @@ def _frame_fused_eligible(model, cfg: RenderConfig, near, far, t_rand, u, noise)
             and not cfg.perturb and cfg.raw_noise_std == 0.0
             and near is None and far is None
             and t_rand is None and u is None and noise is None)
-
-
-def _needs_bf16(models, path: str) -> None:
-    """The card's kernels take bf16 weights; another compute dtype raises."""
-    if any(m.dtype != torch.bfloat16 for m in models):
-        raise ValueError(f"the teacher's {path} runs bf16 weights on the card: make the "
-                         f"model with dtype=torch.bfloat16")
 
 
 def _no_autograd(path: str, models, *tensors) -> None:
@@ -203,11 +207,10 @@ def _render_frame(model, model_fine, rays_o, rays_d, viewdirs,
         raise ValueError("nerf_render_rays_fused requires matching coarse/fine "
                          "architectures; the fine model is not the teacher profile")
     models = (model,) if model_fine is None else (model, model_fine)
-    if rays_o.is_cuda:
-        _needs_bf16(models, "whole-ray render (frame_fused)")
     _no_autograd("whole-ray kernel (frame_fused)", models, rays_o, rays_d, viewdirs)
+    card = rays_o.is_cuda
     out = nerf_render_rays_fused(
-        _packed(model), None if model_fine is None else _packed(model_fine),
+        _packed(model, card), None if model_fine is None else _packed(model_fine, card),
         rays_o.contiguous(), rays_d.contiguous(), viewdirs.contiguous(), cfg.near,
         cfg.far, cfg.n_samples, cfg.n_importance, cfg.multires, cfg.multires_views,
         white_bkgd=cfg.white_bkgd, lindisp=cfg.lindisp)
@@ -220,10 +223,8 @@ def _query_int8(model, pts, viewdirs, cfg: RenderConfig) -> torch.Tensor:
     ray-major order, then the W8A8 field eval. pts [N, S, 3] -> raw."""
     if not _teacher_profile_ok(model, cfg):
         raise ValueError("teacher_quant=int8 requires the standard viewdir teacher profile")
-    if pts.is_cuda:
-        _needs_bf16((model,), "int8 field eval (teacher_quant='int8')")
     _no_autograd("int8 field eval (teacher_quant='int8')", (model,), pts, viewdirs)
-    packed, packed_f32 = _packed_int8(model)
+    packed, packed_f32 = _packed_int8(model, pts.is_cuda)
     scales = calibrate_nerf_int8(packed_f32, pts.reshape(-1, 3)[:1024], cfg.multires)
     return nerf_forward_int8(packed, pts.contiguous(), viewdirs.contiguous(), cfg.multires,
                              cfg.multires_views, act_scales=scales)
@@ -248,11 +249,8 @@ def _field(model, rays_o, rays_d, z_vals, viewdirs, cfg: RenderConfig,
         return _query_int8(model, pts, viewdirs, cfg)
     if not fused:
         return _query(model, pts, viewdirs, cfg)
-    if pts.is_cuda:
-        _needs_bf16((model,), "fused field eval (fused_teacher=False and fast_embed=False "
-                    "take the unfused path)")
     _no_autograd("fused field eval (fused_teacher)", (model,), pts, viewdirs)
-    return nerf_forward_fused(_packed(model), pts.contiguous(),
+    return nerf_forward_fused(_packed(model, pts.is_cuda), pts.contiguous(),
                               viewdirs.contiguous(), cfg.multires,
                               cfg.multires_views)
 

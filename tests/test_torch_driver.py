@@ -22,20 +22,21 @@ from efficient_nerf_tpu_torch.train import save_checkpoint
 from efficient_nerf_tpu_torch.utils.logging import Logger
 
 # The first step's loss: the same f32 fields summed in another order (the
-# student's 2e-6 relative apart). Weights after Adam, as max |port - JAX| in units of lr: Adam
-# maps each gradient to about +-lr whatever its size, so a gradient
-# component within the two packages' disagreement moves its weight by a
-# part of one lr. The student's gradients agree tightly: measured 2e-5 of
-# the largest entry of head.0 after 3 steps, where the first step's noise
-# entries sit. The teacher's fine network sees its depths through the
-# inverse CDF, whose f32 sums run in another order (a stated divergence,
-# ROADMAP queue 3), and the embed's 2^9 frequency turns that into gradient
-# noise: measured 0.044 lr (1.7e-4 of the largest entry) on the fine
-# pts_linears.0 after the first step and no more after 3, the coarse
-# network at most 0.003 lr; the later losses then differ by up to 2.2e-5
-# relative. The student's losses agree to 1e-5.
+# student's 2e-6 relative apart). Weights after Adam, as max |port - JAX|
+# in units of lr: Adam maps each gradient to about +-lr whatever its size,
+# so a gradient component within the two packages' disagreement moves its
+# weight by a part of one lr. The student's gradients agree tightly:
+# measured at most 0.017 lr after 3 steps (body.0's first weight, 4.7e-5 of
+# its largest entry; head.0 0.004 lr), held at about three times that. The
+# teacher's fine network sees its depths through the inverse CDF, whose f32
+# sums run in another order (a stated divergence, ROADMAP queue 3), and the
+# embed's 2^9 frequency turns that into gradient noise: measured 0.044 lr
+# (1.7e-4 of the largest entry) on the fine pts_linears.0 after the first
+# step and no more after 3, the coarse network at most 0.003 lr; the later
+# losses then differ by up to 2.2e-5 relative. The student's losses agree
+# to 1e-5.
 LOSS_RTOL = {"student": 1e-5, "teacher": 5e-5}
-WEIGHT_TOL_LR = 0.1
+WEIGHT_TOL_LR = {"student": 0.05, "teacher": 0.1}
 LR = 5e-4           # --lrate's default
 # the test frames: PSNR, SSIM and FLIP as the issue's 1e-4; the teacher's
 # pixels through the inverse CDF above, within the pseudo rows' 2e-3
@@ -98,11 +99,11 @@ def _run_both(monkeypatch, blender_dir, tmp_path, extra, builder, key, model):
     return state, jstate
 
 
-def _weights_agree(got_sd, want_sd):
+def _weights_agree(got_sd, want_sd, model):
     assert set(got_sd) == set(want_sd)
     for k, v in want_sd.items():
         err = np.abs(got_sd[k].detach().numpy() - v).max() / LR
-        assert err <= WEIGHT_TOL_LR, (k, err)
+        assert err <= WEIGHT_TOL_LR[model], (k, err)
 
 
 @pytest.mark.parametrize("batching", [True, False])
@@ -113,7 +114,7 @@ def test_teacher_steps_match_the_jax_driver(batching, blender_dir, tmp_path, mon
                               "make_teacher_train_step", "loss", "teacher")
     for name in ("coarse", "fine"):
         want = torch_import.nerf_state_dict_from_params(jstate.params[name], depth=2)
-        _weights_agree(state.model[name].state_dict(), want)
+        _weights_agree(state.model[name].state_dict(), want, "teacher")
 
 
 @pytest.fixture
@@ -137,7 +138,7 @@ def test_student_rays_steps_match_the_jax_driver(blender_dir, shard_dir, tmp_pat
     state, jstate = _run_both(monkeypatch, blender_dir, tmp_path, extra,
                               "make_r2l_train_step", "loss_rgb", "student")
     want = torch_import.r2l_state_dict_from_params(jstate.params)
-    _weights_agree(state.model.state_dict(), want)
+    _weights_agree(state.model.state_dict(), want, "student")
 
 
 def _log(logger):

@@ -90,9 +90,17 @@ def test_freeze_pretrained_updates_nothing():
     assert all(torch.equal(a, p) for a, p in zip(before, b.model.parameters()))
 
 
-def test_teacher_for_eval_keeps_the_networks_off_the_card():
-    b = factory.create_models(parse_args(BASE + CASES["teacher"]), 2.0, 6.0, device="cpu")
-    coarse, fine = factory.teacher_for_eval(b)
-    assert coarse is b.model["coarse"] and fine is b.model["fine"]
-    x = torch.from_numpy(np.random.default_rng(0).normal(size=(5, 27 + 27)).astype(np.float32))
-    assert torch.isfinite(coarse(x)).all()
+def test_the_teacher_renders_through_the_bundles_own_networks():
+    """render_path renders a teacher with the bundle's networks as they are:
+    an f32 teacher without viewdirs (lego_noview.txt's profile) stays f32
+    and packs nothing for a kernel."""
+    from efficient_nerf_tpu_torch.evaluate import render_path
+
+    b = factory.create_models(parse_args(BASE + CASES["teacher_noview"]), 2.0, 6.0,
+                              device="cpu")
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = 4.0
+    out = render_path(b, pose[None], (4, 4, 5.0), model_name="nerf", log=lambda *a: None)
+    assert out["rgbs"].shape == (1, 4, 4, 3) and np.isfinite(out["rgbs"]).all()
+    assert all(p.dtype == torch.float32 for p in b.model.parameters())
+    assert not any(hasattr(m, "_nerf_pack") for m in b.model.values())

@@ -269,25 +269,73 @@ def test_render_image_frame_fused_matches_jax(rng, monkeypatch):
     _compare(got, want)
 
 
+def _kernel_weight_dtypes(monkeypatch, name):
+    """Stand in for the renderer's kernel `name`: record the dtype of the
+    weights that each call is handed and return zeros of the output's shape."""
+    seen = []
+
+    def fake(packed, *a, **kw):
+        seen.append(packed["pts0_w"].dtype)
+        if name == "nerf_render_rays_fused":
+            n = a[1].shape[0]
+            return tuple(torch.zeros((n, 3) if i in (0, 4) else (n,)) for i in range(8))
+        return torch.zeros(a[0].shape[:-1] + (4,))
+
+    monkeypatch.setattr(R, name, fake)
+    return seen
+
+
 def test_fused_eval_on_the_card_needs_bf16(rng, monkeypatch):
-    """An f32 teacher on the fused path raises on a CUDA tensor instead of
-    running another precision than the kernel's (the check comes before any
-    launch, so a CPU tensor that claims to be on the card shows it)."""
+    """The card's field-eval kernel takes bf16 weights: an f32 teacher on a
+    CUDA tensor hands it a bf16 pack and keeps its own f32 parameters (a
+    CPU tensor that claims to be on the card shows it); on the CPU the plain
+    version takes the model's f32."""
     _, _, tm = _models(rng)
     _, tcfg = _configs()
-    pts = torch.zeros(2, 16, 3)
-    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    with pytest.raises(ValueError, match="bfloat16"):
-        R._field(tm, torch.zeros(2, 3), torch.zeros(2, 3), torch.zeros(2, 16),
-                 torch.zeros(2, 3), tcfg, True)
-    del pts
+    seen = _kernel_weight_dtypes(monkeypatch, "nerf_forward_fused")
+    args = (torch.zeros(2, 3), torch.zeros(2, 3), torch.zeros(2, 16), torch.zeros(2, 3), tcfg,
+            True)
+    with torch.no_grad():
+        R._field(tm, *args)
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+        R._field(tm, *args)
+    assert seen == [torch.float32, torch.bfloat16]
+    assert all(p.dtype == torch.float32 for p in tm.parameters())
 
 
 @pytest.mark.parametrize("kw", [dict(teacher_quant="int8"), dict(frame_fused=True)])
 def test_int8_and_whole_ray_paths_on_the_card_need_bf16(kw, rng, monkeypatch):
+    """As above for the int8 field eval and the whole-ray kernel."""
     _, _, tm = _models(rng)
     _, tcfg = _configs(**kw)
+    name = "nerf_forward_int8" if kw.get("teacher_quant") else "nerf_render_rays_fused"
+    seen = _kernel_weight_dtypes(monkeypatch, name)
+    monkeypatch.setattr(R, "sample_pdf_det_fused", sp.sample_pdf_det_fused_ref)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     o = torch.zeros(2, 3)
-    with pytest.raises(ValueError, match="bfloat16"):
+    with torch.no_grad():
         R.render_rays(tm, None, o, o + 1, o + 1, tcfg)
+    assert seen and set(seen) == {torch.bfloat16}
+    assert all(p.dtype == torch.float32 for p in tm.parameters())
+
+
+@pytest.mark.parametrize("kw", [dict(use_viewdirs=False), dict(skips=(2, 5))])
+def test_a_teacher_off_the_kernel_profile_renders_in_its_own_dtype(kw, rng, monkeypatch):
+    """A teacher that no kernel covers (no viewdir branch, two skips) takes
+    the unfused path in eval mode on the card too, in its own f32: no
+    kernel is reached and nothing is packed."""
+    _, _, tm = _models(rng, **kw)
+    _, tcfg = _configs(use_viewdirs=kw.get("use_viewdirs", True))
+    for name in ("nerf_forward_fused", "sample_pdf_det_fused", "nerf_forward_int8",
+                 "nerf_render_rays_fused"):
+        monkeypatch.setattr(R, name, lambda *a, _n=name, **k: pytest.fail(_n))
+    o = torch.from_numpy(rng.normal(size=(4, 3)).astype(np.float32))
+    d = o / torch.linalg.norm(o, dim=-1, keepdim=True)
+    with torch.no_grad():
+        want = R.render_rays(tm, None, o, d, d, tcfg)
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+        got = R.render_rays(tm, None, o, d, d, tcfg)
+    assert all(x.dtype == torch.float32 for x in got) and torch.isfinite(got.rgb).all()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not hasattr(tm, "_nerf_pack")
