@@ -191,6 +191,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 to 0 just before, read just after), the driver's ms a step
                 beside the direct phases', the benchmark frames beside the
                 main and main_int8 phases', every test render's PSNR/SSIM.
+  parallel      parallel/ over torch.distributed. (a) A one-rank NCCL group
+                (make_mesh(n_data=1)): the flagship's sharded step
+                (make_sharded_r2l_train_step, the train phase's model, batch
+                and pool) against the direct step from the same weights and
+                generator seed (loss, gradients, pool rows, bit for bit or
+                not); ms a step of each, in turns, and the collectives
+                alone (the batch's gather, the gradient bucket's cat and
+                all_reduce, per_ray_mse's gather). (b) Two gloo ranks, both
+                on cuda:0 (NCCL refuses two ranks on one card), spawned
+                processes that return their results through a temporary
+                directory, run the four stages of dryrun_multichip: the
+                fused flagship step over data x 2 (49,152 rows a rank
+                through kernels 3a and 3b), the f32 flagship's
+                tensor-parallel step over model x 2 at 4,096 rows, sharded
+                serving of a 400x400 frame through kernel 1 and kernel 4
+                (int8, the main phase's scales), and dryrun stage 4's NDC
+                teacher step; each against its single-process counterpart
+                here (loss 1e-5, gradients in norm, the pool rows and the
+                gathered frames equal), each kernel's launches on every
+                rank that runs it (counters set to 0 just before each
+                stage and read just after); wall times only: gloo stages
+                CUDA tensors through the host. The kernels line carries
+                each rank's launches as "parallel_launches".
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. --phases runs the named phases only (each
@@ -3180,6 +3203,416 @@ def phase_driver(sm: Smoke) -> None:
     print("driver: commands " + json.dumps(log), flush=True)
 
 
+# ---- the parallel phase: parallel/ over torch.distributed on the one card.
+# (a) a one-rank NCCL group runs the flagship's sharded step at the README
+# command's sizes against the direct step; (b) two gloo ranks, both on
+# cuda:0 (NCCL refuses two ranks on one card), run dryrun_multichip's four
+# stages (__graft_entry__.py:49-170) against their single-process
+# counterparts. Gloo stages CUDA tensors through the host, so (b) checks
+# agreement and reports its wall time only.
+PAR_TP_ROWS = 4096                   # model x 2: the unfused f32 flagship
+PAR_TEACHER_HWF = (16, 16, 20.0)     # dryrun stage 4: NDC, view dirs, a 16x16 frame
+PAR_RANK_TIMEOUT = 420               # seconds for the gloo group's four stages
+# Sharded against single steps. The loss and the pool: each row's loss is
+# that row's arithmetic, the same on both sides, and only the sum over rows
+# changes its order (f32 over 98,304 rows: ~1e-7). The fused step's
+# gradients: pass 2 sums each rank's 49,152 rows in f32 and the all_reduce
+# adds the two sums; the bf16 operands are the same, so they differ by the
+# f32 summation order, expected ~1e-6 of a tensor's norm; 1e-3 is what a
+# reordering of bf16 tile sums would reach. The tensor-parallel f32 step
+# splits each block's second product and the teacher's step sums two
+# halves: f32 orders, 1e-4 of a tensor's norm.
+PAR_LOSS_RTOL = 1e-5
+PAR_GRAD_TOL = {"fused": 1e-3, "f32": 1e-4}
+PAR_TEACHER_CFG = dict(n_samples=8, n_importance=4, perturb=True, use_viewdirs=True,
+                       ndc=True, near=0.0, far=1.0)
+PAR_KERNELS = ("r2l_forward_fused", "r2l_forward_int8", "r2l_train_fwd", "r2l_train_bwd",
+               "r2l_train_wgrad")
+
+
+def _par_r2l(sd, dtype, use_residual, dev):
+    from efficient_nerf_tpu_torch.models import R2LNet
+
+    m = R2LNet(IN_DIM, DEPTH, WIDTH, use_residual=use_residual, dtype=dtype)
+    m.load_state_dict(sd)
+    return m.to(dev)
+
+
+def _par_step(model, dev, mesh=None, **kw):
+    """The flagship's step (fused Adam, the README's warmup schedule),
+    sharded over `mesh` or direct; returns (state, step)."""
+    import torch
+
+    from efficient_nerf_tpu_torch.parallel import make_sharded_r2l_train_step
+    from efficient_nerf_tpu_torch.train import (init_train_state, make_lr_schedule,
+                                                make_r2l_train_step, parse_warmup)
+
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4, betas=(0.9, 0.999), eps=1e-8,
+                           fused=True)
+    kw = dict(near=NEAR, far=FAR, n_sample=N_SAMPLE, L=L_FREQ, perturb=True,
+              schedule=make_lr_schedule(5e-4, 500, parse_warmup("0.0001,200")), **kw)
+    step = (make_r2l_train_step(model, opt, device=dev, **kw)
+            if mesh is None else make_sharded_r2l_train_step(model, opt, mesh, **kw))
+    return init_train_state(model, opt), step
+
+
+def _par_teacher(spec, dev, mesh=None):
+    """Dryrun stage 4's teacher pair (f32) and its step; returns (models,
+    state, step)."""
+    import torch
+
+    from efficient_nerf_tpu_torch.models import NeRFMLP
+    from efficient_nerf_tpu_torch.parallel import make_sharded_teacher_train_step
+    from efficient_nerf_tpu_torch.render import RenderConfig
+    from efficient_nerf_tpu_torch.train import init_train_state, make_teacher_train_step
+
+    models = {}
+    for k, sd in spec["teacher"].items():
+        models[k] = NeRFMLP(depth=2, width=32)
+        models[k].load_state_dict(sd)
+        models[k].to(dev)
+    opt = torch.optim.Adam([p for m in models.values() for p in m.parameters()],
+                           lr=5e-4, betas=(0.9, 0.999), eps=1e-8)
+    cfg = RenderConfig(**PAR_TEACHER_CFG)
+    step = (make_teacher_train_step(models["coarse"], models["fine"], opt, cfg,
+                                    hwf=PAR_TEACHER_HWF, device=dev) if mesh is None
+            else make_sharded_teacher_train_step(models["coarse"], models["fine"], opt,
+                                                 mesh, cfg, hwf=PAR_TEACHER_HWF))
+    return models, init_train_state(torch.nn.ModuleDict(models), opt), step
+
+
+def _named_grads(named):
+    return {k: p.grad.detach().float().clone() for k, p in named}
+
+
+def _grad_gap(got, want):
+    """max over tensors of ||got - want|| / ||want||, and where."""
+    gaps = {k: ((got[k].float() - w).norm() / w.norm().clamp_min(1e-30)).item()
+            for k, w in want.items()}
+    k = max(gaps, key=gaps.get)
+    return gaps[k], k
+
+
+def _par_launches():
+    """The launch counters of the kernels on the parallel path."""
+    from efficient_nerf_tpu_torch.ops import r2l_forward, r2l_int8, r2l_train
+
+    return dict(zip(PAR_KERNELS, (
+        r2l_forward.r2l_forward_fused.launches, r2l_int8.r2l_forward_int8.launches,
+        r2l_train.r2l_train_fwd.launches, r2l_train.r2l_train_bwd_act.launches,
+        r2l_train.r2l_train_wgrad.launches)))
+
+
+def _par_run(torch, fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after; returns (result, wall seconds, launches)."""
+    torch.cuda.synchronize()
+    for f in _kernel_fns():
+        f.launches = 0
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, _par_launches()
+
+
+def _par_rank(rank: int, world: int, tmp: str) -> None:
+    """One gloo rank on the spec's device (cuda:0), in a process of its own:
+    the four stages on this rank's rows; what they return goes to
+    out_<rank>.pt in tmp."""
+    import os
+
+    import torch
+
+    from efficient_nerf_tpu_torch import parallel as par
+    from efficient_nerf_tpu_torch.parallel.mesh import gather_tp
+    from efficient_nerf_tpu_torch.train import hard_pool_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(os.path.join(tmp, "spec.pt"), weights_only=False)
+    dev = torch.device(spec["device"])
+    par.initialize_distributed(init_method="file://" + os.path.join(tmp, "store"),
+                               world_size=world, rank=rank, backend="gloo", device=dev)
+    out = {}
+    dp = par.make_mesh(n_data=world, device=dev)
+
+    # 1. data x 2: the flagship's fused step, TRAIN_BATCH / 2 rows a rank
+    model = _par_r2l(spec["sd"], torch.bfloat16, True, dev)
+    state, step = _par_step(model, dev, dp, hard=TRAIN_HARD)
+    state, pool = par.replicate_state(dp, state, hard_pool_init(TRAIN_POOL, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    batch = par.shard_batch(dp, *spec["batch"])
+    (state, pool, m), wall, launches = _par_run(torch, lambda: step(state, pool, gen, *batch))
+    out["dp"] = {"loss": m["loss_rgb"].item(), "grads": _named_grads(model.named_parameters()),
+                 "pool": pool.rays.cpu(), "count": pool.count, "rows": batch[0].shape[0],
+                 "seconds": wall, "launches": launches}
+    del model, state, step, pool
+
+    # 2. model x 2: the f32 flagship's tensor-parallel step, unfused
+    tp = par.make_mesh(n_data=1, n_model=world, device=dev)
+    model = par.shard_params_tp(tp, _par_r2l(spec["sd"], torch.float32, True, dev))
+    state, step = _par_step(model, dev, tp)
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    rows = par.shard_batch(tp, *(a[:PAR_TP_ROWS] for a in spec["batch"]))
+    (state, _, m), wall, launches = _par_run(torch, lambda: step(state, None, gen, *rows))
+    out["tp"] = {"loss": m["loss_rgb"].item(), "seconds": wall, "launches": launches,
+                 "grads": gather_tp(tp, {k: p.grad for k, p in model.named_parameters()}),
+                 "width": model.head[0].weight.shape[0]}
+    del model, state, step
+
+    # 3. sharded serving of a 400x400 frame, bf16 (kernel 1) and int8 (kernel 4)
+    model = _par_r2l(spec["sd"], torch.float32, False, dev).eval()  # as the main phase serves
+    fo, fd = par.shard_batch(dp, *spec["frame"])
+    for quant in ("", "int8"):
+        fn = par.make_sharded_r2l_forward(model, dp, near=NEAR, far=FAR, n_sample=N_SAMPLE,
+                                          L=L_FREQ, quant=quant,
+                                          act_scales=spec["scales"].to(dev) if quant else None)
+        fn(fo, fd)                                                  # warm-up
+        local, wall, launches = _par_run(torch, lambda: fn(fo, fd))
+        out[f"serve{quant}"] = {"rgb": par.gather_batch(dp, local).cpu(), "seconds": wall,
+                                "launches": launches, "rows": local.shape[0]}
+
+    # 4. dryrun stage 4: the NDC teacher's step sharded over 'data'
+    models, state, step = _par_teacher(spec, dev, dp)
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    tb = par.shard_batch(dp, *spec["teacher_batch"])
+    (state, m), wall, launches = _par_run(torch, lambda: step(state, gen, *tb))
+    out["teacher"] = {"loss": m["loss"].item(), "seconds": wall, "launches": launches,
+                      "grads": _named_grads((f"{k}.{n}", p) for k, mm in models.items()
+                                            for n, p in mm.named_parameters())}
+    torch.distributed.destroy_process_group()
+    torch.save(out, os.path.join(tmp, f"out_{rank}.pt"))
+
+
+def _par_spawn(torch, tmp: str, world: int = 2):
+    """Runs _par_rank in `world` spawned processes; a rank that raises or a
+    group that outlasts PAR_RANK_TIMEOUT fails the run. Returns each rank's
+    results and the wall seconds."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_par_rank, args=(world, tmp), nprocs=world, join=False,
+                             start_method="spawn")
+    try:
+        while not ctx.join(timeout=max(1.0, PAR_RANK_TIMEOUT - (time.perf_counter() - t0))):
+            if time.perf_counter() - t0 > PAR_RANK_TIMEOUT:
+                fail(f"parallel: the gloo ranks ran past {PAR_RANK_TIMEOUT} s")
+    except mp.ProcessRaisedException as e:
+        fail(f"parallel: a gloo rank raised:\n{e}")
+    except mp.ProcessExitedException as e:
+        fail(f"parallel: a gloo rank died: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+    wall = time.perf_counter() - t0
+    return [torch.load(f"{tmp}/out_{r}.pt", weights_only=False) for r in range(world)], wall
+
+
+def phase_parallel(sm: Smoke) -> None:
+    import os
+
+    import torch.distributed as dist
+
+    from efficient_nerf_tpu_torch import parallel as par
+    from efficient_nerf_tpu_torch.core.poses import pose_spherical
+    from efficient_nerf_tpu_torch.core.rays import get_rays
+    from efficient_nerf_tpu_torch.models import NeRFMLP
+    from efficient_nerf_tpu_torch.ops import _build
+    from efficient_nerf_tpu_torch.parallel.mesh import all_reduce_bucket
+    from efficient_nerf_tpu_torch.render import calibrate_serving_scales, r2l_forward_rays
+    from efficient_nerf_tpu_torch.train import hard_pool_init
+
+    torch, dev = sm.torch, sm.dev
+    _build.build_all()                # the ranks load what is built, never build
+    torch.cuda.empty_cache()
+    # the README command's batch: random rays of 4 frames, targets from a
+    # second R2L of another seed through the served path
+    rays = [get_rays(FRAME_H, FRAME_W, FOCAL, pose_spherical(t, -30.0, 4.0)[:3, :4],
+                     device=dev) for t in (-180.0, -90.0, 0.0, 90.0)]
+    all_o = torch.cat([o.reshape(-1, 3) for o, _ in rays])
+    all_d = torch.cat([d.reshape(-1, 3) for _, d in rays])
+    pick = torch.randint(0, all_o.shape[0], (TRAIN_BATCH,), generator=sm.gen, device=dev)
+    target = r2l_forward_rays(sm.model(random_state_dict(sm.seed + 1, torch)).eval(),
+                              all_o[pick], all_d[pick], NEAR, FAR, N_SAMPLE, L_FREQ, device=dev)
+    batch = (all_o[pick].contiguous(), all_d[pick].contiguous(), target.contiguous())
+    fo = sm.rays[0][0].reshape(-1, 3).contiguous()
+    fd = sm.rays[0][1].reshape(-1, 3).contiguous()
+    serve = sm.model(sm.sd).eval()
+    scales = calibrate_serving_scales(serve, fo[:INT8_CAL], fd[:INT8_CAL], NEAR, FAR,
+                                      N_SAMPLE, L_FREQ, device=dev)
+    torch.manual_seed(sm.seed)
+    teacher = {k: NeRFMLP(depth=2, width=32).state_dict() for k in ("coarse", "fine")}
+    to, td = get_rays(*PAR_TEACHER_HWF, torch.cat([torch.eye(3), torch.tensor(
+        [[0.1], [0.2], [0.3]])], 1), device=dev)
+    to, td = to.reshape(-1, 3), td.reshape(-1, 3)
+    tt = torch.rand(to.shape, generator=sm.gen, device=dev)
+    spec = {"device": str(dev), "seed": sm.seed + 7, "sd": sm.sd, "scales": scales.cpu(), "teacher": teacher,
+            "batch": tuple(a.cpu() for a in batch), "frame": (fo.cpu(), fd.cpu()),
+            "teacher_batch": (to.cpu(), td.cpu(), tt.cpu())}
+
+    # ---- (a) one NCCL rank: the sharded flagship step against the direct
+    # step, the same weights, batch and generator seed
+    with tempfile.TemporaryDirectory() as tmp:
+        par.initialize_distributed(init_method="file://" + os.path.join(tmp, "store"),
+                                   world_size=1, rank=0, device=dev)
+        try:
+            mesh = par.make_mesh(n_data=1, device=dev)
+            runs = {}
+            for label, m in (("direct", None), ("sharded", mesh)):
+                model = _par_r2l(sm.sd, torch.bfloat16, True, dev)
+                state, step = _par_step(model, dev, m, hard=TRAIN_HARD)
+                pool = hard_pool_init(TRAIN_POOL, device=dev)
+                gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+                (state, pool, met), wall, launches = _par_run(
+                    torch, lambda: step(state, pool, gen, *batch))
+                runs[label] = {"loss": met["loss_rgb"].item(), "pool": pool.rays.clone(),
+                               "grads": _named_grads(model.named_parameters()),
+                               "weights": {k: v.clone() for k, v in model.state_dict().items()},
+                               "launches": launches, "step": (state, pool, gen, step)}
+            d_run, s_run = runs["direct"], runs["sharded"]
+            gap, gap_at = _grad_gap(s_run["grads"], d_run["grads"])
+            same = (d_run["loss"] == s_run["loss"] and torch.equal(d_run["pool"], s_run["pool"])
+                    and all(torch.equal(v, s_run["weights"][k])
+                            for k, v in d_run["weights"].items()))
+            # times in turns: direct, sharded, sharded, direct
+            ms = {"direct": [], "sharded": []}
+            for label in ("direct", "sharded", "sharded", "direct"):
+                st, pl, gn, fn = runs[label]["step"]
+                ms[label].append(cuda_ms(torch, lambda: fn(st, pl, gn, *batch), 5, warmup=1))
+            rows = torch.cat(batch, -1)
+            grads = list(d_run["grads"].values())
+            mse = torch.rand(TRAIN_BATCH + TRAIN_HARD[1], device=dev)
+            coll = {"gather the batch": cuda_ms(torch, lambda: par.gather_batch(mesh, rows), 20),
+                    "all_reduce the bucket": cuda_ms(
+                        torch, lambda: all_reduce_bucket(mesh, grads), 20),
+                    "gather per_ray_mse": cuda_ms(torch, lambda: par.gather_batch(mesh, mse), 20)}
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            cat_ms = cuda_ms(torch, lambda: torch.cat([g.reshape(-1) for g in grads]), 20)
+            nccl_ms = cuda_ms(torch, lambda: dist.all_reduce(flat, group=mesh.group("data")), 20)
+        finally:
+            dist.destroy_process_group()
+    step_ms = {k: sum(v) / len(v) for k, v in ms.items()}
+    n_bucket = sum(g.numel() for g in grads) + 2
+    print(f"parallel (a): one NCCL rank, make_mesh(n_data=1), the flagship's sharded step "
+          f"at {TRAIN_BATCH} + {TRAIN_HARD[1]} rows, pool {TRAIN_POOL}, against the direct "
+          f"step from the same weights, batch and seed: loss {s_run['loss']:.7f} vs "
+          f"{d_run['loss']:.7f}, gradients {gap:.3g} in norm ({gap_at}), pool rows equal "
+          f"{torch.equal(d_run['pool'], s_run['pool'])}, bit for bit {same}; launches "
+          f"sharded {s_run['launches']}, direct {d_run['launches']}", flush=True)
+    print(f"parallel (a): ms a step (CUDA events, 5 steps, in turns direct, sharded, "
+          f"sharded, direct): direct {ms['direct']}, sharded {ms['sharded']}; means "
+          f"{step_ms['direct']:.3f} and {step_ms['sharded']:.3f} ms; the collectives alone: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in coll.items())
+          + f" (bucket {n_bucket} floats, {4 * n_bucket / 1e6:.1f} MB: its torch.cat "
+          f"{cat_ms:.3f} ms, the NCCL all_reduce alone {nccl_ms:.3f} ms): "
+          f"{100 * sum(coll.values()) / step_ms['sharded']:.2f}% of the sharded step "
+          f"({sm.gpu})", flush=True)
+    if not abs(s_run["loss"] - d_run["loss"]) <= PAR_LOSS_RTOL * abs(d_run["loss"]):
+        fail(f"parallel (a): the sharded loss {s_run['loss']} differs from the direct "
+             f"{d_run['loss']}")
+    if not gap <= PAR_GRAD_TOL["fused"] or not torch.equal(d_run["pool"], s_run["pool"]):
+        fail(f"parallel (a): the sharded step's gradients differ by {gap:.3g} ({gap_at}) "
+             f"or its pool differs from the direct step's")
+    for k in ("r2l_train_fwd", "r2l_train_bwd", "r2l_train_wgrad"):
+        if s_run["launches"][k] != 1:
+            fail(f"parallel (a): the sharded step launched {k} {s_run['launches'][k]} times")
+    nccl_launches = s_run["launches"]
+    del runs, d_run, s_run, grads, flat
+    torch.cuda.empty_cache()
+
+    # ---- (b) two gloo ranks on cuda:0: the four dryrun stages
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(spec, os.path.join(tmp, "spec.pt"))
+        ranks, group_s = _par_spawn(torch, tmp)
+
+    # their single-process counterparts, here on the same inputs
+    def single(model, **kw):
+        state, step = _par_step(model, dev, **kw)
+        gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+        return step, state, gen
+
+    model = _par_r2l(sm.sd, torch.bfloat16, True, dev)
+    step, state, gen = single(model, hard=TRAIN_HARD)
+    pool = hard_pool_init(TRAIN_POOL, device=dev)
+    _, pool, met = step(state, pool, gen, *batch)
+    ref_dp = {"loss": met["loss_rgb"].item(), "pool": pool.rays.cpu(), "count": pool.count,
+              "grads": _named_grads(model.named_parameters())}
+    model = _par_r2l(sm.sd, torch.float32, True, dev)
+    step, state, gen = single(model, fused=False)
+    _, _, met = step(state, None, gen, *(a[:PAR_TP_ROWS] for a in batch))
+    ref_tp = {"loss": met["loss_rgb"].item(), "grads": _named_grads(model.named_parameters())}
+    ref_serve = {q: r2l_forward_rays(serve, fo, fd, NEAR, FAR, N_SAMPLE, L_FREQ, quant=q,
+                                     act_scales=scales if q else None, device=dev).cpu()
+                 for q in ("", "int8")}
+    models, state, step = _par_teacher(spec, dev)
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    _, met = step(state, gen, to, td, tt)
+    ref_t = {"loss": met["loss"].item(),
+             "grads": _named_grads((f"{k}.{n}", p) for k, mm in models.items()
+                                   for n, p in mm.named_parameters())}
+    del model, step, state
+
+    problems, stages = [], {}
+    for r, res in enumerate(ranks):
+        dpr, tpr, tr = res["dp"], res["tp"], res["teacher"]
+        gaps = {"dp": _grad_gap(dpr["grads"], ref_dp["grads"]),
+                "tp": _grad_gap(tpr["grads"], ref_tp["grads"]),
+                "teacher": _grad_gap(tr["grads"], ref_t["grads"])}
+        serve_err = {q or "bf16": (res[f"serve{q}"]["rgb"] - ref_serve[q]).abs().max().item()
+                     for q in ("", "int8")}
+        stages[r] = (gaps, serve_err)
+        print(f"parallel (b) rank {r}: 1. data x 2 fused flagship step, {dpr['rows']} batch "
+              f"rows a rank, {(TRAIN_BATCH + TRAIN_HARD[1]) // 2} augmented rows through the "
+              f"kernels: loss {dpr['loss']:.7f} vs single {ref_dp['loss']:.7f}, all-reduced "
+              f"gradients {gaps['dp'][0]:.3g} in norm ({gaps['dp'][1]}), pool rows equal "
+              f"{torch.equal(dpr['pool'], ref_dp['pool'])} (count {dpr['count']}), "
+              f"{dpr['seconds']:.2f} s, launches {dpr['launches']}; 2. model x 2 f32 "
+              f"unfused at {PAR_TP_ROWS} rows (width {tpr['width']} a rank): loss "
+              f"{tpr['loss']:.7f} vs {ref_tp['loss']:.7f}, gradients {gaps['tp'][0]:.3g} "
+              f"({gaps['tp'][1]}), {tpr['seconds']:.2f} s, launches {tpr['launches']}; "
+              f"3. serving {res['serve']['rows']} of {fo.shape[0]} rays, gathered frame vs "
+              f"r2l_forward_rays on the whole frame: bf16 max |diff| {serve_err['bf16']:.3g} "
+              f"({res['serve']['seconds'] * 1e3:.1f} ms, launches {res['serve']['launches']}), "
+              f"int8 {serve_err['int8']:.3g} ({res['serveint8']['seconds'] * 1e3:.1f} ms, "
+              f"launches {res['serveint8']['launches']}); 4. NDC teacher step: loss "
+              f"{tr['loss']:.7f} vs {ref_t['loss']:.7f}, gradients {gaps['teacher'][0]:.3g} "
+              f"({gaps['teacher'][1]}), {tr['seconds']:.2f} s", flush=True)
+        for label, got, want in (("dp", dpr, ref_dp), ("tp", tpr, ref_tp),
+                                 ("teacher", tr, ref_t)):
+            if not abs(got["loss"] - want["loss"]) <= PAR_LOSS_RTOL * abs(want["loss"]):
+                problems.append(f"rank {r} {label} loss {got['loss']} vs {want['loss']}")
+            tol = PAR_GRAD_TOL["fused" if label == "dp" else "f32"]
+            if not gaps[label][0] <= tol:
+                problems.append(f"rank {r} {label} gradients {gaps[label]} (tol {tol})")
+        if not (torch.equal(dpr["pool"], ref_dp["pool"]) and dpr["count"] == ref_dp["count"]):
+            problems.append(f"rank {r}: the pool differs from the single step's")
+        if any(v != 0.0 for v in serve_err.values()):
+            problems.append(f"rank {r}: the sharded frame differs from the whole frame's "
+                            f"{serve_err}")
+        need = {"dp": ("r2l_train_fwd", "r2l_train_bwd", "r2l_train_wgrad"),
+                "serve": ("r2l_forward_fused",), "serveint8": ("r2l_forward_int8",)}
+        for stage, names in need.items():
+            for k in names:
+                if res[stage]["launches"][k] < 1:
+                    problems.append(f"rank {r}: {stage} launched {k} no time")
+    if any(not torch.equal(ranks[0]["dp"]["grads"][k], ranks[1]["dp"]["grads"][k])
+           for k in ref_dp["grads"]):
+        problems.append("the two ranks' all-reduced gradients differ")
+    print(f"parallel (b): two gloo ranks on cuda:0, wall {group_s:.1f} s with the spawn "
+          f"({sm.gpu})", flush=True)
+    if problems:
+        fail("parallel (b): " + "; ".join(problems))
+    # the kernels line: each kernel's launches on this phase's paths, by rank
+    for k in PAR_KERNELS:
+        sm.entries.setdefault(k, {"name": k})["parallel_launches"] = {
+            "nccl_rank0": nccl_launches[k], **{
+                f"gloo_rank{r}": sum(res[s]["launches"][k] for s in
+                                     ("dp", "tp", "serve", "serveint8", "teacher"))
+                for r, res in enumerate(ranks)}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3190,7 +3623,8 @@ def main() -> None:
               phase_kernel_int8, phase_main_int8, phase_train_kernel, phase_train,
               phase_train_mlp, phase_teacher_kernel, phase_teacher, phase_pseudo,
               phase_teacher_int8_kernel, phase_teacher_int8, phase_frame_kernel,
-              phase_teacher_frame, phase_teacher_train, phase_distill, phase_driver)
+              phase_teacher_frame, phase_teacher_train, phase_distill, phase_driver,
+              phase_parallel)
     chosen = [p for p in args.phases.split(",") if p]
     unknown = set(chosen) - {p.__name__[len("phase_"):] for p in phases}
     if unknown:

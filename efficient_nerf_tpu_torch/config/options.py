@@ -183,9 +183,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     # extensions of the JAX package (not in the reference)
     add("--mesh_data", type=int, default=0,
-        help="data-parallel mesh size (parsed, unused: single device)")
+        help="data-parallel mesh size (parsed, unused, as in the JAX driver; "
+             "parallel/ builds meshes)")
     add("--mesh_model", type=int, default=1,
-        help="tensor-parallel mesh size (parsed, unused)")
+        help="tensor-parallel mesh size (parsed, unused, as in the JAX driver)")
     add("--no_pallas", type=_boolish, nargs="?", const=True, default=False,
         help="take the unfused nn.Module paths: no kernel is launched")
     add("--compute_dtype", type=str, default="f32", choices=["f32", "bf16"],

@@ -257,7 +257,7 @@ def _field(model, rays_o, rays_d, z_vals, viewdirs, cfg: RenderConfig,
 
 def render_rays(model, model_fine, rays_o: torch.Tensor, rays_d: torch.Tensor,
                 viewdirs: Optional[torch.Tensor], cfg: RenderConfig, near=None,
-                far=None, t_rand=None, u=None, noise=None,
+                far=None, t_rand=None, u=None, noise=None, noise_fine=None,
                 generator: Optional[torch.Generator] = None) -> RenderResult:
     """Render rays [N, 3] through the coarse and fine fields, on the rays'
     device (the models must be there too).
@@ -266,7 +266,9 @@ def render_rays(model, model_fine, rays_o: torch.Tensor, rays_d: torch.Tensor,
     the config (scalars or per-ray [N, 1]). t_rand [N, n_samples], u [N,
     n_importance] and noise [N, n_samples] are the determinism hooks; noise
     is the coarse pass's sigma noise, as in the JAX package (the fine pass
-    draws its own from `generator` when raw_noise_std > 0).
+    draws its own from `generator` when raw_noise_std > 0, or takes
+    noise_fine [N, n_samples + n_importance], which the sharded teacher step
+    hands in: its rows of the global batch's draws).
 
     The unfused path is differentiable in the models' parameters (the fine
     depths are detached, as the JAX package stops their gradient); a kernel
@@ -316,7 +318,7 @@ def render_rays(model, model_fine, rays_o: torch.Tensor, rays_d: torch.Tensor,
     fused_f = _nerf_profile_ok(model_f, cfg)
     raw = _field(model_f, rays_o, rays_d, z_all, viewdirs, cfg, fused_f)
     fine = raw2outputs(raw, z_all, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
-                       generator=generator)
+                       noise=noise_fine, generator=generator)
     z_std = torch.std(z_samples, dim=-1, correction=0)  # jnp.std's ddof 0
     return RenderResult(fine.rgb, fine.disp, fine.acc, fine.depth,
                         coarse.rgb, coarse.disp, coarse.acc, z_std)

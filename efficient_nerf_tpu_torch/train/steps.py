@@ -14,8 +14,15 @@ name the same objects.
 On a CUDA device the flagship profile goes through the fused training
 kernels (`ops.r2l_train_apply`, csrc/r2l_train.cu); on the CPU the unfused
 `R2LNet` autograd path runs, as the JAX package takes XLA off the TPU.
-`mesh` and `interpret` are not ported: multi-GPU training is ROADMAP queue
-1 item 8, and the kernels' plain versions take interpret mode's place.
+`interpret` is not ported: on CPU tensors the kernels' plain versions take
+interpret mode's place.
+
+`mesh` (a `parallel.Mesh`) runs the R2L and the teacher step over the ranks
+of a process group and computes the single step on the global batch, as
+GSPMD gives the JAX package: every rank draws the global batch's random
+numbers from a generator seeded alike, computes the loss's share of its
+rows, and the gradients and losses are summed over 'data' in one all_reduce
+before Adam. Without a mesh the same code runs with no collective.
 
 The teacher's step runs `render.render_rays` under autograd on its unfused
 path (`nerf_embed` -> `NeRFMLP`, cuBLAS products on the card): the JAX
@@ -32,6 +39,7 @@ import torch
 from ..core.encoding import ray_embed
 from ..core.ray_sampler import sample_patch_points, sample_ray_points
 from ..core.rays import ndc_rays, plucker_rays
+from ..core.sampling import sorted_uniform
 from ..device import DeviceLike, resolve_device
 from ..ops import fused_r2l_train_available
 from ..ops.r2l_train import r2l_train_apply, train_profile_eligible
@@ -75,6 +83,18 @@ def _set_lr(optimizer: torch.optim.Optimizer, schedule, step: int) -> None:
             group["lr"] = lr
 
 
+def _rank_rows(mesh, n: int) -> Tuple[int, int]:
+    """This rank's rows [lo, hi) of n global rows: the block of its data
+    coordinate, as JAX's P("data") places them (all n without a mesh)."""
+    if mesh is None:
+        return 0, n
+    if n % mesh.n_data:
+        raise ValueError(f"{n} rows a step do not divide over {mesh.n_data} "
+                         "data ranks")
+    k = n // mesh.n_data
+    return mesh.data_index * k, (mesh.data_index + 1) * k
+
+
 def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
                         near: float, far: float, n_sample: int, L: int = 10,
                         perturb: bool = True, lw_rgb: float = 1.0,
@@ -83,7 +103,7 @@ def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
                         hard: Optional[Tuple[int, int]] = None,
                         fast_embed: bool = True, fused: Optional[bool] = None,
                         schedule: Optional[Callable[[int], float]] = None,
-                        device: DeviceLike = None):
+                        device: DeviceLike = None, mesh=None):
     """Build the R2L distillation step.
 
     step(state, pool, generator, rays_o, rays_d, target, noise=None) ->
@@ -115,9 +135,33 @@ def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
     noise: an optional dict with 't_rand' [B_aug, n_sample], 'idx_out' and
     'batch_idx' [n_hard_out] that replaces the generator's draws, so that a
     test can feed the JAX step's own random numbers.
+
+    mesh: a `parallel.Mesh`, the counterpart of the JAX step's mesh
+    argument (steps.py:57, :112-123). The step then takes
+    this rank's rows of the batch (`parallel.shard_batch`), gathers the
+    global [B, 9] rows over 'data', draws from `generator` (seeded alike on
+    every rank) what the single step draws, in its order, on the global
+    shapes (noise, if given, holds global draws), and computes rows [d
+    B_aug / n_data, (d + 1) B_aug / n_data) of the augmented batch: B_aug =
+    B + n_hard_out must divide over 'data' (ValueError). Its loss share is
+    sum(per_ray_mse) / B_aug, so that the sum over 'data' of the gradients
+    and losses, one all_reduce of one flat bucket, is the single step's;
+    per_ray_mse is gathered over 'data' and every rank mines the global rows
+    into its replica of the pool. The device must be the mesh's. With
+    n_model > 1 the model holds `parallel.shard_params_tp`'s slices and runs
+    the tensor-parallel forward (`parallel.tp`), unfused: fused=True raises
+    ValueError, as the JAX package pins its XLA path there.
     """
     dev = resolve_device(device)
     _check_device(model, dev)
+    if mesh is not None and mesh.device != dev:
+        raise ValueError(f"the mesh computes on {mesh.device}, the step on {dev}")
+    tp = mesh is not None and mesh.n_model > 1
+    if tp:
+        if fused:
+            raise ValueError("tensor parallelism runs the unfused path: the fused "
+                             "training kernels take whole weights")
+        fused = False
     if fused is None or fused:
         eligible = train_profile_eligible(model)
         if fused and not eligible:
@@ -131,17 +175,26 @@ def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
         # off the card the plain versions run, in any dtype
         fused = eligible and (bool(fused) or on_card)
 
+    if mesh is not None:
+        # imported here: parallel.train imports this module
+        from ..parallel.mesh import all_reduce_bucket, gather_batch
+        from ..parallel.tp import tp_r2l_forward
+
     def forward(pts: torch.Tensor) -> torch.Tensor:
         if fused:
             return r2l_train_apply(model, pts if fast_embed else ray_embed(pts, L),
                                    embed_L=L if fast_embed else 0, need_dx=False)
-        return model(ray_embed(pts, L, fast=fast_embed))
+        x = ray_embed(pts, L, fast=fast_embed)
+        return tp_r2l_forward(model, mesh, x) if tp else model(x)
 
     def step(state: TrainState, pool: Optional[HardPool],
              generator: Optional[torch.Generator], rays_o: torch.Tensor,
              rays_d: torch.Tensor, target: torch.Tensor,
              noise: Optional[Dict[str, torch.Tensor]] = None):
         noise = noise or {}
+        if mesh is not None:
+            rows = gather_batch(mesh, torch.cat([rays_o, rays_d, target], -1))
+            rays_o, rays_d, target = rows[:, :3], rows[:, 3:6], rows[:, 6:]
         batch_size = rays_o.shape[0]
         idx_out = None
         if hard is not None:
@@ -160,13 +213,16 @@ def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
             pts = sample_ray_points(rays_o, rays_d, near, far, n_sample,
                                     perturb=perturb, generator=generator,
                                     t_rand=noise.get("t_rand"))
-        out = forward(pts)
-        per_ray_mse = torch.mean((out[:, :3] - target[:, :3]) ** 2, dim=-1)
-        loss_rgb = torch.mean(per_ray_mse) * lw_rgb
+        lo, hi = _rank_rows(mesh, pts.shape[0])
+        share = (hi - lo) / pts.shape[0]   # 1.0 without a mesh
+        out = forward(pts[lo:hi])
+        tgt = target[lo:hi]
+        per_ray_mse = torch.mean((out[:, :3] - tgt[:, :3]) ** 2, dim=-1)
+        loss_rgb = torch.mean(per_ray_mse) * share * lw_rgb
         loss = loss_rgb
         loss_d = torch.zeros((), device=out.device)
         if learn_depth:
-            loss_d = torch.mean((out[:, 3:] - target[:, 3:]) ** 2)
+            loss_d = torch.mean((out[:, 3:] - tgt[:, 3:]) ** 2) * share
             loss = loss + loss_d * lw_depth
 
         # the gradients go to the optimizer as autograd returns them: the
@@ -174,18 +230,22 @@ def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
         # where backward() would copy each into .grad
         params = [p for group in optimizer.param_groups for p in group["params"]]
         grads = torch.autograd.grad(loss, params, allow_unused=True)
+        loss_rgb, loss_d = loss_rgb.detach(), loss_d.detach()
+        if mesh is not None:
+            *grads, loss_rgb, loss_d = all_reduce_bucket(mesh, [*grads, loss_rgb, loss_d])
         for p, g in zip(params, grads):
             p.grad = g
         _set_lr(optimizer, schedule, state.step)
         optimizer.step()
 
         if hard is not None:
+            if mesh is not None:
+                per_ray_mse = gather_batch(mesh, per_ray_mse.detach())
             rows_aug = torch.cat([rays_o, rays_d, target], -1)
             pool = update_hard_pool(pool, rows_aug, per_ray_mse, idx_out,
                                     hard[0], batch_size)
 
-        loss_rgb = loss_rgb.detach()
-        metrics = {"loss_rgb": loss_rgb, "loss_depth": loss_d.detach(),
+        metrics = {"loss_rgb": loss_rgb, "loss_depth": loss_d,
                    "psnr": mse_to_psnr(loss_rgb / lw_rgb)}
         return state._replace(step=state.step + 1), pool, metrics
 
@@ -240,7 +300,7 @@ def make_teacher_train_step(model, model_fine, optimizer: torch.optim.Optimizer,
                             cfg: RenderConfig,
                             hwf: Optional[Tuple[int, int, float]] = None,
                             schedule: Optional[Callable[[int], float]] = None,
-                            device: DeviceLike = None):
+                            device: DeviceLike = None, mesh=None):
     """Build the NeRF teacher's step (coarse + fine MSE losses).
 
     step(state, generator, rays_o, rays_d, target, noise=None) ->
@@ -267,8 +327,20 @@ def make_teacher_train_step(model, model_fine, optimizer: torch.optim.Optimizer,
     dict with 't_rand' [B, n_samples], 'u' [B, n_importance] and 'noise'
     [B, n_samples] (the coarse pass's sigma noise), replaces those draws
     through render_rays' hooks, so that a test can feed the JAX step's own
-    random numbers. The fine pass's sigma noise (raw_noise_std > 0) always
-    comes from `generator`.
+    random numbers. The fine pass's sigma noise (raw_noise_std > 0) comes
+    from `generator` unless noise holds 'noise_fine' [B, n_samples +
+    n_importance].
+
+    mesh: a `parallel.Mesh` with n_model 1 (ValueError otherwise). The
+    rays are then this rank's rows of a global batch of n_data times as
+    many; the step draws the global batch's t_rand, sigma noise and u from
+    `generator` (seeded alike on every rank) in the single step's order and
+    shapes, or takes them from noise (global draws, the fine pass's as
+    'noise_fine'), and renders its rows of them (with u handed in,
+    render_rays sorts the merged depths instead of its bitonic merge: the
+    same values). Each mean is scaled by
+    1 / n_data, and the gradients and the losses are summed over 'data' in
+    one all_reduce before Adam: the single step's on the global batch.
     """
     dev = resolve_device(device)
     for m in (model,) if model_fine is None else (model, model_fine):
@@ -277,11 +349,39 @@ def make_teacher_train_step(model, model_fine, optimizer: torch.optim.Optimizer,
         raise ValueError("cfg.ndc requires hwf=(H, W, focal) so the step "
                          "can project raw rays itself")
     has_fine = cfg.n_importance > 0
+    if mesh is not None:
+        if mesh.n_model > 1 or mesh.device != dev:
+            raise ValueError(f"the teacher step shards over 'data' on its own "
+                             f"device: mesh {mesh.shape} on {mesh.device}, step on {dev}")
+        from ..parallel.mesh import all_reduce_bucket
+
+    def global_draws(n: int, generator, noise):
+        """The single step's draws on n rays, in its order: t_rand
+        (stratify_zvals), the coarse sigma noise (raw2outputs), u
+        (sample_pdf's sorted_uniform) and the fine sigma noise."""
+        S, n_imp, std = cfg.n_samples, cfg.n_importance, cfg.raw_noise_std
+        noise = dict(noise)
+        if cfg.perturb and "t_rand" not in noise:
+            noise["t_rand"] = torch.rand((n, S), generator=generator, device=dev)
+        if std > 0.0 and "noise" not in noise:
+            noise["noise"] = torch.randn((n, S), generator=generator, device=dev) * std
+        if has_fine and cfg.perturb and "u" not in noise:
+            noise["u"] = sorted_uniform((n, n_imp), generator, device=dev)
+        if has_fine and std > 0.0 and "noise_fine" not in noise:
+            noise["noise_fine"] = torch.randn((n, S + n_imp), generator=generator,
+                                              device=dev) * std
+        return noise
 
     def step(state: TrainState, generator: Optional[torch.Generator],
              rays_o: torch.Tensor, rays_d: torch.Tensor, target: torch.Tensor,
              noise: Optional[Dict[str, torch.Tensor]] = None):
         noise = noise or {}
+        share = 1.0
+        if mesh is not None:
+            lo, hi = _rank_rows(mesh, rays_o.shape[0] * mesh.n_data)
+            noise = {k: v[lo:hi] for k, v in
+                     global_draws(rays_o.shape[0] * mesh.n_data, generator, noise).items()}
+            share = 1.0 / mesh.n_data
         viewdirs = None
         if cfg.use_viewdirs:
             viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
@@ -291,16 +391,24 @@ def make_teacher_train_step(model, model_fine, optimizer: torch.optim.Optimizer,
             ro, rd = ndc_rays(H, W, focal, 1.0, ro, rd)
         res = render_rays(model, model_fine, ro, rd, viewdirs, cfg,
                           t_rand=noise.get("t_rand"), u=noise.get("u"),
-                          noise=noise.get("noise"), generator=generator)
-        loss_fine = torch.mean((res.rgb - target) ** 2)
+                          noise=noise.get("noise"), noise_fine=noise.get("noise_fine"),
+                          generator=generator)
+        loss_fine = torch.mean((res.rgb - target) ** 2) * share
         loss = loss_fine
         if has_fine:
-            loss = loss + torch.mean((res.rgb0 - target) ** 2)
+            loss = loss + torch.mean((res.rgb0 - target) ** 2) * share
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss, loss_fine = loss.detach(), loss_fine.detach()
+        if mesh is not None:
+            params = [p for group in optimizer.param_groups for p in group["params"]]
+            *grads, loss, loss_fine = all_reduce_bucket(
+                mesh, [p.grad for p in params] + [loss, loss_fine])
+            for p, g in zip(params, grads):
+                p.grad = g
         _set_lr(optimizer, schedule, state.step)
         optimizer.step()
-        metrics = {"loss": loss.detach(), "psnr": mse_to_psnr(loss_fine.detach())}
+        metrics = {"loss": loss, "psnr": mse_to_psnr(loss_fine)}
         return state._replace(step=state.step + 1), metrics
 
     return step

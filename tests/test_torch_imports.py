@@ -16,7 +16,8 @@ def test_every_port_module_imports_without_jax():
     for needed in ("main", "create_data", "factory", "evaluate", "config.options",
                    "config.gen_scene_configs", "train.checkpoints", "utils.logging",
                    "utils.meters", "utils.images", "utils.debug", "utils.profiling",
-                   "utils.benchmark", "utils.visualize"):
+                   "utils.benchmark", "utils.visualize", "parallel", "parallel.mesh",
+                   "parallel.tp", "parallel.train", "parallel.render"):
         assert f"efficient_nerf_tpu_torch.{needed}" in names, needed
     code = ("import importlib, sys\n"
             "for m in ('jax', 'jaxlib', 'flax', 'optax', 'efficient_nerf_tpu'):\n"
