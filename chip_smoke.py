@@ -184,7 +184,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 2 once a step); from the flagship's checkpoint --render_only
                 --render_test, --benchmark (bf16, --inference_quant int8,
                 --no_pallas: no kernel launch) and --convert_to_onnx (the
-                reloaded torch.export program against eager); create_data
+                reloaded torch.export program against eager); the
+                flagship's weights re-saved in the reference's .tar layout
+                (the whole module pickled under network_fn, its classes in a
+                module that exists only while saving): the read time of
+                that file beside the plain ckpt.tar's, then --render_only
+                --render_test (r2l_forward_fused; PSNR/SSIM equal to the
+                plain checkpoint's) and --benchmark --inference_quant int8
+                (r2l_forward_int8) from it, and the stub's module absent
+                from sys.modules after; create_data
                 16x16patches (2 poses) and the conv student (resblock, BN,
                 3x3) for 10 steps, then its --render_only --render_test.
                 Each command's wall seconds and kernel launches (counters set
@@ -213,7 +221,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 rank that runs it (counters set to 0 just before each
                 stage and read just after); wall times only: gloo stages
                 CUDA tensors through the host. The kernels line carries
-                each rank's launches as "parallel_launches".
+                each rank's launches as "parallel_launches". The batch
+                comes from the phase's own generator, seeded from --seed,
+                so its figures repeat whichever phases ran before it.
 Before the last line it prints the card's name and power limit (nvidia-smi)
 and one JSON line {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. --phases runs the named phases only (each
@@ -3039,9 +3049,53 @@ def _drv_test(text: str):
     return (float(m[-1][0]), float(m[-1][1])) if m else None
 
 
+def _reference_tar(torch, src: str, dst: str, module: str) -> None:
+    """Re-save the resmlp student of the port checkpoint `src` in the
+    reference's R2L layout (main.py:1516-1542): global_step, the state_dict
+    and the optimizer's beside the whole module pickled under network_fn.
+    Its classes belong to `module`, which is in sys.modules only while
+    saving, as the reference's own classes are to a reader of its files."""
+    import sys
+    import types
+
+    from efficient_nerf_tpu_torch.train import load_checkpoint
+
+    nn = torch.nn
+
+    class ResBlock(nn.Module):
+        def __init__(self, w):
+            super().__init__()
+            self.body = nn.Sequential(nn.Linear(w, w), nn.ReLU(), nn.Linear(w, w))
+
+    class NeRF_v3_2(nn.Module):
+        def __init__(self, in_dim, w, n_block):
+            super().__init__()
+            self.head = nn.Sequential(nn.Linear(in_dim, w), nn.ReLU())
+            self.body = nn.Sequential(*[ResBlock(w) for _ in range(n_block)])
+            self.tail = nn.Sequential(nn.Linear(w, 3), nn.Sigmoid())
+
+    fake = types.ModuleType(module)
+    for cls in (ResBlock, NeRF_v3_2):
+        cls.__module__, cls.__qualname__ = module, cls.__name__
+        setattr(fake, cls.__name__, cls)
+    ckpt = load_checkpoint(src)
+    sd = ckpt["network_fn_state_dict"]
+    n_block = sum(1 for k in sd if k.endswith(".body.0.weight"))
+    net = NeRF_v3_2(sd["head.0.weight"].shape[1], sd["head.0.weight"].shape[0], n_block)
+    net.load_state_dict(sd)
+    sys.modules[module] = fake
+    try:
+        torch.save({"global_step": ckpt["global_step"], "network_fn_state_dict": net.state_dict(),
+                    "network_fn": net, "optimizer_state_dict": ckpt["optimizer_state_dict"]},
+                   dst)
+    finally:
+        del sys.modules[module]
+
+
 def phase_driver(sm: Smoke) -> None:
     import glob
     import os
+    import sys
 
     from efficient_nerf_tpu_torch import create_data, main
     from efficient_nerf_tpu_torch.config.options import SCENES_DIR
@@ -3175,6 +3229,41 @@ def phase_driver(sm: Smoke) -> None:
               f"{bench['no_pallas'][0]:.3f} ms; --render_only --render_test PSNR / SSIM "
               f"{rt['test_psnr']:.2f} dB / {rt['test_ssim']:.4f}; export verified at {path}",
               flush=True)
+
+        # ---- 4b. the flagship from a reference-layout .tar (pickled module)
+        from efficient_nerf_tpu_torch.train import load_checkpoint
+
+        ref_tar, stub_module = os.path.join(tmp, "reference.tar"), "reference_r2l_models"
+        _reference_tar(torch, weights("flag"), ref_tar, stub_module)
+        read_ms = {}
+        for label, file in (("ckpt.tar", weights("flag")), ("reference .tar", ref_tar)):
+            t0 = time.perf_counter()
+            load_checkpoint(file)
+            read_ms[label] = (time.perf_counter() - t0) * 1e3
+        ref_args = noview + DRV_STUDENT + DRV_FLAGSHIP + ["--pretrained_ckpt", ref_tar]
+        rrt, rrl, _ = _drv_run(sm, "flagship --render_only --render_test (reference .tar)",
+                               main.main, flags("ref_rt", *ref_args, "--render_only",
+                                                "--render_test"), log)
+        rdt, rbl, _ = _drv_run(sm, "flagship --benchmark --inference_quant int8 (reference .tar)",
+                               main.main, flags("ref_bench", *ref_args, "--benchmark",
+                                                "--inference_quant", "int8"), log)
+        if not rrl["r2l_forward_fused"]:
+            fail(f"driver: the reference .tar's render launched r2l_forward_fused no time: {rrl}")
+        if not rbl["r2l_forward_int8"]:
+            fail(f"driver: the reference .tar's int8 benchmark launched r2l_forward_int8 no "
+                 f"time: {rbl}")
+        if (rrt["test_psnr"], rrt["test_ssim"]) != (rt["test_psnr"], rt["test_ssim"]):
+            fail(f"driver: the reference .tar renders PSNR / SSIM {rrt['test_psnr']!r} / "
+                 f"{rrt['test_ssim']!r}, the plain checkpoint {rt['test_psnr']!r} / "
+                 f"{rt['test_ssim']!r}")
+        if stub_module in sys.modules:
+            fail(f"driver: reading the reference .tar imported {stub_module}")
+        print(f"driver: reference .tar ({os.path.getsize(ref_tar) / 2**20:.1f} MiB, module "
+              f"pickled under network_fn) read in {read_ms['reference .tar']:.1f} ms (ckpt.tar "
+              f"{read_ms['ckpt.tar']:.1f} ms); --render_only --render_test PSNR / SSIM "
+              f"{rrt['test_psnr']:.4f} dB / {rrt['test_ssim']:.4f}, equal to ckpt.tar's; "
+              f"--benchmark --inference_quant int8 {rdt * 1e3:.3f} ms a frame (from ckpt.tar "
+              f"{bench['int8'][0]:.3f}); {stub_module} not imported; {sm.gpu}", flush=True)
 
         # ---- 5. the patch modes and the conv student
         n16, _, _ = _drv_run(sm, f"create_data 16x16patches --n_pose_kd {DRV_PATCH_POSES}",
@@ -3433,7 +3522,10 @@ def phase_parallel(sm: Smoke) -> None:
                      device=dev) for t in (-180.0, -90.0, 0.0, 90.0)]
     all_o = torch.cat([o.reshape(-1, 3) for o, _ in rays])
     all_d = torch.cat([d.reshape(-1, 3) for _, d in rays])
-    pick = torch.randint(0, all_o.shape[0], (TRAIN_BATCH,), generator=sm.gen, device=dev)
+    # the phase's own generator, so that its figures repeat whichever
+    # phases ran before it
+    pgen = torch.Generator(device=dev).manual_seed(sm.seed)
+    pick = torch.randint(0, all_o.shape[0], (TRAIN_BATCH,), generator=pgen, device=dev)
     target = r2l_forward_rays(sm.model(random_state_dict(sm.seed + 1, torch)).eval(),
                               all_o[pick], all_d[pick], NEAR, FAR, N_SAMPLE, L_FREQ, device=dev)
     batch = (all_o[pick].contiguous(), all_d[pick].contiguous(), target.contiguous())
@@ -3447,7 +3539,7 @@ def phase_parallel(sm: Smoke) -> None:
     to, td = get_rays(*PAR_TEACHER_HWF, torch.cat([torch.eye(3), torch.tensor(
         [[0.1], [0.2], [0.3]])], 1), device=dev)
     to, td = to.reshape(-1, 3), td.reshape(-1, 3)
-    tt = torch.rand(to.shape, generator=sm.gen, device=dev)
+    tt = torch.rand(to.shape, generator=pgen, device=dev)
     spec = {"device": str(dev), "seed": sm.seed + 7, "sd": sm.sd, "scales": scales.cpu(), "teacher": teacher,
             "batch": tuple(a.cpu() for a in batch), "frame": (fo.cpu(), fd.cpu()),
             "teacher_batch": (to.cpu(), td.cpu(), tt.cpu())}

@@ -6,9 +6,10 @@ parameters stay f32), initialised from a fixed seed without touching the
 process's random state. The optimizer is `torch.optim.Adam` (fused on a
 card) whose lr the train step sets from `train/schedules.py` before each
 update; `--freeze_pretrained` takes an optimizer that updates nothing, as
-`optax.set_to_zero()` does. Checkpoints are the reference `.tar` layout
-(train/checkpoints.py); with `--resume` the step, the best PSNR and the
-Adam state come back. `input_dim`, `flops_per_pixel` and `n_params` are the
+`optax.set_to_zero()` does. --pretrained_ckpt takes the port's `.tar`,
+the reference's (with its pickled module) or the JAX package's ENTPUCK1
+file (train/checkpoints.py); with `--resume` the step, the best PSNR and
+the Adam state come back. `input_dim`, `flops_per_pixel` and `n_params` are the
 JAX package's numbers.
 """
 from __future__ import annotations
@@ -172,7 +173,7 @@ def create_models(args, near: float, far: float, device: DeviceLike = None,
     history = {"start": 0, "best_psnr": 0.0, "best_psnr_step": 0}
     restored_opt_state = None
     if args.pretrained_ckpt:
-        meta = import_reference_checkpoint(args.pretrained_ckpt, model)
+        meta = import_reference_checkpoint(args.pretrained_ckpt, model, optimizer)
         if args.resume:
             history = {"start": meta["step"], "best_psnr": meta["best_psnr"],
                        "best_psnr_step": meta["best_psnr_step"]}

@@ -15,8 +15,10 @@ device draws (perturbed sampling, hard-pool picks, sigma noise) from one
 `torch.Generator` seeded once in `train`. `--no_pallas` is passed down to
 the renderers and steps as the switch that takes their unfused `nn.Module`
 paths (no kernel launch); there is no environment variable. A kernel that
-fails to build or launch raises. Checkpoints are the reference `.tar`
-layout (train/checkpoints.py).
+fails to build or launch raises. Checkpoints are written in the reference
+`.tar` layout; --pretrained_ckpt, --resume and --teacher_ckpt also read the
+reference's own `.tar` and the JAX package's ENTPUCK1 files
+(train/checkpoints.py).
 
 Run: python -m efficient_nerf_tpu_torch.main --config <scene.txt> [flags]
 """

@@ -6,7 +6,8 @@ five convolutions `conv{i}_w` [O, I, kH, kW] and `conv{i}_b`, the linear
 heads `lin{i}_w`, the input `shift` and `scale`). No weights ship with the
 repository and none are fetched, so `lpips_available()` is false until such
 a file is placed at DEFAULT_WEIGHTS_PATH (or EFFICIENT_NERF_TPU_LPIPS_WEIGHTS
-names one). The converter from the pip `lpips` package is not ported.
+names one). `convert_torch_lpips` writes that file from the pip `lpips`
+package's AlexNet LPIPS on a machine that has the package.
 
 Inputs follow the reference convention: NHWC images in [-1, 1].
 """
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["lpips_available", "load_lpips_weights", "lpips",
-           "DEFAULT_WEIGHTS_PATH"]
+           "convert_torch_lpips", "DEFAULT_WEIGHTS_PATH"]
 
 DEFAULT_WEIGHTS_PATH = os.environ.get(
     "EFFICIENT_NERF_TPU_LPIPS_WEIGHTS",
@@ -88,3 +89,28 @@ def lpips(img0: torch.Tensor, img1: torch.Tensor,
         d = torch.clamp_min(lin, 0.0) * d  # lpips keeps the lin weights >= 0
         total = total + torch.mean(torch.sum(d, dim=1), dim=(1, 2))
     return total
+
+
+def convert_torch_lpips(out_path: Optional[str] = None) -> str:
+    """Convert the pip `lpips` package's AlexNet LPIPS to the `.npz` above.
+
+    Run where `pip install lpips` works (the import raises ImportError
+    elsewhere); copy the file next to this module or point
+    EFFICIENT_NERF_TPU_LPIPS_WEIGHTS at it. Returns its path.
+    """
+    import lpips as lpips_pkg  # type: ignore
+
+    net = lpips_pkg.LPIPS(net="alex")
+    sd = {k: v.detach().numpy() for k, v in net.state_dict().items()}
+    out = {}
+    conv_idx = [0, 3, 6, 8, 10]  # torchvision alexnet.features indices
+    for i, ti in enumerate(conv_idx):
+        out[f"conv{i}_w"] = sd[f"net.slice{i + 1}.{ti}.weight"]
+        out[f"conv{i}_b"] = sd[f"net.slice{i + 1}.{ti}.bias"]
+    for i in range(5):
+        out[f"lin{i}_w"] = sd[f"lin{i}.model.1.weight"]
+    out["shift"] = sd["scaling_layer.shift"].reshape(-1)
+    out["scale"] = sd["scaling_layer.scale"].reshape(-1)
+    path = out_path or DEFAULT_WEIGHTS_PATH
+    np.savez(path, **out)
+    return path

@@ -1,7 +1,8 @@
 """The port's create_data driver against the JAX one, from one teacher
 `.tar` on the miniature blender scene (CPU, f32, exact embeds: both take
 their unfused eval path): the rand shards, the image modes' poses and
-frames, and the patch modes' shards; the int8 teacher and --test_teacher."""
+frames, and the patch modes' shards; the int8 teacher and --test_teacher;
+the rand shards from the JAX package's own ENTPUCK1 teacher file."""
 import json
 import os
 
@@ -68,6 +69,20 @@ def test_rand_shards_match_jax(blender_dir, tmp_path, teacher):
                                ["--n_pose_kd", "64", "--create_data_chunk", "64"])
     assert n == jn == 1
     assert _shards(kd) == _shards(jkd) == ["data_1.npy"]
+    _compare_rows(np.load(os.path.join(kd, "data_1.npy")),
+                  np.load(os.path.join(jkd, "data_1.npy")))
+
+
+def test_rand_shards_from_a_jax_entpuck1_teacher(blender_dir, tmp_path):
+    from efficient_nerf_tpu import factory as jfactory
+    from efficient_nerf_tpu.train.checkpoints import save_checkpoint as jax_save
+
+    jb = jfactory.create_models(jparse(TEACHER), 2.0, 6.0)
+    teacher = jax_save(str(tmp_path / "teacher.msgpack"), jb.params,
+                       jb.optimizer.init(jb.params), step=9)
+    (n, kd), (jn, jkd) = _both(blender_dir, tmp_path, teacher, "rand",
+                               ["--n_pose_kd", "64", "--create_data_chunk", "64"])
+    assert n == jn == 1
     _compare_rows(np.load(os.path.join(kd, "data_1.npy")),
                   np.load(os.path.join(jkd, "data_1.npy")))
 

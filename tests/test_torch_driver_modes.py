@@ -1,5 +1,6 @@
 """The port's driver in its other modes, on the CPU at tiny sizes: the
-streamed student from a teacher checkpoint, images mode's pixel batches
+streamed student from a teacher checkpoint (the port's `.tar` and the JAX
+package's ENTPUCK1), images mode's pixel batches
 and precrop, the conv student through --data_mode patches (train, then
 render from its checkpoint), --test_pretrained, and --no_pallas passed
 down to the step and the renderers as an explicit switch."""
@@ -42,6 +43,27 @@ def test_streaming_student_from_a_teacher_checkpoint(blender_dir, tmp_path):
     ckpt = _weights(tmp_path, "teacher")
     # the student's flags name another teacher architecture: the checkpoint's
     # model_config rebuilds the right one
+    state = _train(_args(blender_dir, tmp_path, "stream",
+                         STUDENT + ["--stream_pseudo_data", "--teacher_ckpt", ckpt,
+                                    "--N_rand", "1", "--i_testset", "1000000",
+                                    "--i_weights", "1000000", "--stream_warmup_frames", "2",
+                                    "--netdepth_fine", "5"]), max_iters=3)
+    assert state.step == 3
+
+
+def test_streaming_student_from_a_jax_entpuck1_teacher(blender_dir, tmp_path):
+    from efficient_nerf_tpu import factory as jfactory
+    from efficient_nerf_tpu import main as jmain
+    from efficient_nerf_tpu.config.options import parse_args as jparse
+    from efficient_nerf_tpu.train.checkpoints import save_checkpoint as jax_save
+
+    teacher = BASE + ["--model_name", "nerf", "--use_viewdirs", "--netdepth", "2",
+                      "--netwidth", "16"]
+    jargs = jparse(teacher)
+    jb = jfactory.create_models(jargs, 2.0, 6.0)
+    ckpt = jax_save(str(tmp_path / "teacher.msgpack"), jb.params, step=2,
+                    model_config=jmain._model_config(jargs))
+    # the header's model_config rebuilds the teacher, as from a port .tar
     state = _train(_args(blender_dir, tmp_path, "stream",
                          STUDENT + ["--stream_pseudo_data", "--teacher_ckpt", ckpt,
                                     "--N_rand", "1", "--i_testset", "1000000",
