@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device, to_device
+from ..utils.profiling import span
 
 __all__ = ["pixel_dirs", "get_rays", "get_rays_np", "plucker_rays", "ndc_rays",
            "translate_origin_fixed", "translate_origin_to_sphere",
@@ -82,12 +83,14 @@ def get_rays(H: int, W: int, focal: float, c2w, focal_scale=1.0,
 def get_rays_np(H: int, W: int, focal: float, c2w):
     """Numpy twin of get_rays for host-side data preparation: (rays_o,
     rays_d), each [H, W, 3], in the JAX package's operations (an einsum over
-    the f32 pixel grid), so that the two agree bit for bit."""
-    c2w = np.asarray(c2w)
-    dirs = _pixel_dirs_np(H, W, float(focal))
-    rays_d = np.einsum("hwc,rc->hwr", dirs, c2w[:3, :3])
-    rays_o = np.broadcast_to(c2w[:3, -1], rays_d.shape)
-    return rays_o, rays_d
+    the f32 pixel grid), so that the two agree bit for bit. Span:
+    core.get_rays_np."""
+    with span("core.get_rays_np"):
+        c2w = np.asarray(c2w)
+        dirs = _pixel_dirs_np(H, W, float(focal))
+        rays_d = np.einsum("hwc,rc->hwr", dirs, c2w[:3, :3])
+        rays_o = np.broadcast_to(c2w[:3, -1], rays_d.shape)
+        return rays_o, rays_d
 
 
 def plucker_rays(rays_o: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,11 @@ one, and yields numpy arrays; the caller moves them to the card with
 loader, `use_native=True` raises when the native reader cannot be built or
 loaded, and a worker's error is raised by the next `next()` rather than
 leaving it waiting.
+
+Spans (`utils.profiling.span`): data.loader_next around the consumer's
+`next()`, data.shard_read around a worker's read of one batch. Both carry
+the batch's sequence number into the span log, where the workers' reads
+land (the profiler does not see the loader's threads).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
 from .native import NativeShardReader
 
 __all__ = ["RayShardDataset", "ShardLoader", "infinite_indices"]
@@ -110,14 +116,17 @@ class ShardLoader:
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
         self._stop = threading.Event()
         self._lock = threading.Lock()
+        self._seq = 0       # the next batch's sequence number, under _lock
         self._threads = [threading.Thread(target=self._worker, daemon=True)
                          for _ in range(max(1, num_threads))]
         for t in self._threads:
             t.start()
 
-    def _next_batch_indices(self):
+    def _next_batch_indices(self) -> Tuple[int, List[int]]:
+        """The next batch's sequence number and shard indices."""
         with self._lock:
-            return [next(self._indices) for _ in range(self.k)]
+            seq, self._seq = self._seq, self._seq + 1
+            return seq, [next(self._indices) for _ in range(self.k)]
 
     def load_batch(self, idxs) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """The batch of these shard indices, as a worker assembles it."""
@@ -140,20 +149,26 @@ class ShardLoader:
     def _worker(self):
         while not self._stop.is_set():
             try:
-                batch = self.load_batch(self._next_batch_indices())
+                seq, idxs = self._next_batch_indices()
+                with span("data.shard_read", seq):
+                    batch = self.load_batch(idxs)
             except Exception as e:  # handed to the consumer, which raises it
                 self._put(e)
                 return
-            self._put(batch)
+            self._put((seq, batch))
 
     def __iter__(self):
         return self
 
     def __next__(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        item = self._q.get()
-        if isinstance(item, Exception):
-            raise RuntimeError("a shard loader worker failed") from item
-        return item
+        with span("data.loader_next") as s:
+            item = self._q.get()
+            if isinstance(item, Exception):
+                raise RuntimeError("a shard loader worker failed") from item
+            seq, batch = item
+            if s is not None:
+                s.seq = seq
+        return batch
 
     def close(self) -> None:
         self._stop.set()

@@ -5,6 +5,8 @@ from typing import Optional, Union
 
 import torch
 
+from .utils.profiling import span
+
 __all__ = ["resolve_device", "to_device"]
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -31,10 +33,12 @@ def to_device(x, device: torch.device,
     """`x` (array or tensor) as a `dtype` tensor on `device`. Host data bound
     for a card goes through pinned memory and a non-blocking copy: a copy
     from pageable memory first waits for all the work queued on the stream,
-    which would stop the host from queueing the next frame ahead."""
-    t = torch.as_tensor(x, dtype=dtype)
-    if t.device == device:
-        return t
-    if device.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    which would stop the host from queueing the next frame ahead. Span:
+    device.to_device."""
+    with span("device.to_device"):
+        t = torch.as_tensor(x, dtype=dtype)
+        if t.device == device:
+            return t
+        if device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ._build import load_kernels
+from ..utils.profiling import span
 from .r2l_forward import _doubling_head_perm_np, doubling_embed, doubling_sincos
 
 __all__ = ["pack_r2l_train_weights", "r2l_train_fwd", "r2l_train_bwd",
@@ -611,11 +612,15 @@ class R2LTrainFunction(torch.autograd.Function):
     """The port's counterpart of the custom VJP: forward(x, prof, *params)
     with params in `_model_params` order. The backward returns each
     parameter's gradient in f32 (the body's as views into the backward's
-    stacked buffer, no copy) and dx (None when prof.need_dx is off)."""
+    stacked buffer, no copy) and dx (None when prof.need_dx is off).
+    Spans: r2l_train.pack (the forward's pack), r2l_train.backward, and in
+    it r2l_train.bwd_kernels (both passes) and r2l_train.bwd_grads (the
+    gradients' unpacking)."""
 
     @staticmethod
     def forward(ctx, x, prof: _Profile, *params):
-        packed = pack_r2l_train_weights(params, prof.embed_L, prof.dtype)
+        with span("r2l_train.pack"):
+            packed = pack_r2l_train_weights(params, prof.embed_L, prof.dtype)
         out, hs = r2l_train_fwd(packed, x.contiguous(), res_scale=prof.res_scale,
                                 use_global_residual=prof.use_global_residual)
         ctx.prof, ctx.packed = prof, packed
@@ -624,25 +629,28 @@ class R2LTrainFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        x, hs = ctx.saved_tensors
-        prof, packed = ctx.prof, ctx.packed
-        g = r2l_train_bwd(packed, x.contiguous(), hs, dout.float().contiguous(),
-                          res_scale=prof.res_scale,
-                          use_global_residual=prof.use_global_residual,
-                          need_dx=prof.need_dx)
-        in_dim = packed["in_dim"]
-        g_head = g["head_w"][:, :in_dim]
-        perm = _perm(in_dim, prof.embed_L)
-        if perm is not None:
-            # kernel column n holds ray_embed column perm[n]
-            inv = torch.from_numpy(np.argsort(perm)).to(g_head.device)
-            g_head = g_head[:, inv]
-        body = []
-        for b in range(packed["body_w"].shape[0]):
-            for j in (0, 1):
-                body += [g["body_w"][b, j], g["body_b"][b, j]]
-        return (g["dx"], None, g_head, g["head_b"], *body, g["tail_w"],
-                g["tail_b"])
+        with span("r2l_train.backward"):
+            x, hs = ctx.saved_tensors
+            prof, packed = ctx.prof, ctx.packed
+            with span("r2l_train.bwd_kernels"):
+                g = r2l_train_bwd(packed, x.contiguous(), hs, dout.float().contiguous(),
+                                  res_scale=prof.res_scale,
+                                  use_global_residual=prof.use_global_residual,
+                                  need_dx=prof.need_dx)
+            with span("r2l_train.bwd_grads"):
+                in_dim = packed["in_dim"]
+                g_head = g["head_w"][:, :in_dim]
+                perm = _perm(in_dim, prof.embed_L)
+                if perm is not None:
+                    # kernel column n holds ray_embed column perm[n]
+                    inv = torch.from_numpy(np.argsort(perm)).to(g_head.device)
+                    g_head = g_head[:, inv]
+                body = []
+                for b in range(packed["body_w"].shape[0]):
+                    for j in (0, 1):
+                        body += [g["body_w"][b, j], g["body_b"][b, j]]
+            return (g["dx"], None, g_head, g["head_b"], *body, g["tail_w"],
+                    g["tail_b"])
 
 
 def train_profile_eligible(model) -> bool:

@@ -36,6 +36,7 @@ from ..models.r2l import R2LConvNet, R2LNet
 from ..ops import (calibrate_r2l_int8, fused_r2l_available, pack_r2l_weights,
                    pack_r2l_weights_int8, r2l_forward_fused, r2l_forward_int8)
 from ..ops.r2l_forward import MAX_WIDTH, WIDTH_ALIGN
+from ..utils.profiling import span
 from ._pack_cache import param_version_key
 
 __all__ = ["r2l_forward_rays", "r2l_render_image", "make_r2l_forward",
@@ -211,24 +212,32 @@ def r2l_render_image(model: R2LNet, c2w, H: int, W: int, focal: float,
     allow_fused=False forces the unfused path (and makes quant="int8"
     raise). The unfused path evaluates `chunk` rays at a time when chunk >
     0; the conv student evaluates the frame as one [1, H, W, C] patch.
+    Spans (`utils.profiling.span`): r2l.render_image around the call,
+    r2l.rays around the rays (and, unfused, their points), r2l.forward
+    around the network.
     """
-    dev = resolve_device(device)
-    _check_model(model, quant, dev)
-    if quant == "int8" or (allow_fused and _fused_eligible(model, plucker, False, dev)):
-        rays_o, rays_d = get_rays(H, W, focal, c2w, device=dev)
-        rgb = r2l_forward_rays(model, rays_o.reshape(-1, 3),
-                               rays_d.reshape(-1, 3), near, far, n_sample, L,
-                               plucker=plucker, quant=quant, device=dev,
-                               act_scales=act_scales, allow_fused=allow_fused)
+    with span("r2l.render_image"):
+        dev = resolve_device(device)
+        _check_model(model, quant, dev)
+        if quant == "int8" or (allow_fused and _fused_eligible(model, plucker, False, dev)):
+            with span("r2l.rays"):
+                rays_o, rays_d = get_rays(H, W, focal, c2w, device=dev)
+            with span("r2l.forward"):
+                rgb = r2l_forward_rays(model, rays_o.reshape(-1, 3),
+                                       rays_d.reshape(-1, 3), near, far, n_sample, L,
+                                       plucker=plucker, quant=quant, device=dev,
+                                       act_scales=act_scales, allow_fused=allow_fused)
+            return rgb.reshape(H, W, -1)
+        with torch.no_grad():
+            with span("r2l.rays"):
+                pts = sample_image_points(c2w, H, W, focal, near, far, n_sample,
+                                          plucker=plucker, device=dev)
+            with span("r2l.forward"):
+                x = ray_embed(pts, L)
+                if isinstance(model, R2LConvNet):
+                    rgb = _conv_eval(model, x.reshape(1, H, W, x.shape[-1]))
+                elif chunk and chunk < x.shape[0]:
+                    rgb = torch.cat([model(xi) for xi in torch.split(x, chunk)])
+                else:
+                    rgb = model(x)
         return rgb.reshape(H, W, -1)
-    with torch.no_grad():
-        pts = sample_image_points(c2w, H, W, focal, near, far, n_sample,
-                                  plucker=plucker, device=dev)
-        x = ray_embed(pts, L)
-        if isinstance(model, R2LConvNet):
-            rgb = _conv_eval(model, x.reshape(1, H, W, x.shape[-1]))
-        elif chunk and chunk < x.shape[0]:
-            rgb = torch.cat([model(xi) for xi in torch.split(x, chunk)])
-        else:
-            rgb = model(x)
-    return rgb.reshape(H, W, -1)

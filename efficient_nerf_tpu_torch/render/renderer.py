@@ -47,6 +47,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops import (calibrate_nerf_int8, nerf_forward_fused, nerf_forward_int8,
                    nerf_render_rays_fused, pack_nerf_weights, pack_nerf_weights_int8,
                    sample_pdf_det_fused)
+from ..utils.profiling import span
 from ._pack_cache import param_version_key
 
 __all__ = ["RenderConfig", "RenderResult", "render_rays", "render_image",
@@ -273,6 +274,10 @@ def render_rays(model, model_fine, rays_o: torch.Tensor, rays_d: torch.Tensor,
     The unfused path is differentiable in the models' parameters (the fine
     depths are detached, as the JAX package stops their gradient); a kernel
     path raises RuntimeError while autograd tracks its inputs.
+
+    Spans on the composed path (`utils.profiling.span`): render.coarse (the
+    depths, the field, raw2outputs), render.fine_depths (the sampler and the
+    merge), render.fine.
     """
     _check_modes(cfg)
     if _frame_fused_eligible(model, cfg, near, far, t_rand, u, noise):
@@ -283,42 +288,45 @@ def render_rays(model, model_fine, rays_o: torch.Tensor, rays_d: torch.Tensor,
     far = cfg.far if far is None else far
     model_f = model_fine if model_fine is not None else model
 
-    z_vals = linear_zvals(near, far, cfg.n_samples, cfg.lindisp, device=dev)
-    z_vals = z_vals.expand(n_rays, cfg.n_samples)
-    if cfg.perturb:
-        z_vals = stratify_zvals(z_vals, t_rand, generator)
+    with span("render.coarse"):
+        z_vals = linear_zvals(near, far, cfg.n_samples, cfg.lindisp, device=dev)
+        z_vals = z_vals.expand(n_rays, cfg.n_samples)
+        if cfg.perturb:
+            z_vals = stratify_zvals(z_vals, t_rand, generator)
 
-    fused = _nerf_profile_ok(model, cfg)
-    raw = _field(model, rays_o, rays_d, z_vals, viewdirs, cfg, fused)
-    coarse = raw2outputs(raw, z_vals, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
-                         noise=noise, generator=generator)
+        fused = _nerf_profile_ok(model, cfg)
+        raw = _field(model, rays_o, rays_d, z_vals, viewdirs, cfg, fused)
+        coarse = raw2outputs(raw, z_vals, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
+                             noise=noise, generator=generator)
 
     if cfg.n_importance <= 0:
         zeros = torch.zeros((n_rays,), dtype=rays_o.dtype, device=dev)
         return RenderResult(coarse.rgb, coarse.disp, coarse.acc, coarse.depth,
                             coarse.rgb, coarse.disp, coarse.acc, zeros)
 
-    z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-    w_mid = coarse.weights[..., 1:-1]
-    if fused and u is None and not cfg.perturb:
-        z_samples = sample_pdf_det_fused(z_mid.contiguous(), w_mid.contiguous(),
-                                         cfg.n_importance)
-    else:
-        z_samples = sample_pdf(z_mid, w_mid, cfg.n_importance,
-                               det=not cfg.perturb, u=u, sorted_u=True,
-                               generator=generator)
-    z_samples = z_samples.detach()
-    if u is None:
-        # both sorted per ray: the bitonic merge, as the JAX package
-        z_all = merge_sorted(z_vals, z_samples)
-    else:
-        # the hook's levels come in any order
-        z_all = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1).values
+    with span("render.fine_depths"):
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        w_mid = coarse.weights[..., 1:-1]
+        if fused and u is None and not cfg.perturb:
+            z_samples = sample_pdf_det_fused(z_mid.contiguous(), w_mid.contiguous(),
+                                             cfg.n_importance)
+        else:
+            z_samples = sample_pdf(z_mid, w_mid, cfg.n_importance,
+                                   det=not cfg.perturb, u=u, sorted_u=True,
+                                   generator=generator)
+        z_samples = z_samples.detach()
+        if u is None:
+            # both sorted per ray: the bitonic merge, as the JAX package
+            z_all = merge_sorted(z_vals, z_samples)
+        else:
+            # the hook's levels come in any order
+            z_all = torch.sort(torch.cat([z_vals, z_samples], -1), dim=-1).values
 
-    fused_f = _nerf_profile_ok(model_f, cfg)
-    raw = _field(model_f, rays_o, rays_d, z_all, viewdirs, cfg, fused_f)
-    fine = raw2outputs(raw, z_all, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
-                       noise=noise_fine, generator=generator)
+    with span("render.fine"):
+        fused_f = _nerf_profile_ok(model_f, cfg)
+        raw = _field(model_f, rays_o, rays_d, z_all, viewdirs, cfg, fused_f)
+        fine = raw2outputs(raw, z_all, rays_d, cfg.raw_noise_std, cfg.white_bkgd,
+                           noise=noise_fine, generator=generator)
     z_std = torch.std(z_samples, dim=-1, correction=0)  # jnp.std's ddof 0
     return RenderResult(fine.rgb, fine.disp, fine.acc, fine.depth,
                         coarse.rgb, coarse.disp, coarse.acc, z_std)

@@ -28,6 +28,11 @@ The teacher's step runs `render.render_rays` under autograd on its unfused
 path (`nerf_embed` -> `NeRFMLP`, cuBLAS products on the card): the JAX
 package's training config turns on neither the fused field eval nor the
 int8 teacher, and the kernels have no backward.
+
+Spans (`utils.profiling.span`): train.r2l_step around the R2L step, with
+train.hard_pick, train.sample, train.forward (forward and loss),
+train.backward, train.adam and train.mine inside; train.teacher_step around
+the teacher's, with train.backward and train.adam inside.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops import fused_r2l_train_available
 from ..ops.r2l_train import r2l_train_apply, train_profile_eligible
 from ..render.renderer import RenderConfig, render_rays
+from ..utils.profiling import span
 from .hard_mining import HardPool, pick_hard_rays, update_hard_pool
 
 __all__ = ["TrainState", "init_train_state", "make_r2l_train_step",
@@ -191,59 +197,68 @@ def make_r2l_train_step(model, optimizer: torch.optim.Optimizer, *,
              generator: Optional[torch.Generator], rays_o: torch.Tensor,
              rays_d: torch.Tensor, target: torch.Tensor,
              noise: Optional[Dict[str, torch.Tensor]] = None):
-        noise = noise or {}
+        with span("train.r2l_step"):
+            return _step(state, pool, generator, rays_o, rays_d, target, noise or {})
+
+    def _step(state, pool, generator, rays_o, rays_d, target, noise):
         if mesh is not None:
             rows = gather_batch(mesh, torch.cat([rays_o, rays_d, target], -1))
             rays_o, rays_d, target = rows[:, :3], rows[:, 3:6], rows[:, 6:]
         batch_size = rays_o.shape[0]
         idx_out = None
         if hard is not None:
-            n_hard_in, n_hard_out = hard
-            rows = torch.cat([rays_o, rays_d, target], -1)
-            picked, idx_out = pick_hard_rays(
-                pool, generator, rows, n_hard_out,
-                idx_out=noise.get("idx_out"), batch_idx=noise.get("batch_idx"))
-            rays_o = torch.cat([rays_o, picked[:, :3]], 0)
-            rays_d = torch.cat([rays_d, picked[:, 3:6]], 0)
-            target = torch.cat([target, picked[:, 6:]], 0)
+            with span("train.hard_pick"):
+                n_hard_in, n_hard_out = hard
+                rows = torch.cat([rays_o, rays_d, target], -1)
+                picked, idx_out = pick_hard_rays(
+                    pool, generator, rows, n_hard_out,
+                    idx_out=noise.get("idx_out"), batch_idx=noise.get("batch_idx"))
+                rays_o = torch.cat([rays_o, picked[:, :3]], 0)
+                rays_d = torch.cat([rays_d, picked[:, 3:6]], 0)
+                target = torch.cat([target, picked[:, 6:]], 0)
 
-        if plucker:
-            pts = plucker_rays(rays_o, rays_d)
-        else:
-            pts = sample_ray_points(rays_o, rays_d, near, far, n_sample,
-                                    perturb=perturb, generator=generator,
-                                    t_rand=noise.get("t_rand"))
-        lo, hi = _rank_rows(mesh, pts.shape[0])
-        share = (hi - lo) / pts.shape[0]   # 1.0 without a mesh
-        out = forward(pts[lo:hi])
-        tgt = target[lo:hi]
-        per_ray_mse = torch.mean((out[:, :3] - tgt[:, :3]) ** 2, dim=-1)
-        loss_rgb = torch.mean(per_ray_mse) * share * lw_rgb
-        loss = loss_rgb
-        loss_d = torch.zeros((), device=out.device)
-        if learn_depth:
-            loss_d = torch.mean((out[:, 3:] - tgt[:, 3:]) ** 2) * share
-            loss = loss + loss_d * lw_depth
+        with span("train.sample"):
+            if plucker:
+                pts = plucker_rays(rays_o, rays_d)
+            else:
+                pts = sample_ray_points(rays_o, rays_d, near, far, n_sample,
+                                        perturb=perturb, generator=generator,
+                                        t_rand=noise.get("t_rand"))
+        with span("train.forward"):
+            lo, hi = _rank_rows(mesh, pts.shape[0])
+            share = (hi - lo) / pts.shape[0]   # 1.0 without a mesh
+            out = forward(pts[lo:hi])
+            tgt = target[lo:hi]
+            per_ray_mse = torch.mean((out[:, :3] - tgt[:, :3]) ** 2, dim=-1)
+            loss_rgb = torch.mean(per_ray_mse) * share * lw_rgb
+            loss = loss_rgb
+            loss_d = torch.zeros((), device=out.device)
+            if learn_depth:
+                loss_d = torch.mean((out[:, 3:] - tgt[:, 3:]) ** 2) * share
+                loss = loss + loss_d * lw_depth
 
         # the gradients go to the optimizer as autograd returns them: the
         # fused backward's body gradients stay views of its one buffer,
         # where backward() would copy each into .grad
         params = [p for group in optimizer.param_groups for p in group["params"]]
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         loss_rgb, loss_d = loss_rgb.detach(), loss_d.detach()
         if mesh is not None:
             *grads, loss_rgb, loss_d = all_reduce_bucket(mesh, [*grads, loss_rgb, loss_d])
-        for p, g in zip(params, grads):
-            p.grad = g
-        _set_lr(optimizer, schedule, state.step)
-        optimizer.step()
+        with span("train.adam"):
+            for p, g in zip(params, grads):
+                p.grad = g
+            _set_lr(optimizer, schedule, state.step)
+            optimizer.step()
 
         if hard is not None:
-            if mesh is not None:
-                per_ray_mse = gather_batch(mesh, per_ray_mse.detach())
-            rows_aug = torch.cat([rays_o, rays_d, target], -1)
-            pool = update_hard_pool(pool, rows_aug, per_ray_mse, idx_out,
-                                    hard[0], batch_size)
+            with span("train.mine"):
+                if mesh is not None:
+                    per_ray_mse = gather_batch(mesh, per_ray_mse.detach())
+                rows_aug = torch.cat([rays_o, rays_d, target], -1)
+                pool = update_hard_pool(pool, rows_aug, per_ray_mse, idx_out,
+                                        hard[0], batch_size)
 
         metrics = {"loss_rgb": loss_rgb, "loss_depth": loss_d,
                    "psnr": mse_to_psnr(loss_rgb / lw_rgb)}
@@ -375,7 +390,10 @@ def make_teacher_train_step(model, model_fine, optimizer: torch.optim.Optimizer,
     def step(state: TrainState, generator: Optional[torch.Generator],
              rays_o: torch.Tensor, rays_d: torch.Tensor, target: torch.Tensor,
              noise: Optional[Dict[str, torch.Tensor]] = None):
-        noise = noise or {}
+        with span("train.teacher_step"):
+            return _step(state, generator, rays_o, rays_d, target, noise or {})
+
+    def _step(state, generator, rays_o, rays_d, target, noise):
         share = 1.0
         if mesh is not None:
             lo, hi = _rank_rows(mesh, rays_o.shape[0] * mesh.n_data)
@@ -398,7 +416,8 @@ def make_teacher_train_step(model, model_fine, optimizer: torch.optim.Optimizer,
         if has_fine:
             loss = loss + torch.mean((res.rgb0 - target) ** 2) * share
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("train.backward"):
+            loss.backward()
         loss, loss_fine = loss.detach(), loss_fine.detach()
         if mesh is not None:
             params = [p for group in optimizer.param_groups for p in group["params"]]
@@ -406,8 +425,9 @@ def make_teacher_train_step(model, model_fine, optimizer: torch.optim.Optimizer,
                 mesh, [p.grad for p in params] + [loss, loss_fine])
             for p, g in zip(params, grads):
                 p.grad = g
-        _set_lr(optimizer, schedule, state.step)
-        optimizer.step()
+        with span("train.adam"):
+            _set_lr(optimizer, schedule, state.step)
+            optimizer.step()
         metrics = {"loss": loss, "psnr": mse_to_psnr(loss_fine)}
         return state._replace(step=state.step + 1), metrics
 

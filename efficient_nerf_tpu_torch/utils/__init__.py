@@ -4,13 +4,13 @@ PNG codec, debugging, profiling and frame timing, after
 from .logging import Logger
 from .meters import AverageMeter, LossLine, ProgressMeter, Timer, count_params
 from .images import read_png, save_image, save_video, to8b, write_png
-from .profiling import DeviceTimer, compiled_cost, time_fn, trace
+from .profiling import compiled_cost, span, spans_logged, trace
 from .debug import assert_finite, debug_nans, find_nonfinite
 from .benchmark import frame_time
 from .visualize import plot_pose_cloud, visualize_3d
 
 __all__ = ["Logger", "AverageMeter", "LossLine", "ProgressMeter", "Timer",
            "count_params", "read_png", "save_image", "save_video", "to8b",
-           "write_png", "DeviceTimer", "compiled_cost", "time_fn", "trace",
+           "write_png", "compiled_cost", "span", "spans_logged", "trace",
            "assert_finite", "debug_nans", "find_nonfinite", "frame_time",
            "plot_pose_cloud", "visualize_3d"]

@@ -9,11 +9,10 @@ import numpy as np
 import pytest
 import torch
 
-from efficient_nerf_tpu_torch.utils import (AverageMeter, DeviceTimer, LossLine, Logger,
-                                            Timer, assert_finite, compiled_cost,
-                                            count_params, debug_nans, find_nonfinite,
-                                            frame_time, plot_pose_cloud, save_video,
-                                            time_fn, trace)
+from efficient_nerf_tpu_torch.utils import (AverageMeter, LossLine, Logger, Timer,
+                                            assert_finite, compiled_cost, count_params,
+                                            debug_nans, find_nonfinite, frame_time,
+                                            plot_pose_cloud, save_video, trace)
 
 
 def test_logger_layout_and_code_cache(tmp_path):
@@ -51,12 +50,6 @@ def test_meters():
 
 def test_timers_and_costs(tmp_path):
     f = lambda x: x * 2.0   # noqa: E731
-    assert time_fn(f, torch.ones(8, 8), reps=3, warmup=1) > 0
-    timer = DeviceTimer()
-    with timer.section("mul"):
-        f(torch.ones(4))
-    s = timer.summary()
-    assert "mul" in s and s["mul"][1] == 1
     cost = compiled_cost(lambda a, b: a @ b, torch.ones(128, 64), torch.ones(64, 32))
     assert cost["flops"] == 2 * 128 * 64 * 32
     dt, spread = frame_time(lambda eps: torch.ones(64, 64) @ torch.ones(64, 64) + eps,
