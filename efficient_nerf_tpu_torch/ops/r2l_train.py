@@ -34,12 +34,13 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ._build import load_kernels
+from ..device import to_device
 from ..utils.profiling import span
 from .r2l_forward import _doubling_head_perm_np, doubling_embed, doubling_sincos
 
@@ -90,7 +91,6 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-@functools.lru_cache(maxsize=8)
 def _perm(in_dim: int, embed_L: int) -> Optional[np.ndarray]:
     """The doubling row order of the head's input for embed_L > 0 (None for
     embed_L = 0)."""
@@ -101,6 +101,26 @@ def _perm(in_dim: int, embed_L: int) -> Optional[np.ndarray]:
         raise ValueError(f"embed_L={embed_L}: head input {in_dim} is not "
                          "K*(2L+1) with K a multiple of 3")
     return _doubling_head_perm_np(K // 3, embed_L)
+
+
+@functools.lru_cache(maxsize=8)
+def _head_perm_index(in_dim: int, embed_L: int, device: torch.device
+                     ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """(perm, inv): `_perm` and its inverse argsort(perm) as int64 index
+    tensors on `device` (None for embed_L = 0), built on the host and copied
+    once per (in_dim, embed_L, device) through pinned memory: the forward's
+    pack and the backward ask for them every step, and a copy from pageable
+    memory would wait for the work queued on the stream. Tensors shared by
+    the callers: do not write into them. `.builds` counts the host builds."""
+    perm = _perm(in_dim, embed_L)
+    if perm is None:
+        return None
+    _head_perm_index.builds += 1
+    return (to_device(perm.copy(), device, torch.int64),
+            to_device(np.argsort(perm), device, torch.int64))
+
+
+_head_perm_index.builds = 0
 
 
 def pack_r2l_train_weights(params: Sequence[torch.Tensor], embed_L: int = 0,
@@ -124,11 +144,11 @@ def pack_r2l_train_weights(params: Sequence[torch.Tensor], embed_L: int = 0,
     with torch.no_grad():
         head_w = params[0].detach()
         width, in_dim = head_w.shape
-        perm = _perm(in_dim, embed_L)
+        index = _head_perm_index(in_dim, embed_L, head_w.device)
         head_p = torch.zeros((width, _round_up(in_dim, IN_ALIGN)), dtype=dtype,
                              device=head_w.device)
-        head_p[:, :in_dim] = (head_w if perm is None else head_w[
-            :, torch.from_numpy(perm.copy()).to(head_w.device)]).to(dtype)
+        head_p[:, :in_dim] = (head_w if index is None
+                              else head_w[:, index[0]]).to(dtype)
         body = params[2:-2]
         body_w = torch.stack([p.detach() for p in body[0::2]]).to(dtype)
         body_b = torch.stack([p.detach() for p in body[1::2]]).float()
@@ -640,11 +660,10 @@ class R2LTrainFunction(torch.autograd.Function):
             with span("r2l_train.bwd_grads"):
                 in_dim = packed["in_dim"]
                 g_head = g["head_w"][:, :in_dim]
-                perm = _perm(in_dim, prof.embed_L)
-                if perm is not None:
+                index = _head_perm_index(in_dim, prof.embed_L, g_head.device)
+                if index is not None:
                     # kernel column n holds ray_embed column perm[n]
-                    inv = torch.from_numpy(np.argsort(perm)).to(g_head.device)
-                    g_head = g_head[:, inv]
+                    g_head = g_head[:, index[1]]
                 body = []
                 for b in range(packed["body_w"].shape[0]):
                     for j in (0, 1):

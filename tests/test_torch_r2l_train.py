@@ -343,6 +343,67 @@ def test_body_gradients_are_views_of_one_buffer(rng):
     assert all(g._base is not None for g in body)
 
 
+def test_head_permutation_index_is_built_once_a_device(rng):
+    rt._head_perm_index.cache_clear()
+    builds = rt._head_perm_index.builds
+    _, tm, x, dout = _setup(rng)
+    for need_dx in (False, True, False):
+        _port_grads(tm, x, dout, L, need_dx)
+    assert rt._head_perm_index.builds == builds + 1
+    perm, inv = rt._head_perm_index(IN_DIM, L, torch.device("cpu"))
+    assert rt._head_perm_index(IN_DIM, L, torch.device("cpu"))[0] is perm
+    assert perm.dtype == inv.dtype == torch.int64
+    np.testing.assert_array_equal(perm.numpy(), _doubling_head_perm_np(N_SAMPLE, L))
+    assert torch.equal(inv, torch.argsort(perm))
+    # embed_L = 0 keeps the column order: nothing to build
+    _, tm0, x0, dout0 = _setup(rng, embed_L=0)
+    _port_grads(tm0, x0, dout0, 0, True)
+    assert rt._head_perm_index(IN_DIM, 0, torch.device("cpu")) is None
+    assert rt._head_perm_index.builds == builds + 1
+
+
+def _uncached_grads(tm, x, dout, embed_L, need_dx):
+    """The Function's forward and backward with the head's permutation
+    gathered through numpy indices made on every call, as the op did before
+    it cached its index tensors."""
+    params = rt._model_params(tm)
+    packed = rt.pack_r2l_train_weights(params, embed_L, tm.dtype)
+    perm = rt._perm(IN_DIM, embed_L)
+    head = params[0].detach()
+    if perm is not None:
+        head = head[:, torch.from_numpy(perm.copy())]
+    want_head = torch.zeros_like(packed["head_w"])
+    want_head[:, :IN_DIM] = head.to(tm.dtype)
+    assert torch.equal(packed["head_w"], want_head)
+    kw = dict(res_scale=float(tm.res_scale), use_global_residual=bool(tm.use_residual))
+    xt = torch.from_numpy(x)
+    out, hs = rt.r2l_train_fwd(packed, xt, **kw)
+    g = rt.r2l_train_bwd(packed, xt, hs, torch.from_numpy(dout), need_dx=need_dx, **kw)
+    g_head = g["head_w"][:, :IN_DIM]
+    if perm is not None:
+        g_head = g_head[:, torch.from_numpy(np.argsort(perm))]
+    grads = [g_head, g["head_b"]]
+    for b in range(g["body_w"].shape[0]):
+        for j in (0, 1):
+            grads += [g["body_w"][b, j], g["body_b"][b, j]]
+    return out, grads + [g["tail_w"], g["tail_b"]], g["dx"]
+
+
+@pytest.mark.parametrize("need_dx", [False, True])
+@pytest.mark.parametrize("embed_L", [0, 10])
+@pytest.mark.parametrize("grs,res_scale", [(False, 1.0), (True, 0.5)])
+def test_cached_permutation_gives_the_uncached_result_bit_for_bit(grs, res_scale, embed_L,
+                                                                  need_dx, rng):
+    _, tm, x, dout = _setup(rng, grs=grs, res_scale=res_scale, embed_L=embed_L)
+    out_w, grads_w, dx_w = _uncached_grads(tm, x, dout, embed_L, need_dx)
+    out, _, dx = _port_grads(tm, x, dout, embed_L, need_dx)
+    assert torch.equal(torch.from_numpy(out), out_w)
+    for p, w in zip(rt._model_params(tm), grads_w, strict=True):
+        assert torch.equal(p.grad, w)
+    if need_dx:
+        assert torch.equal(torch.from_numpy(dx), dx_w)
+
+
 def test_other_profiles_and_inputs_raise(rng):
     tm = R2LNet(IN_DIM, DEPTH, WIDTH, linear_tail=True)
     with pytest.raises(ValueError, match="profile"):
