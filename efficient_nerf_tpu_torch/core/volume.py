@@ -11,6 +11,15 @@ as in `efficient_nerf_tpu.core.volume`.
 
 The sigma noise is drawn only when raw_noise_std > 0: `noise` hands it in
 as is (the tests' hook), else it is `randn * raw_noise_std` from `generator`.
+
+The transmittance's cumprod takes a backward of its own. Torch's cumprod
+backward first reads on the host whether its input holds a zero
+(`.any().item()`), which drains the card's queue once per call, and only
+then takes the formula reversed_cumsum(cumprod * grad) / x. The factors
+1 - alpha + 1e-10 are never zero in float32 (1e-10 where alpha is 1, else
+at least 2^-24), so `_composite` takes that formula directly: the same
+values and gradients, bit for bit, with no read. `exclusive_cumprod`
+stays on torch's cumprod, correct for any input, zeros included.
 """
 from __future__ import annotations
 
@@ -29,11 +38,46 @@ class RenderOutputs(NamedTuple):
     depth: torch.Tensor    # [...]
 
 
+def _shift_in_one(cp: torch.Tensor, dim: int) -> torch.Tensor:
+    """cp shifted right by one along dim, with a leading 1."""
+    ones = torch.ones_like(cp.narrow(dim, 0, 1))
+    return torch.cat([ones, cp.narrow(dim, 0, cp.shape[dim] - 1)], dim=dim)
+
+
 def exclusive_cumprod(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """cumprod shifted right by one with a leading 1 (TF 'exclusive' mode)."""
-    cp = torch.cumprod(x, dim=dim)
-    ones = torch.ones_like(cp.narrow(dim, 0, 1))
-    return torch.cat([ones, cp.narrow(dim, 0, x.shape[dim] - 1)], dim=dim)
+    return _shift_in_one(torch.cumprod(x, dim=dim), dim)
+
+
+class _NonzeroCumprod(torch.autograd.Function):
+    """torch.cumprod for inputs that hold no zero, with a backward that
+    never reads the device from the host.
+
+    Precondition: no element of x is zero. The backward is then torch's own
+    no-zero formula, reversed_cumsum(out * grad) / x, in torch's order of
+    operations (flip, cumsum, flip, div), so values and gradients equal
+    torch.cumprod's bit for bit. Torch's backward reads `(x == 0).any()` on
+    the host to choose between that formula and the one for zeros; the read
+    waits for the card to drain. With a zero in x this gradient is inf or
+    NaN where torch's is finite."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int) -> torch.Tensor:
+        out = torch.cumprod(x, dim=dim)
+        ctx.save_for_backward(x, out)
+        ctx.dim = dim
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        x, out = ctx.saved_tensors
+        dim = ctx.dim
+        return (out * grad).flip(dim).cumsum(dim).flip(dim).div(x), None
+
+
+def _exclusive_cumprod_nonzero(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """`exclusive_cumprod` for x with no zero element (`_NonzeroCumprod`)."""
+    return _shift_in_one(_NonzeroCumprod.apply(x, dim), dim)
 
 
 def _composite(rgb, sigma, z_vals, dist_scale, raw_noise_std, white_bkgd,
@@ -49,7 +93,8 @@ def _composite(rgb, sigma, z_vals, dist_scale, raw_noise_std, white_bkgd,
                                 device=sigma.device) * raw_noise_std
         sigma = sigma + noise
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
-    trans = exclusive_cumprod(1.0 - alpha + 1e-10, dim=-1)
+    # never zero in float32: 1e-10 where alpha is 1, else 1 - alpha >= 2^-24
+    trans = _exclusive_cumprod_nonzero(1.0 - alpha + 1e-10, dim=-1)
     weights = alpha * trans
     if rgb_dim == 0:
         rgb_map = torch.sum(weights[None] * rgb, dim=-1).movedim(0, -1)
