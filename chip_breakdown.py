@@ -9,25 +9,45 @@ statements each, all with nvcc in parallel into build/kernels/breakdown/,
 and times each with CUDA events at the main path's shape (W256 D88).
 
 serve: csrc/r2l_forward.cu on the rays of one 400x400 frame, its variants
-edited in the wgmma tile it includes (csrc/r2l_wgmma.cuh):
+edited in the wgmma tile it includes (csrc/r2l_wgmma.cuh; at W256 the body
+on per-panel barriers):
   shipped      the kernel as the port runs it
   release_early  each stage freed as soon as its own products are read
                (instead of after the next chunk's products are issued)
   two_boxes    each weight chunk loaded as two TMA boxes of Wp / 2 rows
                instead of one of Wp rows
-  loader_nowait  the loading thread (thread 0, in warp 0 of warpgroup 0)
-               loads a chunk only once its stage is free, found by a test
-               that does not wait, and defers it otherwise, up to the wait
-               for that chunk's own copy: warp 0 no longer stalls on the
-               slowest warp of the other warpgroup at every chunk
+  loader_nowait  thread 0 loads every chunk after the first S: a chunk once
+               its stage is free, found by a test that does not wait, and
+               deferred otherwise, up to the wait for that chunk's own copy
+  loader_waits thread 0 loads every chunk after the first S, waiting for
+               its stage to be free (the design before the last releasing
+               warp loaded): warp 0 stalls on the slowest warp of the other
+               warpgroup at every chunk
   no_loads     no TMA weight copies (each stage completes on the loading
                thread's arrival alone): the products, epilogues and layer
+               synchronisation
+  no_products  no wgmma: the weight stream, epilogues and layer
+               synchronisation
+  no_epilogue_math  the body's sums stored as they are: no bias (nor its
+               loads), relu or residual
+  no_epilogue_stores  the body's epilogue math without its stores of a and a2
+               (kept by a test that never holds)
+  no_layer_barrier  no wait between a layer's epilogue and the next layer's
+               products (neither the panel barriers nor a block barrier):
+               timing only, the products read stale panels
+  no_fence     the body's epilogues without the proxy fence before each
+               panel's signal (the products may read stale panels)
+  layer_barrier  the body on one block barrier a layer, as at widths whose
+               warpgroups do not own whole panels, instead of per-panel
                barriers
-  no_products  no wgmma: the weight stream, epilogues and layer barriers
+  no_bias_loads  the body's biases not loaded (two constants in their
+               place): the cost of their reads
+  bias_late    each layer's biases loaded as the layer starts, under its
+               products, instead of a layer ahead
 
 train_fwd: csrc/r2l_train.cu's forward (the same tile, storing hs) at the
-training step's 98,304 rays, the global residual on, variants as serve's:
-  shipped, two_boxes, release_early, loader_nowait, no_loads, no_products, and
+training step's 98,304 rays, the global residual on, variants as serve's,
+and
   no_hs_stores no TMA stores of hs: the forward alone
 
 serve_int8: csrc/r2l_int8.cu with static activation scales (from
@@ -143,11 +163,39 @@ _WG_ISSUE = """    mbar_arrive_expect_tx(&full[s], WP * 128);
 """
 _WG_PRODUCTS = "        Wgmma<NT>::run(acc, da + 2 * k, db + 2 * k, carry || kc + k > 0);\n"
 _WG_HS = "tma_store_box(&maps.hs, a + q * PANEL, 64 * q, (int)ray0, blk);"
-_WG_RELEASE = """    if (lane == 0) mbar_arrive(&empty[read % S]);
-    if (tid == 0) issue(read + S);
-  };
+_WG_HS_PANEL = "tma_store_box(&maps.hs, X + kc * PANEL, KC * kc, (int)ray0, hs_blk);"
+_WG_RELEASE = """    if (lane == 0 && atom_add_acq_rel(&freed[read % S], 1u) % (NTHREADS / 32) ==
+                         NTHREADS / 32 - 1)
+      issue(read + S);
 """
 _WG_FULL_WAIT = "      mbar_wait(&full[s], (c / S) & 1);\n"
+_WG_CONSUMED = "  int c = 0;  // chunks consumed\n"
+# thread 0's next chunk to load, and whether every warp has released the
+# chunk S before n from its stage (an acquire read of the stage's count)
+_WG_LOADER = _WG_CONSUMED + """  int next = S;
+  auto stage_free = [&](int n) {
+    unsigned v;
+    asm volatile("ld.acquire.cta.shared::cta.u32 %0, [%1];\\n"
+                 : "=r"(v) : "r"(tma_smem_addr(&freed[n % S])) : "memory");
+    return (int)v >= (NTHREADS / 32) * (n / S);
+  };
+"""
+_WG_PAIRS = """      auto even_pair = [&](int i) {
+        const float2 b = bias[i / 4];
+        return bf16x2<true>(acc[i] + b.x, acc[i + 1] + b.y);
+      };
+      // rounded as the plain version rounds it (no FMA)
+      auto odd_pair = [&](int i) {
+        const float2 b = bias[i / 4];
+        h[i] = __fadd_rn(__fmul_rn(acc[i] + b.x, rs), h[i]);
+        h[i + 1] = __fadd_rn(__fmul_rn(acc[i + 1] + b.y, rs), h[i + 1]);
+        return bf16x2<false>(h[i], h[i + 1]);
+      };
+"""
+_WG_STSM = '  asm volatile("stmatrix.sync'
+_WG_PANEL_WAIT = "        mbar_wait(&rdy[kc], par);\n"
+_WG_BAR = "    if (HS && tid == 0) bulk_wait_read();\n    __syncthreads();\n"
+_WG_NEXT_B = "      const float* next_b = body_bias(l + 1);\n"
 _WG_VARIANTS = {
     "two_boxes": [(_WG, _WG_ISSUE, """    mbar_arrive_expect_tx(&full[s], WP * 128);
     for (int r = 0; r < 2; ++r)
@@ -155,26 +203,27 @@ _WG_VARIANTS = {
 """), (_WG, "  const unsigned rows = (unsigned)round_up64(W);",
                 "  const unsigned rows = (unsigned)(round_up64(W) / 2);")],
     "loader_nowait": [
-        (_WG, _WG_RELEASE, """    if (lane == 0) mbar_arrive(&empty[read % S]);
+        (_WG, _WG_RELEASE, """    if (lane == 0) atom_add_acq_rel(&freed[read % S], 1u);
     if (tid == 0)
       while (next <= read + S && next < total && stage_free(next)) issue(next++);
-  };
 """),
-        (_WG, "  int c = 0;  // chunks consumed\n", """  int c = 0;  // chunks consumed
-  int next = S;  // thread 0: the next chunk to load
-  auto stage_free = [&](int n) {
-    unsigned done;
-    asm volatile(
-        "{\\n .reg .pred p;\\n mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\\n"
-        " selp.u32 %0, 1, 0, p;\\n}\\n"
-        : "=r"(done)
-        : "r"(tma_smem_addr(&empty[n % S])), "r"(((n / S) & 1) ^ 1)
-        : "memory");
-    return done != 0;
-  };
+        (_WG, _WG_CONSUMED, _WG_LOADER),
+        (_WG, _WG_FULL_WAIT, """      if (tid == 0)
+        for (; next <= c; ++next) {
+          while (!stage_free(next)) {
+          }
+          issue(next);
+        }
+""" + _WG_FULL_WAIT)],
+    "loader_waits": [
+        (_WG, _WG_RELEASE, """    if (lane == 0) atom_add_acq_rel(&freed[read % S], 1u);
+    if (tid == 0 && read + S < total) {
+      while (!stage_free(read + S)) {
+      }
+      issue(read + S);
+    }
 """),
-        (_WG, _WG_FULL_WAIT, "      if (tid == 0)\n        while (next <= c) issue(next++);\n"
-         + _WG_FULL_WAIT)],
+        (_WG, _WG_CONSUMED, _WG_LOADER)],
     "release_early": [(_WG, """      wgmma_commit();
       if (kc > 0) {
         wgmma_wait<1>();  // the chunk before this one has been read
@@ -190,6 +239,20 @@ _WG_VARIANTS = {
 """)],
     "no_loads": [(_WG, _WG_ISSUE, "    mbar_arrive(&full[s]);\n")],
     "no_products": [(_WG, _WG_PRODUCTS, "")],
+    "no_epilogue_math": [(_WG, _WG_PAIRS, """      auto even_pair = [&](int i) { return bf16x2<false>(acc[i], acc[i + 1]); };
+      auto odd_pair = even_pair;
+""")],
+    "no_epilogue_stores": [(_WG, _WG_STSM, '  if (r0 == 0x7fc17fc1u && r1 == r2)\n    asm volatile("stmatrix.sync')],
+    "no_layer_barrier": [(_WG, _WG_PANEL_WAIT, ""),
+                         (_WG, _WG_BAR, "    if (HS && tid == 0) bulk_wait_read();\n")],
+    "no_fence": [(_WG, "      fence_proxy_async();\n      if (HS && q == 0", "      if (HS && q == 0")],
+    "layer_barrier": [(_WG, "  constexpr bool PP = !S8 && per_panel(NT);", "  constexpr bool PP = false;")],
+    "no_bias_loads": [(_WG, "      auto next = [&](int j) { load_bias_j(next_b, j); };",
+                       "      auto next = [&](int j) { bias[j] = make_float2(rs, -rs); };")],
+    "bias_late": [(_WG, _WG_NEXT_B, _WG_NEXT_B + "#pragma unroll\n"
+                   "      for (int j = 0; j < NT / 8; ++j) load_bias_j(body_bias(l), j);\n"),
+                  (_WG, "      auto next = [&](int j) { load_bias_j(next_b, j); };",
+                   "      auto next = [&](int) {};")],
 }
 _STORE = "  const int c8 = ncols / 8;\n"
 _TB_STORE = "      tma_store_box(map, src + q * wg::PANEL, 64 * q, (int)ray0, layer);\n"
@@ -267,7 +330,7 @@ KERNELS = {
     "train_fwd": ("r2l_train.cu", {
         "shipped": [],
         **_WG_VARIANTS,
-        "no_hs_stores": [(_WG, _WG_HS, "")],
+        "no_hs_stores": [(_WG, _WG_HS, ""), (_WG, _WG_HS_PANEL, "")],
     }),
     "serve_int8": ("r2l_int8.cu", {
         "shipped": [],
@@ -310,7 +373,7 @@ KERNELS = {
         "no_trap": [(_NW, _NW_TRAP, "")],
         "no_fence": [(_NW, _NW_FENCE, "")],
         "no_stores": [(_NW, _NW_STORE, "        if (h == 0x7fc17fc1u) " + _NW_STORE.lstrip())],
-        "no_cvt": [(_NW, _NW_CVT, "  unsigned r = __float_as_uint(lo) ^ __float_as_uint(hi);\n  if (false)")],
+        "no_cvt": [(_WG, _NW_CVT, "  unsigned r = __float_as_uint(lo) ^ __float_as_uint(hi);\n  if (false)")],
     }),
     "teacher_int8": ("nerf_int8.cu", {
         "shipped": [],
@@ -408,7 +471,7 @@ def _serve_runner(torch, dev, seed):
         return (out - want).abs().max().item()
 
     bound_ms = fwd.r2l_forward_flops(packed, n_rays) / cs.H100_BF16_FLOPS * 1e3
-    return n_rays, bound_ms, cs.KERNEL_TOL, make_run, error
+    return n_rays, bound_ms, cs.KERNEL_TOL, make_run, error, lambda: (out,)
 
 
 def _serve_int8_runner(torch, dev, seed):
@@ -492,7 +555,7 @@ def _train_fwd_runner(torch, dev, seed):
         return (out - want).abs().max().item()
 
     bound_ms = rt.r2l_train_flops(packed, n_rays)[0] / cs.H100_BF16_FLOPS * 1e3
-    return n_rays, bound_ms, cs.KERNEL_TOL, make_run, error
+    return n_rays, bound_ms, cs.KERNEL_TOL, make_run, error, lambda: (out, hs)
 
 
 def _train_bwd_runner(torch, dev, seed):
@@ -767,7 +830,7 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    n_rays, bound_ms, tol, make_run, error = RUNNERS[args.kernel](torch, dev, args.seed)
+    n_rays, bound_ms, tol, make_run, error = RUNNERS[args.kernel](torch, dev, args.seed)[:5]
 
     result = {"kernel": args.kernel, "rays": n_rays, "bound_ms": bound_ms,
               "variants": {}}

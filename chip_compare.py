@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Times kernel 6 (the sampler, csrc/sample_pdf.cu) and pass 1 of the
-training backward (r2l_train_bwd_kernel, csrc/r2l_train.cu) as built from
-several checkouts of the repository, in one process on one card, in turns,
-so that a kernel and its parent are compared on the same card in one call.
+"""Times kernels as built from several checkouts of the repository, in one
+process on one card, in turns, so that a kernel and its parent are compared
+on the same card in one call: kernel 6 (the sampler, csrc/sample_pdf.cu) and
+pass 1 of the training backward (r2l_train_bwd_kernel, csrc/r2l_train.cu), or
+with --kernels forward kernels 1 and 3a (r2l_forward_kernel,
+csrc/r2l_forward.cu, and r2l_train_fwd_kernel, csrc/r2l_train.cu).
 
     python3 chip_compare.py --tree new=. --tree parent=path/to/parent [--rounds 2]
+        [--kernels pass1|forward]
 
 Each tree's two sources are built with the port's nvcc flags into
 build/compare/<label>/ (as chip_breakdown.py builds a variant: the tree's
@@ -19,6 +22,11 @@ inputs, made by this checkout's package at the main path's shapes:
            weight gradients by this checkout's pass 2 and held against the
            first tree's (max |a - b| / max |b|, within chip_smoke.py's
            TRAIN_TOL["grad"]).
+forward: kernel 1 on the rays of one 400x400 frame (160,000) and kernel 3a
+on the training step's 98,304 rays of sample points, W256 D88 with the
+global residual (chip_breakdown.py's shapes); each tree's outputs (rgb, and
+3a's hs) against the first tree's, bit for bit: the count of values that
+differ.
 A tree whose pass 1 takes no transposed body (body_wt) is called with the
 older signature. The rounds run the trees in order, then in reverse order
 (A B, B A, ...). Prints a line a measurement, the card's name and power
@@ -35,10 +43,10 @@ import chip_breakdown as cb
 import chip_smoke as cs
 
 
-def _tree_libs(label: str, root: Path, out_dir: Path, build):
+def _tree_libs(label: str, root: Path, out_dir: Path, build, sources):
     csrc = root / "efficient_nerf_tpu_torch" / "csrc"
     libs = {}
-    for source in ("sample_pdf.cu", "r2l_train.cu"):
+    for source in sources:
         so, _ = cb._build(f"{label}-{source[:-3]}", {}, source, out_dir, build._nvcc(),
                           build.NVCC_FLAGS, csrc)
         libs[source] = ctypes.CDLL(str(so))
@@ -53,7 +61,10 @@ def main() -> None:
                     help="label=path of a checkout (at least one)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels", choices=("pass1", "forward"), default="pass1")
     args = ap.parse_args()
+    if args.kernels == "forward":
+        return compare_forward(args)
 
     import torch
 
@@ -66,7 +77,8 @@ def main() -> None:
 
     trees = [t.split("=", 1) for t in args.tree]
     out_dir = build.BUILD_DIR / "compare"
-    libs = {label: _tree_libs(label, Path(path).resolve(), out_dir, build)
+    libs = {label: _tree_libs(label, Path(path).resolve(), out_dir, build,
+                              ("sample_pdf.cu", "r2l_train.cu"))
             for label, path in trees}
 
     dev = torch.device("cuda", 0)
@@ -156,6 +168,62 @@ def main() -> None:
             t["pass1_ms"].append(cs.cuda_ms(torch, pass1, 5))
             print(f"round {r} {label}: sampler {t['sampler_ms'][-1]:.4f} ms; pass 1 "
                   f"{t['pass1_ms'][-1]:.3f} ms", flush=True)
+    card = cs.gpu_line()
+    print(card, flush=True)
+    print(json.dumps({"card": card, "agree": agree, "times": times}))
+
+
+def compare_forward(args) -> None:
+    """Kernels 1 and 3a of each tree: bits against the first tree's, then
+    their times in turns."""
+    import torch
+
+    from efficient_nerf_tpu_torch.ops import _build as build
+    from efficient_nerf_tpu_torch.ops import r2l_forward as fwd
+    from efficient_nerf_tpu_torch.ops import r2l_train as rt
+
+    trees = [t.split("=", 1) for t in args.tree]
+    out_dir = build.BUILD_DIR / "compare"
+    libs = {label: _tree_libs(label, Path(path).resolve(), out_dir, build,
+                              ("r2l_forward.cu", "r2l_train.cu"))[0]
+            for label, path in trees}
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the inputs of chip_breakdown.py's serve and train_fwd runners
+    serve_runner = cb._serve_runner(torch, dev, args.seed)
+    train_runner = cb._train_fwd_runner(torch, dev, args.seed)
+    runs = {label: (serve_runner[3](lib_set["r2l_forward.cu"]),
+                    train_runner[3](lib_set["r2l_train.cu"]))
+            for label, lib_set in libs.items()}
+    outputs = (serve_runner[5], train_runner[5])
+
+    agree, first = {}, None
+    for label, pair in runs.items():
+        got = []
+        for run, out in zip(pair, outputs):
+            for t in out():
+                t.zero_()
+            if run():
+                cs.fail(f"{label}: launch failed")
+            torch.cuda.synchronize()
+            got.append([t.clone() for t in out()])
+        if first is None:
+            first = got
+        agree[label] = {name: int(sum((a != b).sum().item() for a, b in zip(g, f)))
+                        for name, g, f in zip(("serve", "train_fwd"), got, first)}
+        print(f"{label}: values differing from {trees[0][0]}'s: {agree[label]}", flush=True)
+        del got
+
+    times = {label: {"serve_ms": [], "train_fwd_ms": []} for label in runs}
+    order = list(runs)
+    for r in range(args.rounds):
+        for label in (order if r % 2 == 0 else order[::-1]):
+            serve, train = runs[label]
+            t = times[label]
+            t["serve_ms"].append(cs.cuda_ms(torch, serve, 10))
+            t["train_fwd_ms"].append(cs.cuda_ms(torch, train, 10))
+            print(f"round {r} {label}: kernel 1 {t['serve_ms'][-1]:.4f} ms; kernel 3a "
+                  f"{t['train_fwd_ms'][-1]:.4f} ms", flush=True)
     card = cs.gpu_line()
     print(card, flush=True)
     print(json.dumps({"card": card, "agree": agree, "times": times}))

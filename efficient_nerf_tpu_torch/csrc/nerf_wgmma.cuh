@@ -390,17 +390,7 @@ struct Slot {
   }
 };
 
-// bf16x2 of (lo, hi), round to nearest; with RELU, negatives to 0 (the
-// same bits as rounding relu(x), for every x but NaN).
-template <bool RELU>
-__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
-  unsigned r;
-  if (RELU)
-    asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  else
-    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
+using wg::bf16x2;
 
 __device__ __forceinline__ float lo_f(unsigned h) { return __uint_as_float(h << 16); }
 __device__ __forceinline__ float hi_f(unsigned h) { return __uint_as_float(h & 0xffff0000u); }

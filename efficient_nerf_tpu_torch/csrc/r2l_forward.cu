@@ -74,6 +74,9 @@ extern "C" long long r2l_forward_smem_bytes(int in_pad, int W) {
   return (long long)wg::layout(in_pad, wg::round_up64(W), true).total;
 }
 
+// The kernel's instantiation for (in_pad, W): wg::tile_kind.
+extern "C" int r2l_forward_tile_kind(int in_pad, int W) { return wg::tile_kind(in_pad, W); }
+
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 = ok).
 // Shapes are checked by the Python wrapper; the checks here guard the
 // kernel's own assumptions.

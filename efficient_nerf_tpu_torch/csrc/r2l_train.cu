@@ -721,6 +721,9 @@ extern "C" long long r2l_train_fwd_smem_bytes(int in_pad, int W) {
   return (long long)wg::layout(in_pad, wg::round_up64(W), true).total;
 }
 
+// The training forward's instantiation for (in_pad, W): wg::tile_kind.
+extern "C" int r2l_train_fwd_tile_kind(int in_pad, int W) { return wg::tile_kind(in_pad, W); }
+
 extern "C" long long r2l_train_bwd_smem_bytes(int in_pad, int W) {
   return (long long)bwd_layout(in_pad, W).total;
 }

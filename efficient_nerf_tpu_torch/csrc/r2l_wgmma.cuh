@@ -18,21 +18,25 @@
 // against 11.8 MB of weights that every tile reads (W256 D88). With 64 rays
 // a tile the weights cross from L2 to the SMs once a tile: 29.5 GB for a
 // 160,000-ray frame. The design:
-//   * A TMA weight ring with no block barrier. One thread loads each [Wp,
-//     64] weight chunk (Wp = W rounded up to 64; 64 contraction columns =
-//     one 128-byte swizzle row) with one cp.async.bulk.tensor from 3-D tensor
-//     maps over head_w [W, in_pad] and body_w [2 n_block][W][W], into a ring
-//     of S stages, each guarded by a full and an empty mbarrier, S chunks
-//     ahead of the products. Rows and columns past W land as zeros, so a
-//     width that is not a multiple of 64 runs on zero padding. The loading
-//     thread is one of the consumers: a producer warpgroup makes the block
-//     384 threads, three warps on each SM sub-partition, which caps ptxas at
-//     168 registers a thread in every branch (setmaxnreg moves registers at
-//     run time but ptxas allocated the consumers within 168 and spilled
-//     their sums, PERF.md); with 256 threads each has 255. It waits for a
-//     stage to be free before its own next product: a loader that defers a
-//     load whose stage is not yet free, and so stalls less, starved the
-//     ring and measured slower (PERF.md).
+//   * A TMA weight ring that no thread waits on to load. Each [Wp, 64]
+//     weight chunk (Wp = W rounded up to 64; 64 contraction columns = one
+//     128-byte swizzle row) is one cp.async.bulk.tensor from 3-D tensor maps
+//     over head_w [W, in_pad] and body_w [2 n_block][W][W] into a ring of S
+//     stages, S chunks ahead of the products, completing on the stage's full
+//     mbarrier. Rows and columns past W land as zeros, so a width that is not
+//     a multiple of 64 runs on zero padding. Thread 0 loads the first S
+//     chunks; after that each warp, once its products have read a stage,
+//     counts its release in shared memory (an acq_rel atomic), and the warp
+//     whose release is the stage's eighth loads the chunk S ahead into it.
+//     A loading thread that waits for the stage to be free (the design
+//     before, an empty mbarrier and thread 0) holds its warpgroup to the
+//     slowest warp of the other at every chunk, and one that defers a load
+//     starves the ring (PERF.md: both measured slower). The loaders are
+//     consumers: a producer warpgroup makes the block 384 threads, three
+//     warps on each SM sub-partition, which caps ptxas at 168 registers a
+//     thread in every branch (setmaxnreg moves registers at run time but
+//     ptxas allocated the consumers within 168 and spilled their sums,
+//     PERF.md); with 256 threads each has 255.
 //   * wgmma for the products. The block's two warpgroups share the tile's 64
 //     rays: warpgroup g owns output columns [g NT, g NT + NT), NT = Wp / 2,
 //     of every layer and issues wgmma.mma_async m64nNTk16 (bf16 in, f32
@@ -40,9 +44,31 @@
 //     K-major in the 128-byte swizzle that TMA writes. Each thread holds NT
 //     / 2 f32 sums and the NT / 2 f32 values of the residual stream h that
 //     it owns, across all layers. The epilogues write a / a2 straight into
-//     the swizzled layout that the next layer's A descriptor reads. The
-//     block meets at one barrier per layer, where the epilogue's writes
-//     must precede the next layer's reads.
+//     the swizzled layout that the next layer's A descriptor reads. Each
+//     thread's biases of the next layer are loaded as the epilogue uses this
+//     layer's, a layer ahead: an L2 read under the weight stream outlasts a
+//     layer's products (PERF.md).
+//   * Per-panel barriers where each warpgroup owns whole 64-column panels of
+//     a and a2 (NT a multiple of 64: W 65-128 and 193-256; per_panel). A
+//     layer's epilogue writes its panels one at a time by stmatrix (four
+//     8x8 matrices of bf16 pairs, packed by cvt.rn[.relu].bf16x2), fences
+//     each for the async proxy and arrives on that panel's mbarrier (one
+//     arrival a warp of the owner); the next layer's products wait for panel
+//     k just before their chunk k. So a warpgroup starts on its own panels
+//     as soon as it has written them and on the other's as each is written,
+//     and no block barrier holds both to the slower epilogue. A panel is
+//     rewritten two layers on, after its owner has passed the other
+//     warpgroup's signals of the layer between, which follow that warpgroup's
+//     reads: a and a2 need no more barriers. At other widths (NT 32, 96) a
+//     warpgroup's columns straddle a panel, and the block meets at one
+//     barrier a layer. The choice is made by NT at compile time, as PARTS
+//     is.
+//   * Why not two tiles in flight, one's epilogue under the other's
+//     products: at W256 a thread keeps 64 f32 sums and 64 f32 values of h
+//     (the residual stream is f32 by the precision contract), and the tile
+//     takes ~240 of 255 registers and 224 of 227 KB of shared memory; a
+//     second tile doubles both, and four consumer warpgroups would cap a
+//     thread at 128 registers.
 //   * No cluster: each block streams every chunk alone. Two blocks that
 //     share each chunk by multicast read half the weights from L2, but a
 //     stage is then freed only when the warps of both have read it, and
@@ -63,17 +89,20 @@
 //   * hs (training): after the head and each odd layer, the a tile *is*
 //     bf16(h) = hs[blk]; one thread stores it with TMA (one box a 64-column
 //     panel; rows past B are not written) and waits for the store to have
-//     read a before the barrier that precedes a's next write.
+//     read a before the barrier that precedes a's next write. Per-panel:
+//     each warpgroup's first thread stores its own panels as the next layer
+//     reads them, once their signals have come, and waits for those stores
+//     to have read a before its next signal, which a's next write follows.
 //
 // Shared memory (W = 256, in_pad = 1024): the ring, S x 32 KB; a and a2,
 // 32 KB each, and h0 (f32, 64 KB, each thread's own values), which the
 // embed (64 x in_pad bf16, 128 KB) overlays during the head: 224 KB, and
-// the barriers. A wider input (in_pad above 1024 at W = 256, above 1408 at
-// W = 128) runs the head in parts (PARTS): the embed's columns that fit,
-// their products, then the next columns over the same space, the sums
-// carried in registers. PARTS is a template parameter, not a test at run
-// time: the column test in every embed store slowed the one-part tile by 3%
-// (PERF.md).
+// the barriers (the ring's and the panels'). A wider input (in_pad above
+// 1024 at W = 256, above 1408 at W = 128) runs the head in parts (PARTS):
+// the embed's columns that fit, their products, then the next columns over
+// the same space, the sums carried in registers. PARTS is a template
+// parameter, not a test at run time: the column test in every embed store
+// slowed the one-part tile by 3% (PERF.md).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -96,6 +125,12 @@ constexpr int PANEL = TB * KC;          // bf16 of one swizzled [64, 64] panel (
 constexpr int KC8 = 128;                // contraction columns of an int8 chunk (128 bytes)
 constexpr int PANEL8 = TB * KC8;        // bytes of one swizzled [64, 128] int8 panel (8 KB)
 constexpr int MAX_SMEM = 232448;        // 227 KB, the opt-in limit of sm_90
+constexpr int NREADY = 2 * 4;           // per-panel barriers: a and a2, up to 4 panels each
+
+// The bf16 body signals each 64-column panel of a and a2 on its own barrier
+// where each warpgroup owns whole panels (NT a multiple of 64: W 65-128 and
+// 193-256), and meets at a block barrier per layer otherwise.
+__host__ __device__ constexpr bool per_panel(int NT) { return NT % KC == 0; }
 
 // Tensor maps: the weights as [layer][out][in] (head: one layer), read in
 // boxes of 64 input columns x Wp output rows; hs as [block][ray][col],
@@ -163,7 +198,8 @@ __host__ __device__ inline Layout layout(int in_pad, int Wp, bool h0, bool s8 = 
   const size_t a_a2 = s8 ? max_sz(2 * q8, act) : 2 * act, hb = h0 ? (size_t)TB * Wp * 4 : 0;
   const size_t c8 = s8 ? (size_t)2 * 2 * Wp * 4 : 0, rmax = s8 ? (size_t)2 * 2 * TB * 4 : 0;
   const size_t acts = a_a2 + hb + c8 + rmax;
-  const size_t bars = 2 * S * sizeof(uint64_t), slack = 1024, panel = (size_t)PANEL * 2;
+  const size_t bars = (2 * S + NREADY) * sizeof(uint64_t), slack = 1024;
+  const size_t panel = (size_t)PANEL * 2;
   const size_t room = MAX_SMEM - S * stage - bars - slack;
   size_t panels = (size_t)in_pad / KC;
   if (panels * panel > room) panels = room / panel;
@@ -230,6 +266,38 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
 
 __device__ __forceinline__ void st_bf16x2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// bf16x2 of (lo, hi), lo in the low half, round to nearest; with RELU,
+// negatives to 0 (the same bits as rounding relu(x), for every x but NaN).
+template <bool RELU>
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  unsigned r;
+  if (RELU)
+    asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  else
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// Four 8x8 bf16 matrices, r_m holding this thread's pair of matrix m (row
+// lane / 4, columns 2 (lane % 4), + 1, as an accumulator fragment holds
+// them); lane l gives the shared address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void stmatrix4(unsigned addr, unsigned r0, unsigned r1, unsigned r2,
+                                          unsigned r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// *p += v in shared memory, acquire-release at block scope; the old value
+__device__ __forceinline__ unsigned atom_add_acq_rel(unsigned* p, unsigned v) {
+  unsigned old;
+  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "r"(tma_smem_addr(p)), "r"(v)
+               : "memory");
+  return old;
 }
 
 // d (+)= A[64, 16] B[16, N]^T, m64nNk16 bf16 -> f32; accumulate = 0 starts
@@ -365,6 +433,8 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
                                              unsigned char* smem_raw, Point point) {
   constexpr int WP = 2 * NT, NCH = WP / KC, NA = NT / 2;
   constexpr bool S8 = Q != Q_BF16;
+  constexpr bool PP = !S8 && per_panel(NT);  // the bf16 body on per-panel barriers
+  constexpr int NPW = NT / KC;               // PP: the panels a warpgroup owns
   constexpr int KB = S8 ? KC8 : KC, NB = (WP + KB - 1) / KB;  // a body layer's chunks
   unsigned char* smem = smem_raw + ((1024 - (tma_smem_addr(smem_raw) & 1023)) & 1023);
   const bool gr = p.global_residual != 0;
@@ -375,26 +445,29 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
   __nv_bfloat16* emb = reinterpret_cast<__nv_bfloat16*>(smem + lay.emb);
   float* h0 = reinterpret_cast<float*>(smem + lay.h0);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
-  uint64_t* empty = full + S;
+  unsigned* freed = reinterpret_cast<unsigned*>(full + S);  // [S] warps' releases of each stage
+  uint64_t* ready = full + 2 * S;  // PP: [a, a2][NCH] panel p of a or a2 written
   const int tid = threadIdx.x;
   const long long ray0 = (long long)blockIdx.x * TB;
   const int head_chunks = p.in_pad / KC, nb = p.n_block;
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);                // the loading thread's arrive, plus the bytes
-      mbar_init(&empty[s], NTHREADS / 32);   // every warp
+      mbar_init(&full[s], 1);  // the loading thread's arrive, plus the bytes
+      freed[s] = 0u;
     }
+    if (PP)
+      for (int q = 0; q < 2 * NCH; ++q) mbar_init(&ready[q], 4);  // the owner's 4 warps
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();  // the barriers exist before any copy or arrival
 
-  // ---- the loads: thread 0 streams every chunk of the head and the body,
-  // S chunks ahead of the products; a box is 128 bytes of each of Wp rows
+  // ---- the loads: every chunk of the head and the body, S chunks ahead of
+  // the products; a box is 128 bytes of each of Wp rows. Thread 0 loads the
+  // first S; then the warp that frees a stage last loads the next chunk into it
   const int total = head_chunks + 2 * nb * NB;
   auto issue = [&](int n) {
     if (n >= total) return;
     const int s = n % S;
-    mbar_wait(&empty[s], ((n / S) & 1) ^ 1);
     const bool head = n < head_chunks;
     const int k = head ? n : (n - head_chunks) % NB;
     const int layer = head ? 0 : (n - head_chunks) / NB;
@@ -414,18 +487,31 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
   for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
   int c = 0;  // chunks consumed
 
-  // frees the stage of chunk `read` once this warp's products have read it;
-  // thread 0 then loads chunk read + S
+  // this warp's products have read chunk `read`: the warp whose release is
+  // the last of the stage's round loads chunk read + S into it, so that no
+  // thread waits for a stage to be free
   auto release = [&](int read) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[read % S]);
-    if (tid == 0) issue(read + S);
+    if (lane == 0 && atom_add_acq_rel(&freed[read % S], 1u) % (NTHREADS / 32) ==
+                         NTHREADS / 32 - 1)
+      issue(read + S);
   };
   // acc (+)= X[64, 64 n] @ (the next n chunks)^T, X in swizzled panels; the
-  // sums start from acc with `carry`, else from zero
-  auto products = [&](const __nv_bfloat16* X, int n, bool carry) {
+  // sums start from acc with `carry`, else from zero. PP, rdy: each chunk
+  // first waits for its panel of X, signalled on rdy[k] in phase `par`; with
+  // hs_blk >= 0 each warpgroup's first thread then stores its own panels of X
+  // as hs[hs_blk]
+  auto products = [&](const __nv_bfloat16* X, int n, bool carry, uint64_t* rdy, unsigned par,
+                      int hs_blk) {
     for (int kc = 0; kc < n; ++kc, ++c) {
       const int s = c % S;
+      if (PP && rdy != nullptr) {
+        mbar_wait(&rdy[kc], par);
+        if (HS && hs_blk >= 0 && tid % 128 == 0 && kc / NPW == wgi && KC * kc < W) {
+          tma_store_box(&maps.hs, X + kc * PANEL, KC * kc, (int)ray0, hs_blk);
+          if (kc % NPW == NPW - 1) bulk_commit();
+        }
+      }
       mbar_wait(&full[s], (c / S) & 1);
       const uint64_t da = desc(X + kc * PANEL);
       const uint64_t db = desc(ring + (size_t)s * WP * KC + wgi * NT * KC);
@@ -460,16 +546,50 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
     __syncthreads();
   };
 
-  // this thread's bias pairs of a layer, loaded before the layer's products
-  // so that their latency hides behind them (the biases, 88 KB at W256 D88,
-  // do not stay in the L1 beside 227 KB of shared memory)
+  // this thread's bias pairs of a layer: bias[j] of column group j. The
+  // biases (88 KB at W256 D88) do not stay in the L1 beside 227 KB of shared
+  // memory, and an L2 read under the weight stream takes longer than a
+  // layer's products: so each epilogue, once it has used bias[j], loads the
+  // next layer's into it, a whole layer ahead of its use
   float2 bias[NT / 8];
-  auto load_bias = [&](const float* b) {
-#pragma unroll
-    for (int j = 0; j < NT / 8; ++j) {
-      const int col = col0 + 8 * j;
+  auto load_bias_j = [&](const float* b, int j) {
+    const int col = col0 + 8 * j;
+    if (b != nullptr)
       bias[j] = col < W ? __ldg(reinterpret_cast<const float2*>(b + col))
                         : make_float2(0.0f, 0.0f);
+  };
+  // body layer l's biases, or null past the last layer
+  auto body_bias = [&](int l) -> const float* {
+    return l < 2 * nb ? p.body_b + (size_t)l * W : nullptr;
+  };
+
+  // PP: the stmatrix address of lane l is row lrow of 8x8 matrix l / 8, which
+  // holds rows + 8 (m & 1) of column group j + (m >> 1) for the pair (j, j +
+  // 1), j even; its 16-byte chunk in the swizzled row is (j % 8) ^ lx
+  const int lrow = wr + (lane & 7) + 8 * ((lane >> 3) & 1), lx = (lane >> 4) ^ (lane & 7);
+  // PP: an epilogue into this warpgroup's panels of dst. pair(i) gives the
+  // bf16x2 of values i, i + 1 (column group i / 4, row g + 8 ((i / 2) % 2));
+  // once groups j and j + 1 are made, next(j), next(j + 1). Each panel is
+  // then fenced for the async proxy and signalled on rdy by its 4 warps, so
+  // that the next layer's products of that panel need not wait for the rest
+  // (the hs stores of a that went before have read it by then: the next write
+  // of a follows this signal)
+  auto epilogue_pp = [&](__nv_bfloat16* dst, uint64_t* rdy, auto pair, auto next) {
+#pragma unroll
+    for (int q = 0; q < NPW; ++q) {
+      const int pn = wgi * NPW + q;
+      const unsigned at = tma_smem_addr(dst + pn * PANEL) + lrow * 128;
+#pragma unroll
+      for (int jj = 0; jj < 8; jj += 2) {
+        const int i = 4 * (8 * q + jj);
+        stmatrix4(at + ((jj ^ lx) << 4), pair(i), pair(i + 2), pair(i + 4), pair(i + 6));
+        next(8 * q + jj);
+        next(8 * q + jj + 1);
+      }
+      fence_proxy_async();
+      if (HS && q == 0 && tid % 128 == 0) bulk_wait_read();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&rdy[pn]);
     }
   };
 
@@ -499,65 +619,97 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
   // part before have read it, their products added to the same sums
   embed(0, lay.emb_cols);
   end_layer();
-  load_bias(p.head_b);
-  products(emb, lay.emb_cols / KC, false);
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j) load_bias_j(p.head_b, j);
+  products(emb, lay.emb_cols / KC, false, nullptr, 0u, -1);
   for (int lo = lay.emb_cols; PARTS && lo < p.in_pad; lo += lay.emb_cols) {
     const int n = p.in_pad - lo < lay.emb_cols ? p.in_pad - lo : lay.emb_cols;
     __syncthreads();
     embed(lo, n);
     end_layer();
-    products(emb, n / KC, true);
+    products(emb, n / KC, true, nullptr, 0u, -1);
   }
   __syncthreads();  // every head product has read the embed, which a, a2 and h0 overlay
+  const float* first_b = S8 ? nullptr : body_bias(0);  // (the int8 body prefetches its own)
+  // h = relu(acc + b): the residual stream, h0 its copy, a = bf16(h)
+  auto head_pair = [&](int i) {
+    const float2 b = bias[i / 4];
+    h[i] = fmaxf(acc[i] + b.x, 0.0f);
+    h[i + 1] = fmaxf(acc[i + 1] + b.y, 0.0f);
+    if (gr) {
+      h0[i * NTHREADS + tid] = h[i];
+      h0[(i + 1) * NTHREADS + tid] = h[i + 1];
+    }
+    return bf16x2<false>(h[i], h[i + 1]);
+  };
+  if constexpr (PP) {
+    epilogue_pp(a, ready, head_pair, [&](int j) { load_bias_j(first_b, j); });
+  } else {
 #pragma unroll
-  for (int j = 0; j < NT / 8; ++j) {
-    const int col = col0 + 8 * j;
-    const float2 b = bias[j];
+    for (int j = 0; j < NT / 8; ++j) {
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int i = 4 * j + 2 * hf, row = wr + g + 8 * hf;
-      h[i] = fmaxf(acc[i] + b.x, 0.0f);
-      h[i + 1] = fmaxf(acc[i + 1] + b.y, 0.0f);
-      if (!S8) st_bf16x2(a + swz(row, col), h[i], h[i + 1]);
-      if (gr) {
-        h0[i * NTHREADS + tid] = h[i];
-        h0[(i + 1) * NTHREADS + tid] = h[i + 1];
+      for (int hf = 0; hf < 2; ++hf) {
+        const unsigned v = head_pair(4 * j + 2 * hf);
+        if (!S8) *reinterpret_cast<unsigned*>(a + swz(wr + g + 8 * hf, col0 + 8 * j)) = v;
       }
+      load_bias_j(first_b, j);
     }
   }
   const float rs = p.res_scale;
   if constexpr (!S8) {
-    end_layer();
-    store_hs(0);
+    if (!PP) {
+      end_layer();
+      store_hs(0);
+    }
 
     // ---- residual blocks, 2 n_block layers:
     //   even l: a2 = bf16(relu(a @ w1 + b1))
     //   odd l:  h = (a2 @ w2 + b2) * res_scale + h;  a = bf16(h) = hs[(l + 1) / 2]
+    // PP: layer l reads the panels of a (even) or a2 (odd) in phase (l / 2) % 2
+    // of their barriers, and the even layers store hs[l / 2] = a as they read it
     for (int l = 0; l < 2 * nb; ++l) {
       const bool odd = l & 1;
-      load_bias(p.body_b + (size_t)l * W);
-      products(odd ? a2 : a, NCH, false);
+      const float* next_b = body_bias(l + 1);
+      auto even_pair = [&](int i) {
+        const float2 b = bias[i / 4];
+        return bf16x2<true>(acc[i] + b.x, acc[i + 1] + b.y);
+      };
+      // rounded as the plain version rounds it (no FMA)
+      auto odd_pair = [&](int i) {
+        const float2 b = bias[i / 4];
+        h[i] = __fadd_rn(__fmul_rn(acc[i] + b.x, rs), h[i]);
+        h[i + 1] = __fadd_rn(__fmul_rn(acc[i + 1] + b.y, rs), h[i + 1]);
+        return bf16x2<false>(h[i], h[i + 1]);
+      };
+      auto next = [&](int j) { load_bias_j(next_b, j); };
+      if constexpr (PP) {
+        products(odd ? a2 : a, NCH, false, ready + (odd ? NCH : 0), (unsigned)(l / 2) & 1u,
+                 odd ? -1 : l / 2);
+        if (odd)
+          epilogue_pp(a, ready, odd_pair, next);
+        else
+          epilogue_pp(a2, ready + NCH, even_pair, next);
+      } else {
+        products(odd ? a2 : a, NCH, false, nullptr, 0u, -1);
 #pragma unroll
-      for (int j = 0; j < NT / 8; ++j) {
-        const int col = col0 + 8 * j;
-        const float2 b = bias[j];
+        for (int j = 0; j < NT / 8; ++j) {
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int i = 4 * j + 2 * hf, row = wr + g + 8 * hf;
-          const float v0 = acc[i] + b.x, v1 = acc[i + 1] + b.y;
-          if (!odd) {
-            st_bf16x2(a2 + swz(row, col), fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
-          } else {
-            // rounded as the plain version rounds it (no FMA)
-            h[i] = __fadd_rn(__fmul_rn(v0, rs), h[i]);
-            h[i + 1] = __fadd_rn(__fmul_rn(v1, rs), h[i + 1]);
-            st_bf16x2(a + swz(row, col), h[i], h[i + 1]);
+          for (int hf = 0; hf < 2; ++hf) {
+            const int i = 4 * j + 2 * hf;
+            unsigned* at = reinterpret_cast<unsigned*>((odd ? a : a2) +
+                                                       swz(wr + g + 8 * hf, col0 + 8 * j));
+            *at = odd ? odd_pair(i) : even_pair(i);
           }
+          next(j);
         }
+        end_layer();
+        const int blk = (l + 1) / 2;  // the block h now enters
+        if (odd && (blk < nb || !gr)) store_hs(blk);
       }
+    }
+    if (PP) {  // the last layer's panels reach the tail (and hs[nb] without h0)
       end_layer();
-      const int blk = (l + 1) / 2;  // the block h now enters
-      if (odd && (blk < nb || !gr)) store_hs(blk);
+      if (!gr) store_hs(nb);
     }
 
     // ---- optional global residual (+ h0): the tail's input, hs[nb]
@@ -774,7 +926,7 @@ __device__ __forceinline__ void forward_tile(const Maps& maps, const Net& p,
     if (lane == 0 && ray < p.B)
       p.out[ray * p.out_dim + j] = 1.0f / (1.0f + expf(-(sum + p.tail_b[j])));
   }
-  if (HS && tid == 0) bulk_wait();
+  if (HS && tid % 128 == 0) bulk_wait();
 }
 
 // Shape checks of the tile, for the launchers.
@@ -795,6 +947,14 @@ inline bool weight_maps(Maps* m, const void* head_w, const void* body_w, int in_
   return fn != nullptr &&
          encode(fn, &m->head, head_w, in_pad, W, 1, 2LL * in_pad, 2LL * in_pad * W, rows) &&
          encode(fn, &m->body, body_w, W, W, 2LL * n_block, rb, rb * W, rows, body_bytes);
+}
+
+// The instantiation that launch_tile takes for (in_pad, W): bit 0 set where
+// the head runs in parts (PARTS), bit 1 where the body runs on per-panel
+// barriers (per_panel(NT)).
+inline int tile_kind(int in_pad, int W) {
+  const int wp = round_up64(W);
+  return (layout(in_pad, wp, false).emb_cols < in_pad ? 1 : 0) | (per_panel(wp / 2) ? 2 : 0);
 }
 
 // Launches K<NT>'s forward_tile kernel with NT = round_up64(W) / 2 on

@@ -11,7 +11,10 @@ csrc/r2l_wgmma.cuh that the training forward shares; this module holds
     to a multiple of 64;
   * `r2l_forward_fused`: the wrapper. A CUDA tensor launches the kernel or
     raises; a CPU tensor runs the plain version. `r2l_forward_fused.launches`
-    counts kernel launches;
+    counts kernel launches, and `.panel_launches` those of the instantiation
+    whose body runs on per-panel barriers (`tile_kind`);
+  * `tile_kind`: the kernel instantiation the launcher takes for a width and
+    an input width, as csrc/r2l_wgmma.cuh's `tile_kind` computes it;
   * `r2l_forward_fused_ref`: the plain version, which repeats the kernel's
     arithmetic in torch: exact f32 points, `fast_sincos` plus doubling, the
     permuted head, and matmuls with `dtype` operands and f32 accumulation,
@@ -24,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Mapping
+from typing import Dict, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -34,23 +37,45 @@ from ._build import load_kernels
 from .trig import fast_sincos
 
 __all__ = ["pack_r2l_weights", "r2l_forward_fused", "r2l_forward_fused_ref",
-           "r2l_forward_flops"]
+           "r2l_forward_flops", "tile_kind", "TileKind"]
 
 MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 IN_ALIGN = 64      # the kernel streams weights in chunks of 64 input columns
 WIDTH_ALIGN = 32   # the kernel pads the width to a multiple of 64 with zeros
 MAX_WIDTH = 256    # two warpgroups of 128 output columns
+_RING_STAGES, _BARRIER_BYTES, _ALIGN_SLACK = 3, (2 * 3 + 8) * 8, 1024  # r2l_wgmma.cuh
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "r2l_forward_smem_bytes": (ctypes.c_longlong, (_I, _I)),
+    "r2l_forward_tile_kind": (_I, (_I, _I)),
     # (rays_o, rays_d, z, head_w, head_b, body_w, body_b, tail_w, tail_b,
     #  out, B, n_sample, L, in_pad, W, n_block, out_dim, res_scale,
     #  global_residual, stream) -> cudaError_t
     "r2l_forward_launch": (_I, (_P,) * 10 + (_I,) * 7
                            + (ctypes.c_float, _I, _P)),
 }
+
+
+class TileKind(NamedTuple):
+    nt: int          # output columns a warpgroup: the width padded to 64, halved
+    parts: bool      # the head in parts: the embed does not fit beside the ring
+    per_panel: bool  # the body on per-panel barriers: nt a multiple of 64
+
+
+def tile_kind(width: int, in_pad: int) -> TileKind:
+    """The instantiation of the wgmma tile (csrc/r2l_wgmma.cuh) that kernels
+    1 and 3a launch for `width` and the padded input width `in_pad`: the
+    embed's room beside the weight ring decides the head's parts, and each
+    warpgroup owning whole 64-column panels (widths 65-128 and 193-256)
+    the per-panel body. A mirror of the header's `tile_kind`, which the card
+    tests hold it to."""
+    wp = -(-width // IN_ALIGN) * IN_ALIGN
+    panel = 64 * IN_ALIGN * 2  # a [64 rays, 64 columns] bf16 panel
+    room = MAX_SMEM - _RING_STAGES * wp * IN_ALIGN * 2 - _BARRIER_BYTES - _ALIGN_SLACK
+    emb_cols = min(in_pad // IN_ALIGN, room // panel) * IN_ALIGN
+    return TileKind(wp // 2, emb_cols < in_pad, (wp // 2) % IN_ALIGN == 0)
 
 
 @functools.lru_cache(maxsize=8)
@@ -281,7 +306,9 @@ def r2l_forward_fused(packed, rays_o: torch.Tensor, rays_d: torch.Tensor,
     if err:
         raise RuntimeError(f"r2l_forward kernel launch failed: CUDA error {err}")
     r2l_forward_fused.launches += 1
+    r2l_forward_fused.panel_launches += tile_kind(width, in_pad).per_panel
     return out
 
 
 r2l_forward_fused.launches = 0
+r2l_forward_fused.panel_launches = 0

@@ -16,7 +16,8 @@ sums over the rays what the TPU grid summed tile by tile. This module holds
   * `r2l_train_fwd`, `r2l_train_bwd_act` (pass 1) and `r2l_train_wgrad`
     (pass 2): the kernels' wrappers. A CUDA tensor launches the kernel or
     raises; a CPU tensor runs the plain version. Each counts its launches in
-    `.launches`;
+    `.launches`, and `r2l_train_fwd.panel_launches` those of the forward
+    tile's per-panel instantiation (`r2l_forward.tile_kind`);
   * `r2l_train_bwd`: the whole backward, both passes over ray chunks of at
     most `RAY_CAP` rays, each chunk's gradients added in order;
   * `r2l_train_fwd_ref`, `r2l_train_bwd_act_ref`, `r2l_train_wgrad_ref`: the
@@ -42,7 +43,7 @@ import torch
 from ._build import load_kernels
 from ..device import to_device
 from ..utils.profiling import span
-from .r2l_forward import _doubling_head_perm_np, doubling_embed, doubling_sincos
+from .r2l_forward import _doubling_head_perm_np, doubling_embed, doubling_sincos, tile_kind
 
 __all__ = ["pack_r2l_train_weights", "r2l_train_fwd", "r2l_train_bwd",
            "r2l_train_bwd_act", "r2l_train_wgrad", "r2l_train_fwd_ref",
@@ -66,6 +67,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "r2l_train_fwd_smem_bytes": (ctypes.c_longlong, (_I, _I)),
+    "r2l_train_fwd_tile_kind": (_I, (_I, _I)),
     "r2l_train_bwd_smem_bytes": (ctypes.c_longlong, (_I, _I)),
     # (x, head_w, head_b, body_w, body_b, tail_w, tail_b, out, hs, B, x_cols,
     #  embed_L, in_pad, W, n_block, out_dim, res_scale, global_residual,
@@ -457,6 +459,7 @@ def r2l_train_fwd(packed, x: torch.Tensor, *, res_scale: float = 1.0,
     if err:
         raise RuntimeError(f"r2l_train_fwd kernel launch failed: CUDA error {err}")
     r2l_train_fwd.launches += 1
+    r2l_train_fwd.panel_launches += tile_kind(width, packed["head_w"].shape[1]).per_panel
     return out, hs
 
 
@@ -616,6 +619,7 @@ def r2l_train_bwd(packed, x: torch.Tensor, hs: torch.Tensor,
 
 
 r2l_train_fwd.launches = 0
+r2l_train_fwd.panel_launches = 0
 r2l_train_bwd_act.launches = 0
 r2l_train_wgrad.launches = 0
 

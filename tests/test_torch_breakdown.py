@@ -30,10 +30,11 @@ def _edited_files(kernel):
 
 def test_teacher_variants_edit_the_wgmma_tile():
     """The teacher's variants patch the field tile (which holds its launch
-    and its tile walk too) of the kernel they build, and the whole-ray
-    kernel has its no_glue variant."""
+    and its tile walk too) of the kernel they build, and the bf16 packing it
+    shares with the student's tile (no_cvt); the whole-ray kernel has its
+    no_glue variant."""
     assert cb.KERNELS["teacher"][0] == "nerf_forward.cu"
-    assert _edited_files("teacher") == {"nerf_wgmma.cuh"}
+    assert _edited_files("teacher") == {"nerf_wgmma.cuh", "r2l_wgmma.cuh"}
     assert {"no_loads", "no_products", "no_trig", "no_views", "no_epilogues",
             "block_barrier"} <= set(cb.KERNELS["teacher"][1])
     assert cb.KERNELS["frame"][0] == "nerf_frame.cu" and "no_glue" in cb.KERNELS["frame"][1]

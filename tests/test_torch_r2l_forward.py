@@ -12,6 +12,8 @@ from efficient_nerf_tpu.core.ray_sampler import sample_ray_points
 from efficient_nerf_tpu.ops.pallas import r2l_forward as jfwd
 from efficient_nerf_tpu_torch.models import R2LNet
 from efficient_nerf_tpu_torch.ops import r2l_forward as fwd
+from efficient_nerf_tpu_torch.ops import r2l_train as rt
+from efficient_nerf_tpu_torch.ops._build import load_kernels
 
 N_SAMPLE, L, DEPTH, WIDTH = 4, 10, 6, 64
 IN_DIM = N_SAMPLE * 3 * (2 * L + 1)   # 252: not a multiple of 16, so padded
@@ -28,6 +30,19 @@ WIDE = ((256, 20), (128, 24), (256, 24))
 # (~1e-4) of phase error that the net may amplify: the precedent of
 # tests/test_ops.py:64 for the same kernel in interpret mode
 TOL = 2e-4
+# (width, in_pad) -> (nt, parts, per_panel): the tile's instantiation. Each
+# warpgroup owns nt = width padded to 64, halved, output columns; the
+# per-panel body where those are whole 64-column panels (widths 65-128 and
+# 193-256); the head in parts past the embed's room beside the weight ring
+# (1024 columns at W256, 1408 at W128, 1216 at W192, 1600 at W64)
+TILE_KINDS = [((256, 1024), (128, False, True)), ((256, 1088), (128, True, True)),
+              ((224, 1280), (128, True, True)), ((192, 1216), (96, False, False)),
+              ((192, 1280), (96, True, False)), ((160, 256), (96, False, False)),
+              ((128, 1408), (64, False, True)), ((128, 1536), (64, True, True)),
+              ((96, 256), (64, False, True)), ((64, 1600), (32, False, False)),
+              ((32, 1664), (32, True, False))]
+# widths of the card tests and whether they take the per-panel body
+PER_PANEL = ((256, True), (96, True), (64, False), (160, False))
 
 
 @pytest.fixture
@@ -169,6 +184,11 @@ def test_pack_rejects_other_profiles(rng):
         fwd.r2l_forward_fused(packed, o, o, 2.0, 6.0, N_SAMPLE, L - 1)
 
 
+@pytest.mark.parametrize("shape,want", TILE_KINDS, ids=[f"W{w}-in{i}" for (w, i), _ in TILE_KINDS])
+def test_tile_kind_follows_the_widths(shape, want):
+    assert tuple(fwd.tile_kind(*shape)) == want
+
+
 def _card_model(rng, width, depth, use_residual, dev, n_sample=N_SAMPLE):
     # lecun-normal kernels with each block's second linear times 0.1, small
     # biases: the outputs stay clear of the sigmoid's flat ends (chip_smoke.py)
@@ -230,3 +250,39 @@ def test_kernel_runs_wide_inputs_in_parts(use_residual, width, n_sample, cuda_de
     contracts in parts with the head's sums carried across them."""
     packed = _card_model(rng, width, 6, use_residual, cuda_device, n_sample)
     _card_check(packed, 192, use_residual, cuda_device, rng, n_sample)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,per_panel", PER_PANEL)
+def test_kernel_takes_the_per_panel_body_by_width(width, per_panel, cuda_device, rng):
+    """W256 and W96 run the body on per-panel barriers, W64 and W160 on a
+    block barrier a layer: the launches counted as such, and right."""
+    packed = _card_model(rng, width, 6, True, cuda_device)
+    panel = fwd.r2l_forward_fused.panel_launches
+    _card_check(packed, 65, True, cuda_device, rng)
+    assert fwd.r2l_forward_fused.panel_launches - panel == (2 if per_panel else 0)
+
+
+@pytest.mark.cuda
+def test_tile_kind_is_the_launchers(cuda_device):
+    """tile_kind, which the counters read, is the choice of the launchers of
+    kernels 1 and 3a (csrc/r2l_wgmma.cuh's tile_kind) at every width."""
+    libs = ((load_kernels("r2l_forward", fwd._SIGNATURES), "r2l_forward_tile_kind"),
+            (load_kernels("r2l_train", rt._SIGNATURES), "r2l_train_fwd_tile_kind"))
+    for width in range(32, 257, 32):
+        for in_pad in (256, 1024, 1088, 1216, 1280, 1408, 1472, 1600, 1664):
+            kind = fwd.tile_kind(width, in_pad)
+            for lib, name in libs:
+                assert getattr(lib, name)(in_pad, width) == kind.parts | kind.per_panel << 1, \
+                    (name, width, in_pad)
+
+
+@pytest.mark.cuda
+def test_kernel_repeats_its_bits_on_a_frame(cuda_device, rng):
+    """A 400x400 frame's 160,000 rays at the serving shape (W256 D88, 16
+    samples): two calls give the same bits, whichever warpgroup reaches a
+    panel first, and agree with the plain version."""
+    packed = _card_model(rng, 256, 88, True, cuda_device, n_sample=16)
+    panel = fwd.r2l_forward_fused.panel_launches
+    _card_check(packed, 160_000, True, cuda_device, rng, n_sample=16)
+    assert fwd.r2l_forward_fused.panel_launches == panel + 2

@@ -490,6 +490,27 @@ def test_forward_kernel_other_widths(width, cuda_device, rng):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width,per_panel", [(256, True), (128, True), (64, False),
+                                             (192, False)])
+def test_forward_kernel_takes_the_per_panel_body_by_width(width, per_panel, cuda_device, rng):
+    """W256 and W128 run the body on per-panel barriers (the hs stores on
+    them too), W64 and W192 on a block barrier a layer."""
+    tm = _random_model(rng, 6, True, width=width).to(cuda_device)
+    panel = rt.r2l_train_fwd.panel_launches
+    _forward_check(rt.pack_r2l_train_weights(rt._model_params(tm), 10), 65, True,
+                   cuda_device, rng)
+    assert rt.r2l_train_fwd.panel_launches - panel == (2 if per_panel else 0)
+
+
+@pytest.mark.cuda
+def test_forward_kernel_repeats_its_bits_at_160000_rays(cuda_device, rng):
+    """160,000 rays at W256 D88: two calls give the same out and hs bits."""
+    tm = _random_model(rng, 88, True).to(cuda_device)
+    _forward_check(rt.pack_r2l_train_weights(rt._model_params(tm), 10), 160_000, True,
+                   cuda_device, rng)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("width,n_sample", WIDE)
 @pytest.mark.parametrize("embed_L", [0, 10])
 def test_forward_kernel_wide_inputs(embed_L, width, n_sample, cuda_device, rng):
