@@ -6,7 +6,14 @@
 
 Builds the kernel as shipped and variants of it made by replacing a few
 statements each, all with nvcc in parallel into build/kernels/breakdown/,
-and times each with CUDA events at the main path's shape (W256 D88).
+and times each with CUDA events on the benchmark's workload: the weights
+that perfbench/reference makes for r2l_w256d88 and nerf_lego, rays of one
+frame of serve_orbit's camera (lego's, for the teacher), the training
+step's 98,304 rays of distill_shards' batch. The shipped variant is the
+port's per-kernel timer; the bound beside it is the least time of the
+kernel's work at the card's peaks: the whole model's work and the bf16,
+f32 and HBM peaks from perfbench/yardstick.py, each backward pass's own
+work from ops/r2l_train.py, the int8 products at the int8 peak.
 
 serve: csrc/r2l_forward.cu on the rays of one 400x400 frame, its variants
 edited in the wgmma tile it includes (csrc/r2l_wgmma.cuh; at W256 the body
@@ -156,6 +163,8 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
 import chip_smoke as cs
+from perfbench import inputs
+from perfbench import yardstick as Y
 
 _WG = "r2l_wgmma.cuh"
 _WG_ISSUE = """    mbar_arrive_expect_tx(&full[s], WP * 128);
@@ -437,20 +446,62 @@ def _build(name, edited, source, out_dir, nvcc, flags, csrc):
     return so, regs
 
 
-def _serve_runner(torch, dev, seed):
-    from efficient_nerf_tpu_torch.core.poses import pose_spherical
+# The card's int8 tensor-core peak (H100 SXM data sheet, dense); the
+# yardstick holds the bf16, f32 and HBM peaks and no int8 one
+PEAK_INT8_OPS = 1979e12
+
+
+def bound(flops: float = 0.0, nbytes: float = 0.0, int8_ops: float = 0.0) -> float:
+    """The least ms the card could take: flops at the bf16 peak and int8_ops
+    at the int8 peak, or nbytes at the HBM rate, whichever is longer."""
+    return max(flops / Y.PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS,
+               nbytes / Y.PEAK_HBM_BYTES) * 1e3
+
+
+def _student_params(dev, seed):
+    """The r2l cells' weights of the flagship."""
+    from perfbench.reference import r2l_w256d88
+
+    return r2l_w256d88.init_params(cs.R2L, inputs.torch_generator(seed, dev, 0))
+
+
+def _teacher_params(dev, seed):
+    """The teacher_train cell's coarse network's weights."""
+    from perfbench.reference import nerf_lego
+
+    return nerf_lego.init_params(cs.TEACHER, inputs.torch_generator(seed, dev, 0))["coarse"]
+
+
+def _frame_rays(dev, focal):
+    """The rays of one 400x400 frame of the served orbit."""
     from efficient_nerf_tpu_torch.core.rays import get_rays
+
+    ro, rd = get_rays(cs.FRAME_H, cs.FRAME_W, focal, cs.orbit(-30.0)[:3, :4], device=dev)
+    return ro.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
+
+
+def _train_points(torch, dev, seed, n_rays):
+    """Perturbed sample points of n_rays random rays of the frame."""
+    from efficient_nerf_tpu_torch.core.ray_sampler import sample_ray_points
+
+    ro, rd = _frame_rays(dev, cs.FOCAL)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pick = torch.randint(0, ro.shape[0], (n_rays,), generator=gen, device=dev)
+    x = sample_ray_points(ro[pick], rd[pick], cs.NEAR, cs.FAR, cs.N_SAMPLE, perturb=True,
+                          generator=gen).contiguous()
+    return x, gen
+
+
+def _serve_runner(torch, dev, seed):
     from efficient_nerf_tpu_torch.ops import r2l_forward as fwd
 
-    sd = {k: v.to(dev) for k, v in cs.random_state_dict(seed, torch).items()}
-    packed = fwd.pack_r2l_weights(sd, cs.N_SAMPLE, cs.L_FREQ)
-    ro, rd = get_rays(cs.FRAME_H, cs.FRAME_W, cs.FOCAL,
-                      pose_spherical(-30.0, -30.0, 4.0)[:3, :4], device=dev)
-    ro, rd = ro.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
+    packed = fwd.pack_r2l_weights(_student_params(dev, seed), cs.N_SAMPLE, cs.L_FREQ)
+    grs = cs.R2L["use_residual"]
+    ro, rd = _frame_rays(dev, cs.FOCAL)
     n_rays = ro.shape[0]
     z = fwd._zvals(cs.NEAR, cs.FAR, cs.N_SAMPLE, dev)
-    want = fwd.r2l_forward_fused_ref(packed, ro, rd, cs.NEAR, cs.FAR,
-                                     cs.N_SAMPLE, cs.L_FREQ)
+    want = fwd.r2l_forward_fused_ref(packed, ro, rd, cs.NEAR, cs.FAR, cs.N_SAMPLE, cs.L_FREQ,
+                                     use_global_residual=grs)
     width, in_pad = packed["head_w"].shape
     n_block = packed["body_w"].shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -465,32 +516,29 @@ def _serve_runner(torch, dev, seed):
                               "head_w", "head_b", "body_w", "body_b", "tail_w",
                               "tail_b")),
                           out.data_ptr(), n_rays, cs.N_SAMPLE, cs.L_FREQ, in_pad,
-                          width, n_block, 3, 1.0, 0, stream)
+                          width, n_block, 3, 1.0, int(grs), stream)
 
     def error():
         return (out - want).abs().max().item()
 
-    bound_ms = fwd.r2l_forward_flops(packed, n_rays) / cs.H100_BF16_FLOPS * 1e3
+    bound_ms = bound(2.0 * n_rays * Y.r2l_forward_macs(cs.R2L))
     return n_rays, bound_ms, cs.KERNEL_TOL, make_run, error, lambda: (out,)
 
 
 def _serve_int8_runner(torch, dev, seed):
-    from efficient_nerf_tpu_torch.core.poses import pose_spherical
-    from efficient_nerf_tpu_torch.core.rays import get_rays
     from efficient_nerf_tpu_torch.ops import r2l_int8 as i8
     from efficient_nerf_tpu_torch.ops.r2l_forward import _zvals
 
-    sd = {k: v.to(dev) for k, v in cs.random_state_dict(seed, torch).items()}
+    sd = _student_params(dev, seed)
     packed = i8.pack_r2l_weights_int8(sd, cs.N_SAMPLE, cs.L_FREQ)
-    ro, rd = get_rays(cs.FRAME_H, cs.FRAME_W, cs.FOCAL,
-                      pose_spherical(-30.0, -30.0, 4.0)[:3, :4], device=dev)
-    ro, rd = ro.reshape(-1, 3).contiguous(), rd.reshape(-1, 3).contiguous()
+    grs = cs.R2L["use_residual"]
+    ro, rd = _frame_rays(dev, cs.FOCAL)
     n_rays = ro.shape[0]
     act = i8.calibrate_r2l_int8(sd, ro[:cs.INT8_CAL], rd[:cs.INT8_CAL], cs.NEAR,
                                 cs.FAR, cs.N_SAMPLE, cs.L_FREQ)
     z = _zvals(cs.NEAR, cs.FAR, cs.N_SAMPLE, dev)
     want = i8.r2l_forward_int8_ref(packed, ro, rd, cs.NEAR, cs.FAR, cs.N_SAMPLE,
-                                   cs.L_FREQ, act_scales=act)
+                                   cs.L_FREQ, use_global_residual=grs, act_scales=act)
     width, in_pad = packed["head_w"].shape
     n_block = packed["body_qw"].shape[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -505,37 +553,23 @@ def _serve_int8_runner(torch, dev, seed):
                           ptr["head_b"], ptr["body_qw"], ptr["body_sw"], ptr["body_b"],
                           act.data_ptr(), ptr["tail_w"], ptr["tail_b"], out.data_ptr(),
                           n_rays, cs.N_SAMPLE, cs.L_FREQ, in_pad, width, n_block, 3,
-                          1.0, 0, stream)
+                          1.0, int(grs), stream)
 
     def error():
         return (out - want).abs().max().item()
 
+    # the int8 body at the int8 peak, the bf16 head and tail at the bf16 one
     ops8, ops16 = i8.r2l_int8_ops(packed, n_rays)
-    bound_ms = cs.bound(ops16, 0, int8_ops=ops8)[0]
-    return n_rays, bound_ms, cs.INT8_TOL["static"], make_run, error
+    return n_rays, bound(ops16, int8_ops=ops8), cs.INT8_TOL, make_run, error
 
 
 def _train_fwd_runner(torch, dev, seed):
-    from efficient_nerf_tpu_torch.core.poses import pose_spherical
-    from efficient_nerf_tpu_torch.core.ray_sampler import sample_ray_points
-    from efficient_nerf_tpu_torch.core.rays import get_rays
-    from efficient_nerf_tpu_torch.models import R2LNet
     from efficient_nerf_tpu_torch.ops import r2l_train as rt
 
-    model = R2LNet(cs.IN_DIM, cs.DEPTH, cs.WIDTH, use_residual=True,
-                   dtype=torch.bfloat16)
-    model.load_state_dict(cs.random_state_dict(seed, torch))
-    model = model.to(dev)
+    model = cs.r2l_student(_student_params(dev, seed), dev)
     packed = rt.pack_r2l_train_weights(rt._model_params(model), cs.L_FREQ)
     n_rays = cs.TRAIN_BATCH + cs.TRAIN_HARD[1]
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    ro, rd = get_rays(cs.FRAME_H, cs.FRAME_W, cs.FOCAL,
-                      pose_spherical(-30.0, -30.0, 4.0)[:3, :4], device=dev)
-    pick = torch.randint(0, cs.FRAME_H * cs.FRAME_W, (n_rays,), generator=gen,
-                         device=dev)
-    x = sample_ray_points(ro.reshape(-1, 3)[pick], rd.reshape(-1, 3)[pick],
-                          cs.NEAR, cs.FAR, cs.N_SAMPLE, perturb=True,
-                          generator=gen).contiguous()
+    x, _ = _train_points(torch, dev, seed, n_rays)
     want, _ = rt.r2l_train_fwd_ref(packed, x, use_global_residual=True)
     width, in_pad = packed["head_w"].shape
     nb = packed["body_w"].shape[0]
@@ -554,31 +588,17 @@ def _train_fwd_runner(torch, dev, seed):
     def error():
         return (out - want).abs().max().item()
 
-    bound_ms = rt.r2l_train_flops(packed, n_rays)[0] / cs.H100_BF16_FLOPS * 1e3
+    bound_ms = bound(2.0 * n_rays * Y.r2l_forward_macs(cs.R2L))
     return n_rays, bound_ms, cs.KERNEL_TOL, make_run, error, lambda: (out, hs)
 
 
 def _train_bwd_runner(torch, dev, seed):
-    from efficient_nerf_tpu_torch.core.poses import pose_spherical
-    from efficient_nerf_tpu_torch.core.ray_sampler import sample_ray_points
-    from efficient_nerf_tpu_torch.core.rays import get_rays
-    from efficient_nerf_tpu_torch.models import R2LNet
     from efficient_nerf_tpu_torch.ops import r2l_train as rt
 
-    model = R2LNet(cs.IN_DIM, cs.DEPTH, cs.WIDTH, use_residual=True,
-                   dtype=torch.bfloat16)
-    model.load_state_dict(cs.random_state_dict(seed, torch))
-    model = model.to(dev)
+    model = cs.r2l_student(_student_params(dev, seed), dev)
     packed = rt.pack_r2l_train_weights(rt._model_params(model), cs.L_FREQ)
     n_rays = cs.TRAIN_BATCH + cs.TRAIN_HARD[1]
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    ro, rd = get_rays(cs.FRAME_H, cs.FRAME_W, cs.FOCAL,
-                      pose_spherical(-30.0, -30.0, 4.0)[:3, :4], device=dev)
-    pick = torch.randint(0, cs.FRAME_H * cs.FRAME_W, (n_rays,), generator=gen,
-                         device=dev)
-    x = sample_ray_points(ro.reshape(-1, 3)[pick], rd.reshape(-1, 3)[pick],
-                          cs.NEAR, cs.FAR, cs.N_SAMPLE, perturb=True,
-                          generator=gen).contiguous()
+    x, gen = _train_points(torch, dev, seed, n_rays)
     _, hs = rt.r2l_train_fwd(packed, x, use_global_residual=True)
     dout = torch.randn((n_rays, 3), generator=gen, device=dev)
     # the port's own launches of the shipped passes: the variants' references
@@ -628,8 +648,12 @@ def _train_bwd_runner(torch, dev, seed):
             return max(cs.rel_err(grads[k], want_g[k]) for k in rt._OPERANDS)
         return max(cs.rel_err(act[k], want_act[k]) for k in keys)
 
-    bound_ms = rt.r2l_train_flops(packed, n_rays)[1] / cs.H100_BF16_FLOPS * 1e3
-    return n_rays, bound_ms, cs.TRAIN_TOL["grad"], make_run, error
+    # the whole backward's least work (the yardstick's), and each pass's own
+    # (pass 1 recomputes each block's first product)
+    pass1, pass2 = rt.r2l_train_pass_flops(packed, n_rays)
+    bound_ms = {"backward": bound(2.0 * n_rays * Y.r2l_backward_macs(cs.R2L)),
+                "pass 1": bound(pass1), "pass 2": bound(pass2)}
+    return n_rays, bound_ms, cs.GRAD_TOL, make_run, error
 
 
 def _sampler_runner(torch, dev, seed):
@@ -655,28 +679,33 @@ def _sampler_runner(torch, dev, seed):
     def error():
         return (out - want).abs().max().item()
 
-    bound_ms = n_rays * (2 * C - 1 + n) * 4 / cs.H100_HBM_BYTES * 1e3
-    return n_rays, bound_ms, 0.0, make_run, error
+    return n_rays, bound(nbytes=n_rays * (2 * C - 1 + n) * 4), 0.0, make_run, error
+
+
+def _teacher_chunk(torch, dev, seed):
+    """The teacher_train cell's coarse network packed in bf16, and a fine
+    chunk of 32,768 rays of one lego frame at 192 sorted random depths: the
+    points, the rays' directions and the points' count a ray."""
+    from efficient_nerf_tpu_torch.ops import nerf_forward as nf
+
+    packed = nf.pack_nerf_weights(_teacher_params(dev, seed), dtype=torch.bfloat16)
+    t = cs.TEACHER
+    n, S = t["chunk"], t["n_samples"] + t["n_importance"]
+    ro, rd = (r[:n] for r in _frame_rays(dev, cs.T_FOCAL))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.sort(t["near"] + (t["far"] - t["near"]) * torch.rand(
+        (n, S), generator=gen, device=dev), dim=-1).values
+    pts = (ro[:, None] + rd[:, None] * z[..., None]).contiguous()
+    return packed, pts, (rd / rd.norm(dim=-1, keepdim=True)).contiguous(), S
 
 
 def _teacher_runner(torch, dev, seed):
-    from efficient_nerf_tpu_torch.core.poses import pose_spherical
-    from efficient_nerf_tpu_torch.core.rays import get_rays
     from efficient_nerf_tpu_torch.ops import nerf_forward as nf
 
-    model = cs.teacher_model(seed, torch, dev)
-    packed = nf.pack_nerf_weights(model.state_dict(), dtype=torch.bfloat16)
-    n, S = cs.T_CHUNK, cs.T_SAMPLES + cs.T_IMPORTANCE
-    ro, rd = get_rays(cs.FRAME_H, cs.FRAME_W, cs.T_FOCAL,
-                      pose_spherical(-30.0, -30.0, 4.0)[:3, :4], device=dev)
-    ro, rd = ro.reshape(-1, 3)[:n], rd.reshape(-1, 3)[:n]
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    z = torch.sort(cs.NEAR + (cs.FAR - cs.NEAR) * torch.rand(
-        (n, S), generator=gen, device=dev), dim=-1).values
-    pts = (ro[:, None] + rd[:, None] * z[..., None]).contiguous()
-    vd = (rd / rd.norm(dim=-1, keepdim=True)).contiguous()
-    dirs = nf.embed_dirs(vd, cs.T_LV)
-    want = nf.nerf_forward_fused_ref(packed, pts, vd, cs.T_L, cs.T_LV)
+    packed, pts, vd, S = _teacher_chunk(torch, dev, seed)
+    n, L, LV = pts.shape[0], cs.TEACHER["multires"], cs.TEACHER["multires_views"]
+    dirs = nf.embed_dirs(vd, LV)
+    want = nf.nerf_forward_fused_ref(packed, pts, vd, L, LV)
     out = torch.empty_like(want)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -693,33 +722,24 @@ def _teacher_runner(torch, dev, seed):
     def error():
         return cs.rel_err(out, want)
 
-    bound_ms = nf.nerf_forward_flops(packed, n * S, n) / cs.H100_BF16_FLOPS * 1e3
+    bound_ms = bound(2.0 * n * (S * Y.nerf_point_macs(cs.TEACHER) + Y.nerf_ray_macs(cs.TEACHER)))
     return n * S, bound_ms, cs.TEACHER_TOL, make_run, error
 
 
 def _teacher_int8_runner(torch, dev, seed):
-    from efficient_nerf_tpu_torch.core.poses import pose_spherical
-    from efficient_nerf_tpu_torch.core.rays import get_rays
     from efficient_nerf_tpu_torch.ops import nerf_forward as nf
     from efficient_nerf_tpu_torch.ops import nerf_int8 as ni
 
-    model = cs.teacher_model(seed, torch, dev)
-    sd = model.state_dict()
-    packed = ni.pack_nerf_weights_int8(sd, skip=4)
-    n, S = cs.T_CHUNK, cs.T_SAMPLES + cs.T_IMPORTANCE
-    ro, rd = get_rays(cs.FRAME_H, cs.FRAME_W, cs.T_FOCAL,
-                      pose_spherical(-30.0, -30.0, 4.0)[:3, :4], device=dev)
-    ro, rd = ro.reshape(-1, 3)[:n], rd.reshape(-1, 3)[:n]
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    z = torch.sort(cs.NEAR + (cs.FAR - cs.NEAR) * torch.rand(
-        (n, S), generator=gen, device=dev), dim=-1).values
-    pts = (ro[:, None] + rd[:, None] * z[..., None]).contiguous()
-    vd = (rd / rd.norm(dim=-1, keepdim=True)).contiguous()
-    act = ni.calibrate_nerf_int8(nf.pack_nerf_weights(sd, 4, torch.float32),
-                                 pts.reshape(-1, 3)[:1024], cs.T_L)
+    sd = _teacher_params(dev, seed)
+    skip = cs.TEACHER["skips"][0]
+    packed = ni.pack_nerf_weights_int8(sd, skip=skip)
+    _, pts, vd, S = _teacher_chunk(torch, dev, seed)
+    n, L, LV = pts.shape[0], cs.TEACHER["multires"], cs.TEACHER["multires_views"]
+    act = ni.calibrate_nerf_int8(nf.pack_nerf_weights(sd, skip, torch.float32),
+                                 pts.reshape(-1, 3)[:1024], L)
     k = ni._fold(packed, act)
-    dirs = nf.embed_dirs(vd, cs.T_LV)
-    want = ni.nerf_forward_int8_ref(packed, pts, vd, cs.T_L, cs.T_LV, act_scales=act)
+    dirs = nf.embed_dirs(vd, LV)
+    want = ni.nerf_forward_int8_ref(packed, pts, vd, L, LV, act_scales=act)
     out = torch.empty_like(want)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -739,30 +759,27 @@ def _teacher_int8_runner(torch, dev, seed):
     def error():
         return cs.rel_err(out, want)
 
+    # the int8 products at the int8 peak, the bf16 ones at the bf16 one
     ops8, ops16 = ni.nerf_int8_ops(packed, n * S, n)
-    bound_ms = cs.bound(ops16, 0, int8_ops=ops8)[0]
-    return n * S, bound_ms, cs.INT8_TEACHER_TOL, make_run, error
+    return n * S, bound(ops16, int8_ops=ops8), cs.INT8_TEACHER_TOL, make_run, error
 
 
 def _frame_runner(torch, dev, seed):
     import ctypes as ct
 
-    from efficient_nerf_tpu_torch.core.poses import pose_spherical
-    from efficient_nerf_tpu_torch.core.rays import get_rays
     from efficient_nerf_tpu_torch.ops import nerf_forward as nf
     from efficient_nerf_tpu_torch.ops import nerf_frame as fr
 
-    model = cs.teacher_model(seed, torch, dev)
-    packed = nf.pack_nerf_weights(model.state_dict(), dtype=torch.bfloat16)
-    n, S_c, S_f = cs.T_CHUNK, cs.T_SAMPLES, cs.T_IMPORTANCE
-    ro, rd = get_rays(cs.FRAME_H, cs.FRAME_W, cs.T_FOCAL,
-                      pose_spherical(-30.0, -30.0, 4.0)[:3, :4], device=dev)
-    ro, rd = ro.reshape(-1, 3)[:n].contiguous(), rd.reshape(-1, 3)[:n].contiguous()
+    t = cs.TEACHER
+    packed = nf.pack_nerf_weights(_teacher_params(dev, seed), dtype=torch.bfloat16)
+    n, S_c, S_f = t["chunk"], t["n_samples"], t["n_importance"]
+    near, far, L, LV = t["near"], t["far"], t["multires"], t["multires_views"]
+    ro, rd = (r[:n].contiguous() for r in _frame_rays(dev, cs.T_FOCAL))
     vd = (rd / rd.norm(dim=-1, keepdim=True)).contiguous()
-    args = (packed, None, ro, rd, vd, cs.NEAR, cs.FAR, S_c, S_f, cs.T_L, cs.T_LV)
-    want = [t.reshape(n, -1) for t in fr.nerf_render_rays_fused_ref(*args, white_bkgd=True)[:4]]
-    z, bins, u = fr._consts(cs.NEAR, cs.FAR, S_c, S_f, False, dev)
-    dirs = nf.embed_dirs(vd, cs.T_LV)
+    args = (packed, None, ro, rd, vd, near, far, S_c, S_f, L, LV)
+    want = [x.reshape(n, -1) for x in fr.nerf_render_rays_fused_ref(*args, white_bkgd=True)[:4]]
+    z, bins, u = fr._consts(near, far, S_c, S_f, False, dev)
+    dirs = nf.embed_dirs(vd, LV)
     out = torch.empty((n, fr.OUT_CH), device=dev)
     weights = (ct.c_void_p * 13)(*[packed[k].data_ptr() for k in nf._OPERANDS + ("out_b",)])
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -780,14 +797,15 @@ def _frame_runner(torch, dev, seed):
 
     def error():
         # rgb, acc and depth against FRAME_TOL, at the share of rays that
-        # chip_smoke.py lets exceed it: 1 at the tolerance
+        # may exceed it: 1 at the tolerance
         got = {"rgb": out[:, 0:3], "acc": out[:, 4:5], "depth": out[:, 5:6]}
         ref = {"rgb": want[0], "acc": want[2][:, :1], "depth": want[3][:, :1]}
         return max((got[k] - ref[k]).abs().nan_to_num(0.0).amax(-1)
                    .quantile(1 - cs.FRAME_SHARE).item() / cs.FRAME_TOL[k] for k in got)
 
-    flops = nf.nerf_forward_flops(packed, n * S_c, n) + nf.nerf_forward_flops(packed, n * (S_c + S_f), n)
-    bound_ms = flops / cs.H100_BF16_FLOPS * 1e3
+    # the coarse and the fine pass's field evals
+    bound_ms = bound(2.0 * n * (Y.nerf_samples_per_ray(t) * Y.nerf_point_macs(t)
+                                + Y.passes(t) * Y.nerf_ray_macs(t)))
     return n, bound_ms, 1.0, make_run, error
 
 
@@ -832,6 +850,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     n_rays, bound_ms, tol, make_run, error = RUNNERS[args.kernel](torch, dev, args.seed)[:5]
 
+    print(f"bound (ms at the card's peaks, H100 SXM data sheet): {json.dumps(bound_ms)}",
+          flush=True)
     result = {"kernel": args.kernel, "rays": n_rays, "bound_ms": bound_ms,
               "variants": {}}
     for name, (so, regs) in built.items():

@@ -17,20 +17,20 @@ inputs, made by this checkout's package at the main path's shapes:
            bin edges, 62 weights, 128 levels), sorted random edges in
            [2, 6] and uniform weights; its output against the plain
            version, bit for bit;
-  pass 1   98,304 rays (the training step's) at W256 D88, the global
-           residual on, need_dx off; each tree's scratch turned into the
-           weight gradients by this checkout's pass 2 and held against the
-           first tree's (max |a - b| / max |b|, within chip_smoke.py's
-           TRAIN_TOL["grad"]).
+  pass 1   the training step's 98,304 rays (distill_shards' batch) of the
+           flagship with the r2l cells' weights (perfbench/reference), the
+           global residual on, need_dx off; each tree's scratch turned into
+           the weight gradients by this checkout's pass 2 and held against
+           the first tree's (max |a - b| / max |b|, within chip_smoke.py's
+           GRAD_TOL).
 forward: kernel 1 on the rays of one 400x400 frame (160,000) and kernel 3a
-on the training step's 98,304 rays of sample points, W256 D88 with the
-global residual (chip_breakdown.py's shapes); each tree's outputs (rgb, and
-3a's hs) against the first tree's, bit for bit: the count of values that
-differ.
-A tree whose pass 1 takes no transposed body (body_wt) is called with the
-older signature. The rounds run the trees in order, then in reverse order
-(A B, B A, ...). Prints a line a measurement, the card's name and power
-limit, and a JSON object last. Nothing of the port uses this script.
+on the training step's 98,304 rays of sample points (chip_breakdown.py's
+serve and train_fwd inputs); each tree's outputs (rgb, and 3a's hs) against
+the first tree's, bit for bit: the count of values that differ.
+Every tree is called through this checkout's C signatures. The rounds run
+the trees in order, then in reverse order (A B, B A, ...). Prints a line a
+measurement, the card's name and power limit, and a JSON object last.
+Nothing of the port uses this script.
 """
 from __future__ import annotations
 
@@ -51,8 +51,14 @@ def _tree_libs(label: str, root: Path, out_dir: Path, build, sources):
                           build.NVCC_FLAGS, csrc)
         libs[source] = ctypes.CDLL(str(so))
         print(f"{label}: built {source} from {csrc}", flush=True)
-    new_bwd = "const void* body_wt" in (csrc / "r2l_train.cu").read_text()
-    return libs, new_bwd
+    return libs
+
+
+def _bind(lib, name: str, signatures):
+    fn = getattr(lib, name)
+    fn.restype, argtypes = signatures[name]
+    fn.argtypes = list(argtypes)
+    return fn
 
 
 def main() -> None:
@@ -70,10 +76,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false; this script needs a card")
-    from efficient_nerf_tpu_torch.models import R2LNet
     from efficient_nerf_tpu_torch.ops import _build as build
     from efficient_nerf_tpu_torch.ops import r2l_train as rt
-    from efficient_nerf_tpu_torch.ops.sample_pdf import _levels, sample_pdf_det_fused_ref
+    from efficient_nerf_tpu_torch.ops import sample_pdf as sp
 
     trees = [t.split("=", 1) for t in args.tree]
     out_dir = build.BUILD_DIR / "compare"
@@ -85,52 +90,43 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
     # ---- the sampler's inputs
     n_rays, C, n = cs.T_CHUNK, cs.T_SAMPLES - 1, cs.T_IMPORTANCE
     bins = torch.sort(torch.rand((n_rays, C), generator=gen, device=dev) * 4 + 2, -1
                       ).values.contiguous()
     w = torch.rand((n_rays, C - 1), generator=gen, device=dev)
-    u = _levels(n, dev)
-    want_z = sample_pdf_det_fused_ref(bins, w, n)
+    u = sp._levels(n, dev)
+    want_z = sp.sample_pdf_det_fused_ref(bins, w, n)
     z = torch.empty_like(want_z)
 
     # ---- pass 1's inputs
-    model = R2LNet(cs.IN_DIM, cs.DEPTH, cs.WIDTH, use_residual=True, dtype=torch.bfloat16)
-    model.load_state_dict(cs.random_state_dict(args.seed, torch))
-    packed = rt.pack_r2l_train_weights(rt._model_params(model.to(dev)), cs.L_FREQ)
+    model = cs.r2l_student(cb._student_params(dev, args.seed), dev)
+    packed = rt.pack_r2l_train_weights(rt._model_params(model), cs.L_FREQ)
     B = cs.TRAIN_BATCH + cs.TRAIN_HARD[1]
     x = (torch.randn((B, 3 * cs.N_SAMPLE), generator=gen, device=dev) * 2).contiguous()
     dout = torch.randn((B, 3), generator=gen, device=dev) * 1e-5
     _, hs = rt.r2l_train_fwd(packed, x, use_global_residual=True)
     act = rt.r2l_train_bwd_act(packed, x, hs, dout, use_global_residual=True, need_dx=False)
     keys = ("dg2", "dg1", "g1", "dpre", "emb", "part")
-    nb, width, in_pad = packed["body_w"].shape[0], cs.WIDTH, packed["head_w"].shape[1]
+    nb, width, in_pad = packed["body_w"].shape[0], *packed["head_w"].shape
 
     runs = {}
-    for label, (lib_set, new_bwd) in libs.items():
-        lp = lib_set["sample_pdf.cu"]
-        lp.sample_pdf_det_launch.restype = I
-        lp.sample_pdf_det_launch.argtypes = [P, P, P, P, L, I, I, P]
+    for label, lib_set in libs.items():
+        launch_pdf = _bind(lib_set["sample_pdf.cu"], "sample_pdf_det_launch", sp._SIGNATURES)
+        launch_bwd = _bind(lib_set["r2l_train.cu"], "r2l_train_bwd_launch", rt._SIGNATURES)
 
-        def sampler(lp=lp):
-            err = lp.sample_pdf_det_launch(bins.data_ptr(), w.data_ptr(), u.data_ptr(),
-                                           z.data_ptr(), n_rays, C, n, stream)
+        def sampler(fn=launch_pdf):
+            err = fn(bins.data_ptr(), w.data_ptr(), u.data_ptr(), z.data_ptr(), n_rays, C, n,
+                     stream)
             if err:
                 cs.fail(f"sampler launch failed: CUDA error {err}")
 
-        lt = lib_set["r2l_train.cu"]
-        fn = lt.r2l_train_bwd_launch
-        fn.restype = I
-        fn.argtypes = [P] * (17 if new_bwd else 16) + [I] * 8 + [ctypes.c_float, I, P]
-        extra = (packed["body_wt"].data_ptr(),) if new_bwd else ()
-
-        def pass1(fn=fn, extra=extra):
+        def pass1(fn=launch_bwd):
             err = fn(x.data_ptr(), hs.data_ptr(), dout.data_ptr(),
-                     *(packed[k].data_ptr() for k in rt._OPERANDS), *extra,
-                     *(act[k].data_ptr() for k in keys), None, B, B, x.shape[1],
-                     cs.L_FREQ, in_pad, width, nb, 3, 1.0, 1, stream)
+                     *(packed[k].data_ptr() for k in rt._OPERANDS),
+                     packed["body_wt"].data_ptr(), *(act[k].data_ptr() for k in keys), None,
+                     B, B, x.shape[1], cs.L_FREQ, in_pad, width, nb, 3, 1.0, 1, stream)
             if err:
                 cs.fail(f"pass 1 launch failed: CUDA error {err}")
 
@@ -154,7 +150,7 @@ def main() -> None:
               f"{agree[label]['sampler_values_differing']}; pass 1's gradients against "
               f"{trees[0][0]}'s {agree[label]['pass1_grad_vs_first']:.3g}", flush=True)
         if agree[label]["sampler_values_differing"] or \
-                not agree[label]["pass1_grad_vs_first"] <= cs.TRAIN_TOL["grad"]:
+                not agree[label]["pass1_grad_vs_first"] <= cs.GRAD_TOL:
             cs.fail(f"{label}'s kernels disagree")
         del g
 
@@ -179,13 +175,11 @@ def compare_forward(args) -> None:
     import torch
 
     from efficient_nerf_tpu_torch.ops import _build as build
-    from efficient_nerf_tpu_torch.ops import r2l_forward as fwd
-    from efficient_nerf_tpu_torch.ops import r2l_train as rt
 
     trees = [t.split("=", 1) for t in args.tree]
     out_dir = build.BUILD_DIR / "compare"
     libs = {label: _tree_libs(label, Path(path).resolve(), out_dir, build,
-                              ("r2l_forward.cu", "r2l_train.cu"))[0]
+                              ("r2l_forward.cu", "r2l_train.cu"))
             for label, path in trees}
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -8,14 +8,16 @@ It writes a 400x400 synthetic scene and random reference-format ray shards
 (40 of 4096 rows) to a temporary directory and runs
 `efficient_nerf_tpu_torch.main.main` once, in process, with the README
 student command at the flagship profile (resmlp body, bf16: chip_smoke.py's
-DRV_STUDENT and DRV_FLAGSHIP) for --steps steps, metrics read every 10:
+DRV_STUDENT and DRV_FLAGSHIP, the flagship's widths and distill_shards'
+batch) for --steps steps, metrics read every 10:
   loop    after WARMUP steps, the host's time a step in each part of the
           loop (nothing added waits for the card): `next_batch` (the shard
           loader's queue), `reload`, `to_device` (three pinned non-blocking
           copies), the step's call (its launches) and `_periodic`, and the
           wall time from one step's call to the next;
   trace   the last --trace_steps steps under torch.profiler: the card's busy
-          time a step (the union of its kernels' and copies' intervals), the
+          time a step (the union of its kernels' and copies' intervals, by
+          perfbench/tracing.py's union_us), the
           wall time a step of the traced steps and the card's idle share,
           the host's and the card's costliest ops a step, and the ops inside
           which the host waited for the card (each wait's enclosing ops);
@@ -38,12 +40,10 @@ import time
 
 import numpy as np
 
+from chip_smoke import DRV_FLAGSHIP, DRV_STUDENT, FRAME_H, FRAME_W
+from perfbench.tracing import union_us
+
 WARMUP = 10
-FRAME = 400
-DRV_STUDENT = ["--model_name", "R2L", "--data_mode", "rays", "--netdepth", "88",
-               "--netwidth", "256", "--n_sample_per_ray", "16", "--use_residual",
-               "--N_rand", "20", "--hard_ratio", "0.2", "--warmup_lr", "0.0001,200"]
-DRV_FLAGSHIP = ["--trial.ON", "--trial.body_arch", "resmlp", "--compute_dtype", "bf16"]
 
 
 def _card() -> str:
@@ -63,15 +63,9 @@ def _busy_us(prof) -> tuple:
 
     events = prof.events()
     host = {e.name for e in events if e.device_type != DeviceType.CUDA}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == DeviceType.CUDA and e.name not in host)
-    busy, end = 0.0, -1.0
-    for s, e in spans:
-        if e <= end:
-            continue
-        busy += e - max(s, end)
-        end = e
-    return busy, len(spans)
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == DeviceType.CUDA and e.name not in host]
+    return union_us(spans), len(spans)
 
 
 def _top_ops(prof, steps: int, key: str, n: int) -> list:
@@ -175,7 +169,8 @@ def main() -> None:
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory() as tmp:
         scene, kd = os.path.join(tmp, "scene"), os.path.join(tmp, "kd")
-        make_synthetic_scene(scene, n_train=20, n_val=2, n_test=2, H=FRAME, W=FRAME, seed=0)
+        make_synthetic_scene(scene, n_train=20, n_val=2, n_test=2, H=FRAME_H, W=FRAME_W,
+                             seed=0)
         rows = np.concatenate([rng.normal(size=(40 * 4096, 6)),
                                rng.uniform(size=(40 * 4096, 3))], -1).astype(np.float32)
         rays_to_shards(rows, kd, prefix="data_")

@@ -200,7 +200,7 @@ def test_flops_and_checks(rng):
 
 def _card_teacher(rng, width=256, depth=8, L=L, LV=LV, skip=4):
     """A random teacher with lecun-normal kernels and small biases (the
-    init chip_smoke.py states)."""
+    init of perfbench/configs/nerf_lego.json)."""
     tm = NeRFMLP(depth=depth, width=width, input_ch=3 * (2 * L + 1),
                  input_ch_views=3 * (2 * LV + 1), skips=(skip,))
     with torch.no_grad():
@@ -230,7 +230,7 @@ def test_kernel_matches_plain_version(N, S, cm, cuda_device, rng):
     want = nf.nerf_forward_fused_ref(packed, tp, tv, L, LV, cm=cm)
     # same bf16 operands; the sums run in another order, and a one-ulp
     # difference can flip a bf16 rounding of an activation: relative to the
-    # largest magnitude, chip_smoke.py's tolerance for this kernel
+    # largest magnitude, chip_smoke.py's TEACHER_TOL
     err = ((got - want).abs().max() / want.abs().max()).item()
     assert err <= 2e-2, err
 
@@ -256,7 +256,7 @@ def test_kernel_matches_plain_version_other_shapes(width, depth, L_pts, L_dirs,
 
 def _card_error(packed, N, S, rng, cuda_device, cm=False, L_pts=L, L_dirs=LV):
     """max |kernel - plain| / max |plain| on N x S random points (the raw
-    relative to its largest magnitude, chip_smoke.py's TEACHER_TOL measure)."""
+    relative to its largest magnitude)."""
     pts, vd = _inputs(rng, N, S)
     tp = torch.from_numpy(pts * 1.5).to(cuda_device)
     if cm:
@@ -272,11 +272,13 @@ def _card_error(packed, N, S, rng, cuda_device, cm=False, L_pts=L, L_dirs=LV):
 # The wgmma tile's edges: 5 and 60 points (the second warpgroup has no row),
 # 100 (it has part of one), point counts that are not a multiple of 128,
 # tiles that straddle up to 64 rays (S = 1) or 4 (S = 37), and 1050 tiles,
-# which the persistent blocks take several each
+# which the persistent blocks take several each; and the renderer's coarse
+# and fine chunks of the lego config (32,768 rays x 64 and x 192)
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,S,cm", [(1, 5, False), (3, 20, False), (1, 100, True),
                                     (7, 37, False), (200, 1, False), (333, 1, True),
-                                    (3, 64, False), (5, 192, True), (700, 192, False)])
+                                    (3, 64, False), (5, 192, True), (700, 192, False),
+                                    (32768, 64, False), (32768, 192, False)])
 def test_tile_edges_match_plain_version(N, S, cm, cuda_device, rng):
     packed = nf.pack_nerf_weights({k: v.to(cuda_device) for k, v in
                                    _card_teacher(rng).state_dict().items()})
@@ -296,7 +298,7 @@ def test_tile_widths_and_depths_match_plain_version(width, depth, skip, cuda_dev
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,S", [(37, 64), (300, 192)])
+@pytest.mark.parametrize("N,S", [(37, 64), (300, 192), (32768, 64), (32768, 192)])
 def test_kernel_two_calls_same_bits(N, S, cuda_device, rng):
     packed = nf.pack_nerf_weights({k: v.to(cuda_device) for k, v in
                                    _card_teacher(rng).state_dict().items()})

@@ -138,7 +138,7 @@ def test_mismatched_architectures_and_shapes_raise(rng):
 
 def _card_teacher(rng, width=256):
     """A random teacher with lecun-normal kernels and small biases (the
-    init chip_smoke.py states)."""
+    init of perfbench/configs/nerf_lego.json)."""
     tm = NeRFMLP(depth=8, width=width)
     with torch.no_grad():
         for name, v in tm.named_parameters():
@@ -148,13 +148,23 @@ def _card_teacher(rng, width=256):
     return tm
 
 
+# Per ray, each output against the plain version's (rgb, acc and disp in [0,
+# 1]-ish, depth in [near, far]): a ray whose pass ends on a sigma within the
+# field's bf16 noise of 0 turns opaque or clear as the sign flips (the last
+# interval is 1e10 long), so one ray in 10,000 may lie beyond; none in a
+# batch of fewer. Output index -> tolerance: rgb, acc, depth, and the coarse
+# pass's rgb0, disp0, acc0.
+FRAME_TOL = {0: 2e-2, 2: 2e-2, 3: 1e-1, 4: 2e-2, 5: 2e-2, 6: 2e-2}
+
+
 # 37 and 1111 rays (odd: a ragged last group; 278 groups of 4, more than
-# one a block) and other coarse / fine sample counts (84 rays a group at 3
-# coarse samples)
+# one a block), other coarse / fine sample counts (84 rays a group at 3
+# coarse samples) and the renderer's chunk of the lego config (32,768 rays)
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_rays,width,S_c,S_f", [(37, 256, 64, 128), (20, 64, 16, 32),
                                                   (1111, 64, 64, 128), (13, 128, 3, 1),
-                                                  (29, 256, 32, 96), (1, 128, 64, 128)])
+                                                  (29, 256, 32, 96), (1, 128, 64, 128),
+                                                  (32768, 256, 64, 128)])
 def test_kernel_matches_plain_version(n_rays, width, S_c, S_f, cuda_device, rng):
     packed = nf.pack_nerf_weights({k: v.to(cuda_device) for k, v in
                                    _card_teacher(rng, width).state_dict().items()})
@@ -169,10 +179,18 @@ def test_kernel_matches_plain_version(n_rays, width, S_c, S_f, cuda_device, rng)
     torch.cuda.synchronize()
     assert fr.nerf_render_rays_fused.launches == launches + 1
     want = fr.nerf_render_rays_fused_ref(*args, white_bkgd=True, taps=True)
-    # the coarse pass: the field kernel's bf16 noise (tests/test_torch_nerf_forward.py)
-    # through the composite; rgb0 and acc0 in [0, 1]
-    for g, w in zip(got[4:7], want[4:7]):
-        assert (g - w).abs().max().item() <= 2e-2
+    # the field kernel's bf16 noise (tests/test_torch_nerf_forward.py)
+    # through the composite. disp0 is 0/0 where the coarse pass has no
+    # opacity: a NaN there agrees only where it is NaN on both sides and
+    # acc0 is 0 on both sides; any other NaN fails
+    clear = ((got[6] == 0) & (want[6] == 0)).reshape(n_rays, 1)
+    beyond = torch.zeros(n_rays, dtype=torch.bool, device=cuda_device)
+    for i, tol in FRAME_TOL.items():
+        g, w = got[i].reshape(n_rays, -1), want[i].reshape(n_rays, -1)
+        nan_ok = g.isnan() & w.isnan() & clear if i == 5 else torch.zeros_like(clear)
+        assert not ((g.isnan() | w.isnan()) & ~nan_ok).any()
+        beyond |= ~(((g - w).abs() <= tol) | nan_ok).all(-1)
+    assert int(beyond.sum()) <= n_rays // 10_000
     # the fine depths are the sampler kernel's walk on the kernel's own weights,
     # bit for bit
     _, bins, u = fr._consts(2.0, 6.0, S_c, S_f, False, cuda_device)

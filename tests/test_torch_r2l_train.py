@@ -416,7 +416,8 @@ def test_other_profiles_and_inputs_raise(rng):
 
 def _random_model(rng, depth, grs=False, dtype=torch.float32, width=256, in_dim=IN_DIM):
     # lecun-normal kernels with each block's second linear times 0.1, small
-    # biases: the outputs stay clear of the sigmoid's flat ends (chip_smoke.py)
+    # biases: the outputs stay clear of the sigmoid's flat ends (the init of
+    # perfbench/configs/r2l_w256d88.json)
     tm = R2LNet(in_dim, depth, width, use_residual=grs, dtype=dtype)
     with torch.no_grad():
         for name, v in tm.named_parameters():
@@ -445,8 +446,8 @@ def test_kernels_match_plain_versions(grs, embed_L, cuda_device, rng):
     g_p = rt.r2l_train_bwd_ref(packed, x, hs_p, dout, use_global_residual=grs)
     torch.cuda.synchronize()
     assert _launches() == tuple(n + 1 for n in launches)
-    # chip_smoke.py's tolerances, set from the measured summation-order
-    # noise (bf16 roundings that flip) at 88 layers
+    # set from the summation-order noise (bf16 roundings that flip)
+    # measured at 88 layers (PERF.md); chip_smoke.py's KERNEL_TOL and GRAD_TOL
     torch.testing.assert_close(out, out_p, atol=4e-3, rtol=0)
     for name, got, want, tol in [("hs", hs, hs_p, 2e-2)] + [
             (k, g[k], g_p[k], 4e-2 if k == "dx" else 1e-2) for k in g_p]:
@@ -503,10 +504,12 @@ def test_forward_kernel_takes_the_per_panel_body_by_width(width, per_panel, cuda
 
 
 @pytest.mark.cuda
-def test_forward_kernel_repeats_its_bits_at_160000_rays(cuda_device, rng):
-    """160,000 rays at W256 D88: two calls give the same out and hs bits."""
-    tm = _random_model(rng, 88, True).to(cuda_device)
-    _forward_check(rt.pack_r2l_train_weights(rt._model_params(tm), 10), 160_000, True,
+@pytest.mark.parametrize("grs", [False, True])
+def test_forward_kernel_repeats_its_bits_at_160000_rays(grs, cuda_device, rng):
+    """160,000 rays at W256 D88, with and without the global residual: two
+    calls give the same out and hs bits."""
+    tm = _random_model(rng, 88, grs).to(cuda_device)
+    _forward_check(rt.pack_r2l_train_weights(rt._model_params(tm), 10), 160_000, grs,
                    cuda_device, rng)
 
 
@@ -558,17 +561,20 @@ def _rel(got, want):
 # pass 1's tile at each width it takes (two warpgroups of W / 2 columns),
 # a ragged B, more 64-ray tiles than the card holds blocks at once (141
 # tiles; one block a multiprocessor at W256, 132 on an H100), the global
-# residual and need_dx each on and off: (width, rays, use_global_residual,
-# need_dx)
-PASS_CASES = ((256, 300, True, True), (128, 300, True, True), (192, 300, False, True),
-              (256, 37, True, False), (256, 9000, False, False))
+# residual and need_dx each on and off, and the flagship's depth at 8192 rays
+# and at the training step's 98,304 (1536 tiles): (width, rays,
+# use_global_residual, need_dx, depth)
+PASS_CASES = ((256, 300, True, True, 12), (128, 300, True, True, 12),
+              (192, 300, False, True, 12), (256, 37, True, False, 12),
+              (256, 9000, False, False, 12), (256, 8192, True, True, 88),
+              (256, 8192, False, False, 88), (256, 98304, True, False, 88))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width,n_rays,grs,need_dx", PASS_CASES)
-def test_each_pass_matches_its_plain_version(width, n_rays, grs, need_dx, cuda_device,
-                                             rng):
-    packed, x, hs, dout = _card_inputs(rng, cuda_device, grs, n_rays, width=width)
+@pytest.mark.parametrize("width,n_rays,grs,need_dx,depth", PASS_CASES)
+def test_each_pass_matches_its_plain_version(width, n_rays, grs, need_dx, depth,
+                                             cuda_device, rng):
+    packed, x, hs, dout = _card_inputs(rng, cuda_device, grs, n_rays, depth, width)
     kw = dict(use_global_residual=grs, need_dx=need_dx)
     launches = rt.r2l_train_bwd_act.launches
     act = rt.r2l_train_bwd_act(packed, x, hs, dout, **kw)
@@ -589,17 +595,19 @@ def test_each_pass_matches_its_plain_version(width, n_rays, grs, need_dx, cuda_d
     for k in g_k:
         assert _rel(g_k[k], g_pk[k]) <= 1e-2, k
     # pass 2 on the kernel's own scratch: the same products, summed in another
-    # f32 order
+    # f32 order, which moves a sum over n rays by some sqrt(n) ulps of its
+    # terms' scale: measured 1.5e-5 at the training step's 98,304 rays
     g = rt.r2l_train_wgrad(act, hs)
     g_p = rt.r2l_train_wgrad_ref(act, hs)
     torch.cuda.synchronize()
     for k in g_p:
-        assert _rel(g[k], g_p[k]) <= 1e-5, k
+        assert _rel(g[k], g_p[k]) <= (1e-5 if n_rays <= 9000 else 1e-4), k
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("width,n_rays,grs", [(256, 4096, True), (128, 4096, False),
-                                              (192, 1000, True), (256, 20000, False)])
+                                              (192, 1000, True), (256, 20000, False),
+                                              (256, 98304, True)])
 def test_backward_is_bit_identical_across_calls(width, n_rays, grs, cuda_device, rng):
     packed, x, hs, dout = _card_inputs(rng, cuda_device, grs, n_rays, width=width)
     a = rt.r2l_train_bwd(packed, x, hs, dout, use_global_residual=grs)
