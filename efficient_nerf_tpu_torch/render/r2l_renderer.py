@@ -24,7 +24,7 @@ always unfused: no kernel covers a conv body in either package, and
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
@@ -37,7 +37,7 @@ from ..ops import (calibrate_r2l_int8, fused_r2l_available, pack_r2l_weights,
                    pack_r2l_weights_int8, r2l_forward_fused, r2l_forward_int8)
 from ..ops.r2l_forward import MAX_WIDTH, WIDTH_ALIGN
 from ..utils.profiling import span
-from ._pack_cache import param_version_key
+from ._pack_cache import cached_pack
 
 __all__ = ["r2l_forward_rays", "r2l_render_image", "make_r2l_forward",
            "calibrate_serving_scales"]
@@ -86,17 +86,11 @@ def _fused_eligible(model: R2LNet, plucker: bool, perturb: bool,
 def _packed(model: R2LNet, n_sample: int, L: int,
             quant: str = "") -> Dict[str, object]:
     """The model's operands for the bf16 (quant "") or the int8 kernel,
-    packed once and reused while no parameter changes (`param_version_key`).
-    The int8 pack quantizes the body once per parameter version, not
-    once per frame."""
-    key: Tuple = (n_sample, L) + param_version_key(model)
-    attr = "_int8_pack" if quant else "_fused_pack"
-    cached = getattr(model, attr, None)
-    if cached is None or cached[0] != key:
-        with torch.no_grad():
-            cached = (key, _PACKERS[quant](model.state_dict(), n_sample, L))
-        setattr(model, attr, cached)
-    return cached[1]
+    packed once and reused while no parameter changes (`cached_pack`). The
+    int8 pack quantizes the body once per parameter version, not once per
+    frame."""
+    return cached_pack(model, "_int8_pack" if quant else "_fused_pack", (n_sample, L),
+                       lambda: _PACKERS[quant](model.state_dict(), n_sample, L))
 
 
 def _as_rays(x, dev: torch.device) -> torch.Tensor:
@@ -151,7 +145,16 @@ def r2l_forward_rays(model: R2LNet, rays_o, rays_d, near: float, far: float,
     """
     dev = resolve_device(device)
     _check_model(model, quant, dev)
-    rays_o, rays_d = _as_rays(rays_o, dev), _as_rays(rays_d, dev)
+    return _forward_rays(model, _as_rays(rays_o, dev), _as_rays(rays_d, dev), near, far,
+                         n_sample, L, plucker, perturb, allow_fused, quant, act_scales, dev)
+
+
+def _forward_rays(model, rays_o: torch.Tensor, rays_d: torch.Tensor, near, far,
+                  n_sample: int, L: int, plucker: bool, perturb: bool,
+                  allow_fused: bool, quant: str, act_scales,
+                  dev: torch.device) -> torch.Tensor:
+    """`r2l_forward_rays` after its device and model checks, on contiguous
+    f32 rays on `dev`."""
     if quant == "int8" and not (allow_fused and _profile_eligible(model, plucker, perturb)):
         raise ValueError(_INT8_PROFILE)
     with torch.no_grad():
@@ -223,10 +226,10 @@ def r2l_render_image(model: R2LNet, c2w, H: int, W: int, focal: float,
             with span("r2l.rays"):
                 rays_o, rays_d = get_rays(H, W, focal, c2w, device=dev)
             with span("r2l.forward"):
-                rgb = r2l_forward_rays(model, rays_o.reshape(-1, 3),
-                                       rays_d.reshape(-1, 3), near, far, n_sample, L,
-                                       plucker=plucker, quant=quant, device=dev,
-                                       act_scales=act_scales, allow_fused=allow_fused)
+                rgb = _forward_rays(model, rays_o.reshape(-1, 3).contiguous(),
+                                    rays_d.reshape(-1, 3).contiguous(), near, far,
+                                    n_sample, L, plucker, False, allow_fused, quant,
+                                    act_scales, dev)
             return rgb.reshape(H, W, -1)
         with torch.no_grad():
             with span("r2l.rays"):

@@ -48,7 +48,7 @@ from ..ops import (calibrate_nerf_int8, nerf_forward_fused, nerf_forward_int8,
                    nerf_render_rays_fused, pack_nerf_weights, pack_nerf_weights_int8,
                    sample_pdf_det_fused)
 from ..utils.profiling import span
-from ._pack_cache import param_version_key
+from ._pack_cache import cached_pack
 
 __all__ = ["RenderConfig", "RenderResult", "render_rays", "render_image",
            "make_ray_renderer"]
@@ -141,35 +141,25 @@ def _pack_dtype(model, on_card: bool) -> torch.dtype:
     return torch.bfloat16 if on_card else model.dtype
 
 
-def _cached(model, attr: str, dtype: torch.dtype, make):
-    """make() of the model's weights, kept on the model and made again when a
-    parameter or the pack's dtype changes (`param_version_key`)."""
-    key = (model.skips[0], dtype) + param_version_key(model)
-    cached = getattr(model, attr, None)
-    if cached is None or cached[0] != key:
-        with torch.no_grad():
-            cached = (key, make())
-        setattr(model, attr, cached)
-    return cached[1]
-
-
 def _packed(model, on_card: bool) -> dict:
-    """The model's kernel operands in `_pack_dtype`."""
+    """The model's kernel operands in `_pack_dtype`, kept on the model and
+    made again when a parameter or the pack's dtype changes (`cached_pack`)."""
     dtype = _pack_dtype(model, on_card)
-    return _cached(model, "_nerf_pack", dtype, lambda: pack_nerf_weights(
-        model.state_dict(), skip=model.skips[0], dtype=dtype))
+    return cached_pack(model, "_nerf_pack", (model.skips[0], dtype),
+                       lambda: pack_nerf_weights(model.state_dict(), skip=model.skips[0],
+                                                 dtype=dtype))
 
 
 def _packed_int8(model, on_card: bool):
     """(the int8 kernel's operands in `_pack_dtype`, an f32 pack that the
-    per-call calibration reads)."""
+    per-call calibration reads), kept as `_packed` keeps its pack."""
     dtype = _pack_dtype(model, on_card)
 
     def make():
         sd, skip = model.state_dict(), model.skips[0]
         return (pack_nerf_weights_int8(sd, skip, dtype),
                 pack_nerf_weights(sd, skip, torch.float32))
-    return _cached(model, "_nerf_pack_int8", dtype, make)
+    return cached_pack(model, "_nerf_pack_int8", (model.skips[0], dtype), make)
 
 
 def _frame_fused_eligible(model, cfg: RenderConfig, near, far, t_rand, u, noise) -> bool:

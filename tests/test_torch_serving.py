@@ -10,10 +10,13 @@ from efficient_nerf_tpu.models import R2LNet as JaxR2LNet
 from efficient_nerf_tpu.render import r2l_renderer as jren
 from efficient_nerf_tpu.core.rays import get_rays as jax_get_rays
 from efficient_nerf_tpu.ops.pallas import r2l_int8 as jint8
-from efficient_nerf_tpu_torch.models import R2LNet
-from efficient_nerf_tpu_torch.ops import pack_r2l_weights_int8, r2l_forward_int8
+from efficient_nerf_tpu_torch.models import NeRFMLP, R2LNet
+from efficient_nerf_tpu_torch.ops import (pack_nerf_weights, pack_r2l_weights,
+                                          pack_r2l_weights_int8, r2l_forward_int8)
 from efficient_nerf_tpu_torch.render import (calibrate_serving_scales, make_r2l_forward,
                                              r2l_forward_rays, r2l_render_image)
+from efficient_nerf_tpu_torch.render import _pack_cache
+from efficient_nerf_tpu_torch.render import renderer as teacher_renderer
 from efficient_nerf_tpu_torch.render.r2l_renderer import _packed
 
 N_SAMPLE, L, DEPTH, WIDTH = 4, 10, 6, 32
@@ -194,3 +197,152 @@ def test_model_on_another_device_raises(rng):
     o = np.zeros((4, 3), np.float32)
     with pytest.raises(ValueError, match="model.to"):
         r2l_forward_rays(tm, o, o, NEAR, FAR, N_SAMPLE, L, device="meta")
+
+
+# The pack cache's check against the module walk it replaces. Each kind: a
+# model (parameters in bf16, so that .to(torch.float32) moves them), a body
+# layer, the renderer's pack of the model and a fresh pack of its state dict.
+def _student():
+    return R2LNet(3 * N_SAMPLE * (2 * L + 1), DEPTH, WIDTH).to(torch.bfloat16)
+
+
+_PACK_KINDS = {
+    "r2l_bf16": (_student, lambda m: m.body[0].body[0],
+                 lambda m: _packed(m, N_SAMPLE, L),
+                 lambda sd: pack_r2l_weights(sd, N_SAMPLE, L)),
+    "r2l_int8": (_student, lambda m: m.body[0].body[0],
+                 lambda m: _packed(m, N_SAMPLE, L, "int8"),
+                 lambda sd: pack_r2l_weights_int8(sd, N_SAMPLE, L)),
+    "teacher": (lambda: NeRFMLP(depth=8, width=32).to(torch.bfloat16),
+                lambda m: m.pts_linears[1],
+                lambda m: teacher_renderer._packed(m, on_card=False),
+                lambda sd: pack_nerf_weights(sd, skip=4, dtype=torch.float32)),
+}
+
+
+def _walked_key(model):
+    """The key a pack was valid for before the check: the optimizer steps
+    and every parameter's storage and version, by a walk of the module tree."""
+    return (_pack_cache._optimizer_steps,) + tuple(
+        (p.data_ptr(), p._version) for p in model.parameters())
+
+
+def _random_state(model, rng):
+    return {k: torch.from_numpy(rng.normal(scale=0.1, size=v.shape)).to(v.dtype)
+            for k, v in model.state_dict().items()}
+
+
+def _adam_step(model, rng, **kw):
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2, **kw)
+    for p in model.parameters():
+        p.grad = torch.from_numpy(rng.normal(size=p.shape)).to(p.dtype)
+    opt.step()
+
+
+def _to_f32_replacing(model):
+    # a conversion that replaces each parameter object (no registration hook)
+    torch.__future__.set_overwrite_module_params_on_conversion(True)
+    try:
+        model.to(torch.float32)
+    finally:
+        torch.__future__.set_overwrite_module_params_on_conversion(False)
+
+
+def _body_layers(model):
+    """The parents of two of the body's W x W layers, and their names."""
+    if isinstance(model, R2LNet):
+        return model.body[0].body, "0", model.body[1].body, "0"
+    return model.pts_linears, "1", model.pts_linears, "2"
+
+
+def _new_body_layer(model):
+    parent, name, _, _ = _body_layers(model)
+    setattr(parent, name, torch.nn.Linear(WIDTH, WIDTH))
+
+
+def _swap_body_layers(model):
+    # existing layers change places: no parameter is registered, no
+    # parameter changes its storage or version, only the tree changes
+    p1, n1, p2, n2 = _body_layers(model)
+    a, b = getattr(p1, n1), getattr(p2, n2)
+    setattr(p1, n1, b)
+    setattr(p2, n2, a)
+
+
+_MUTATIONS = {
+    "load_state_dict": lambda m, layer, rng: m.load_state_dict(_random_state(m, rng)),
+    "load_state_dict_assign": lambda m, layer, rng: m.load_state_dict(
+        _random_state(m, rng), assign=True),
+    "mul_": lambda m, layer, rng: layer.weight.mul_(0.5),
+    "adam_foreach": lambda m, layer, rng: _adam_step(m, rng, foreach=True),
+    "adam_fused": lambda m, layer, rng: _adam_step(m, rng, fused=True),
+    "to_float32": lambda m, layer, rng: m.to(torch.float32),
+    "to_float32_replacing": lambda m, layer, rng: _to_f32_replacing(m),
+    "new_parameter": lambda m, layer, rng: setattr(layer, "weight", torch.nn.Parameter(
+        torch.from_numpy(rng.normal(size=layer.weight.shape)).to(layer.weight.dtype))),
+    "added_parameter": lambda m, layer, rng: setattr(
+        layer, "gain", torch.nn.Parameter(torch.ones(WIDTH, dtype=layer.weight.dtype))),
+    "new_submodule": lambda m, layer, rng: _new_body_layer(m),
+    "swap_submodules": lambda m, layer, rng: _swap_body_layers(m),
+}
+
+
+def _same_pack(a, b):
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_pack(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same_pack(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+@pytest.mark.parametrize("mutation", sorted(_MUTATIONS))
+@pytest.mark.parametrize("kind", sorted(_PACK_KINDS))
+def test_pack_is_made_again_exactly_when_the_walked_key_changes(kind, mutation, rng):
+    make_model, body_layer, packed, fresh = _PACK_KINDS[kind]
+    model = make_model()
+    with torch.no_grad():
+        first = packed(model)
+        builds, key = _pack_cache.pack_builds, _walked_key(model)
+        assert packed(model) is first
+        _MUTATIONS[mutation](model, body_layer(model), rng)
+    assert _walked_key(model) != key          # each mutation changes the walked key
+    with torch.no_grad():
+        got = packed(model)
+        assert packed(model) is got           # and the new pack is kept
+    assert _pack_cache.pack_builds - builds == 1
+    assert _same_pack(got, fresh(model.state_dict()))
+
+
+@pytest.mark.parametrize("kind", sorted(_PACK_KINDS))
+def test_an_unchanged_model_is_packed_once_without_a_walk(kind, monkeypatch):
+    make_model, _, packed, _ = _PACK_KINDS[kind]
+    model = make_model()
+    first = packed(model)
+    builds, hits = _pack_cache.pack_builds, _pack_cache.pack_hits
+    walks = []
+    for name in ("named_modules", "_named_members"):
+        real = getattr(torch.nn.Module, name)
+        monkeypatch.setattr(torch.nn.Module, name,
+                            lambda self, *a, _real=real, _n=name, **k: (
+                                walks.append(_n), _real(self, *a, **k))[1])
+    for _ in range(20):
+        assert packed(model) is first
+    assert _pack_cache.pack_builds - builds == 0
+    assert _pack_cache.pack_hits - hits == 20
+    assert walks == []
+
+
+def test_a_module_made_elsewhere_keeps_the_pack():
+    # a registration anywhere in the process bumps the structure epoch: the
+    # next call walks the tree, finds the walked key unchanged, keeps the
+    # pack and takes the new epoch, so that the call after it needs no walk
+    model = _student()
+    first = _packed(model, N_SAMPLE, L)
+    epoch, builds = _pack_cache._structure_epoch, _pack_cache.pack_builds
+    torch.nn.Linear(4, 4)
+    assert _pack_cache._structure_epoch > epoch
+    assert _packed(model, N_SAMPLE, L) is first
+    assert _pack_cache.pack_builds == builds
+    assert vars(model)["_fused_pack"].epoch == _pack_cache._structure_epoch
