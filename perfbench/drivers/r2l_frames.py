@@ -6,11 +6,16 @@ float32 numpy.
 Traffic keys: H, W, camera_angle_x, phi, radius (the orbit; theta is drawn
 from the seed for each frame), quant ('' or 'int8', with static scales
 from `calibrate_n` rays of a set-up frame), warmup_frames, check_frames (the
-frames the check keeps, drawn from the seed by reservoir sampling).
+frames the check keeps, drawn from the seed by reservoir sampling),
+reference (absent: the float32 reference; 'int8': the W8A8 recipe).
 
-Check: the kept frames against the reference's float32 frames of the same
-cameras: the share of pixel channels more than FAR from the reference's
-(compared), with the largest and the root-mean-square gap beside it.
+Check: the kept frames against the reference's frames of the same cameras:
+the share of pixel channels more than FAR from the reference's float32
+frames (compared), with the largest and the root-mean-square gap beside it.
+With reference 'int8' the reference is the plain W8A8 recipe, with static
+scales of its own from the same calibration rays, and the share is of
+channels more than FAR_INT8 from it; its control ("control") is that
+recipe on 4-bit body weights in the program's place.
 """
 from __future__ import annotations
 
@@ -29,6 +34,10 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # bf16 frames' largest gaps lie just under it, the int8 control's spread past
 # it (PERF.md section 4).
 FAR = 0.004
+# The same for the int8 frames against the W8A8 reference: the sound
+# frames' largest gaps lie under it (the kernel's bf16 head and tail flip a
+# few levels), the 4-bit control's spread far past it (PERF.md section 4).
+FAR_INT8 = 0.01
 
 
 def build_student(cfg: Dict, params, device) -> R2LNet:
@@ -69,13 +78,19 @@ class Driver:
         self.keep = Reservoir(t["check_frames"], inputs.numpy_rng(cell.seed, 2))
         self.scales = None
         if t["quant"]:
-            o, d = cell.reference.get_rays(self._pose(0.0), t["H"], t["W"], self.focal, dev)
+            o, d = self._calibration_rays()
             self.scales = r2l_renderer.calibrate_serving_scales(
                 self.model, o, d, cfg["near"], cfg["far"], cfg["n_sample"], cfg["multires"],
                 n_cal=t["calibrate_n"], device=dev)
         warm = inputs.numpy_rng(cell.seed, 4)
         for _ in range(t["warmup_frames"]):
             self._frame(self._pose(warm.uniform(-180.0, 180.0)))
+
+    def _calibration_rays(self):
+        """The rays of the set-up frame whose first calibrate_n the int8
+        scales are calibrated on."""
+        t = self.t
+        return self.cell.reference.get_rays(self._pose(0.0), t["H"], t["W"], self.focal, self.dev)
 
     def _pose(self, theta: float) -> np.ndarray:
         return inputs.pose_spherical(theta, self.t["phi"], self.t["radius"])
@@ -99,6 +114,8 @@ class Driver:
         del self.model
 
     def check(self, candidate: str = "program") -> Dict[str, float]:
+        if self.t.get("reference") == "int8":
+            return self._check_int8(candidate)
         if candidate != "program":
             raise ValueError(f"{candidate!r}: the serving control is the program's int8 path")
         ref, t = self.cell.reference, self.t
@@ -109,5 +126,30 @@ class Driver:
             return {}
         gap = torch.cat(gaps).double()
         return {"rgb_share_over_0.004": float((gap > FAR).double().mean()),
+                "rgb_max_gap": float(gap.max()),
+                "rgb_rms_gap": float(gap.square().mean().sqrt())}
+
+    def _check_int8(self, candidate: str) -> Dict[str, float]:
+        """The kept int8 frames ("program"), or the 4-bit recipe's frames of
+        the same cameras ("control"), against the W8A8 reference's."""
+        if candidate not in ("program", "control"):
+            raise ValueError(f"{candidate!r}: the int8 frames' candidates are program, control")
+        ref, t = self.cell.reference, self.t
+        o, d = self._calibration_rays()
+        n = t["calibrate_n"]
+        scales = ref.static_scales(self.params, o[:n], d[:n], self.cfg)
+
+        def frame(pose, kind):
+            return ref.render_frame(self.params, pose, t["H"], t["W"], self.focal, self.cfg,
+                                    kind=kind, act_scales=scales)
+        gaps = []
+        for pose, got in self.keep.items:
+            got = (torch.as_tensor(got, device=self.dev) if candidate == "program"
+                   else frame(pose, "int4"))
+            gaps.append((got - frame(pose, "int8")).abs().flatten())
+        if not gaps:
+            return {}
+        gap = torch.cat(gaps).double()
+        return {f"rgb_share_over_{FAR_INT8}": float((gap > FAR_INT8).double().mean()),
                 "rgb_max_gap": float(gap.max()),
                 "rgb_rms_gap": float(gap.square().mean().sqrt())}

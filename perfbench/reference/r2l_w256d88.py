@@ -6,6 +6,12 @@ exact sines and cosines; `kind` runs every linear layer in a lower precision
 for the control. Its distillation step is the MSE over the batch and its hard
 rows, Adam, and the hard-ray pool.
 
+`kind` "int8" is the published W8A8 serving recipe (`forward_int`): each
+body linear on int8 weights with one scale per output row and int8
+activations under static scales that `static_scales` works out from a
+float32 forward over calibration rays; head and tail stay float32. "int4"
+is the same one step below, body weights on a 4-bit grid: the control.
+
 The weights come from `init_params`, which the benchmark calls once and
 hands to both sides; the parameter names are the reference state_dict's.
 """
@@ -20,6 +26,13 @@ from ._plain import (Adam, get_rays, leaf_norms, linear, linspace, lr_at, octave
                      precision, stratify, written_rows)
 
 Params = Dict[str, torch.Tensor]
+
+# largest weight level of each integer grid of the body; activations are
+# int8 (ACT_LEVELS) in both
+WEIGHT_LEVELS = {"int8": 127, "int4": 7}
+ACT_LEVELS = 127
+# static scales sit this far above the calibration rays' largest value
+CAL_MARGIN = 1.02
 
 
 def leaf_shapes(cfg: Dict) -> List[Tuple[str, Tuple[int, ...], float]]:
@@ -85,23 +98,110 @@ def forward(p: Params, x: torch.Tensor, cfg: Dict, kind: Optional[str] = None) -
     return torch.sigmoid(linear(h, p["tail.0.weight"], p["tail.0.bias"], kind))
 
 
+def _true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    # a tensor divisor: on a card torch multiplies by the reciprocal of a
+    # Python scalar one, an ulp off the division the recipe states
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
+def quantize_rows(w: torch.Tensor, levels: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """w [N, K] -> (integer levels as float32 [N, K], scales [N]): one scale
+    a row of nn.Linear's [out, in] weight, max |w| / levels, each level
+    round(w / scale) clamped to +-levels."""
+    s = _true_div(w.abs().amax(-1).clamp_min(1e-12), levels)
+    return torch.clamp(torch.round(w / s[:, None]), -levels, levels), s
+
+
+def _act_levels(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x), -ACT_LEVELS, ACT_LEVELS)
+
+
+def _body(b: int, j: int) -> str:
+    return f"body.{b}.body.{2 * j}"
+
+
+@torch.no_grad()
+def static_scales(p: Params, rays_o, rays_d, cfg: Dict) -> torch.Tensor:
+    """[n_block, 2] static activation scales of the integer recipes: a
+    float32 forward over the calibration rays records each block's largest
+    |input| and largest inner activation (after the relu); each scale is
+    that maximum times CAL_MARGIN over ACT_LEVELS."""
+    maxes = []
+    with precision():
+        x = embed(ray_points(rays_o, rays_d, cfg), cfg["multires"])
+        h = torch.relu(linear(x, p["head.0.weight"], p["head.0.bias"]))
+        for b in range(cfg["n_block"]):
+            g = torch.relu(linear(h, p[_body(b, 0) + ".weight"], p[_body(b, 0) + ".bias"]))
+            maxes.append(torch.stack([h.abs().amax(), g.abs().amax()]))
+            h = h + cfg["res_scale"] * linear(g, p[_body(b, 1) + ".weight"],
+                                              p[_body(b, 1) + ".bias"])
+    return torch.stack(maxes) * (CAL_MARGIN / ACT_LEVELS)
+
+
+def quantized_body(p: Params, cfg: Dict, kind: str) -> Dict[str, Tuple]:
+    """Each body linear's (levels, row scales) on `kind`'s weight grid, from
+    the float32 weights (the configuration's dtype is the one it computes
+    in; the checkpoint is float32)."""
+    return {_body(b, j): quantize_rows(p[_body(b, j) + ".weight"], WEIGHT_LEVELS[kind])
+            for b in range(cfg["n_block"]) for j in range(cfg["n_learnable"])}
+
+
+def forward_int(p: Params, qbody: Dict[str, Tuple], x: torch.Tensor, cfg: Dict,
+                act_scales: torch.Tensor) -> torch.Tensor:
+    """The integer recipe's forward on the weights `p` and the body `qbody`
+    (`quantized_body`): a float32 head; in each block the input to
+    int8 levels under its static scale, the product of the integer levels in
+    float32 (exact: every partial sum is below 2^24), each sum times the
+    activation's and the weight row's scale plus the bias, the relu, the
+    inner activation to int8 levels under its scale, the second product the
+    same way, the residual; the global residual, a float32 tail. Where the
+    kernel departs: its head and tail take bf16 operands and its embed the
+    double-angle recurrence; it multiplies by the reciprocal of a scale
+    where this divides, and folds the inner scale into the first epilogue
+    (relu(t) / s equals relu(t / s)): an ulp apart, which moves a level
+    only on a tie."""
+    h = torch.relu(linear(x, p["head.0.weight"], p["head.0.bias"]))
+    x0 = h
+    for b in range(cfg["n_block"]):
+        g = h
+        for j in range(cfg["n_learnable"]):
+            if j:
+                g = torch.relu(g)
+            s = act_scales[b, j]
+            q, sw = qbody[_body(b, j)]
+            g = (_act_levels(g / s) @ q.t()) * (s * sw) + p[_body(b, j) + ".bias"]
+        h = h + cfg["res_scale"] * g
+    if cfg["use_residual"]:
+        h = h + x0
+    return torch.sigmoid(linear(h, p["tail.0.weight"], p["tail.0.bias"]))
+
+
 @torch.no_grad()
 def render_rays(p: Params, rays_o, rays_d, cfg: Dict, kind: Optional[str] = None,
-                block: int = 32768) -> torch.Tensor:
+                block: int = 32768, act_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, out] float32 of the rays: kind None the float32 network, "fp8"
+    every linear on that grid, "int8" / "int4" the integer recipe under
+    `act_scales` (`static_scales`)."""
     out = []
     with precision():
+        if kind in WEIGHT_LEVELS:
+            qbody = quantized_body(p, cfg, kind)
+            net = lambda x: forward_int(p, qbody, x, cfg, act_scales)  # noqa: E731
+        else:
+            net = lambda x: forward(p, x, cfg, kind)  # noqa: E731
         for s in range(0, rays_o.shape[0], block):
-            x = embed(ray_points(rays_o[s:s + block], rays_d[s:s + block], cfg), cfg["multires"])
-            out.append(forward(p, x, cfg, kind))
+            out.append(net(embed(ray_points(rays_o[s:s + block], rays_d[s:s + block], cfg),
+                                 cfg["multires"])))
     return torch.cat(out)
 
 
 def render_frame(p: Params, c2w, H: int, W: int, focal: float, cfg: Dict,
-                 kind: Optional[str] = None) -> torch.Tensor:
+                 kind: Optional[str] = None,
+                 act_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[H, W, 3] float32 of one camera."""
     device = next(iter(p.values())).device
     rays_o, rays_d = get_rays(c2w, H, W, focal, device)
-    return render_rays(p, rays_o, rays_d, cfg, kind).reshape(H, W, -1)
+    return render_rays(p, rays_o, rays_d, cfg, kind, act_scales=act_scales).reshape(H, W, -1)
 
 
 def train_steps(params0: Params, batches: Sequence, noises: Sequence[Dict], cfg: Dict,

@@ -11,6 +11,8 @@ NERF = {"depth": 3, "width": 32, "skips": [1], "input_ch": 15, "input_ch_views":
 OVERRIDES = {
     "r2l_serve": {"config": R2L, "traffic": {"H": 8, "W": 8, "warmup_frames": 1,
                                              "check_frames": 2}},
+    "r2l_serve_int8": {"config": R2L, "traffic": {"H": 8, "W": 8, "warmup_frames": 1,
+                                                  "check_frames": 2}},
     "r2l_distill": {"config": R2L, "traffic": {"shards": 8, "shard_rows": 64,
                                                "shards_per_batch": 2, "H": 8, "W": 8}},
     "teacher_train": {"config": NERF, "traffic": {"H": 8, "W": 8, "frames": 3, "N_rand": 16}},

@@ -21,7 +21,8 @@ def passes(numbers, limits) -> bool:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", ["r2l_serve", "r2l_distill", "teacher_train"])
+@pytest.mark.parametrize("workload", ["r2l_serve", "r2l_distill", "teacher_train",
+                                      "r2l_serve_int8"])
 def test_control_fails_and_program_passes(workload):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

@@ -90,6 +90,7 @@ def teacher_half_batch(monkeypatch):
 
 FAULTS = {
     "r2l_serve": {"answer_altered": frame_altered, "half_left_out": frame_half_left_out},
+    "r2l_serve_int8": {"answer_altered": frame_altered, "half_left_out": frame_half_left_out},
     "r2l_distill": {"state_unchanged": state_unchanged("make_r2l_train_step"),
                     "half_batch": r2l_half_batch},
     "teacher_train": {"state_unchanged": state_unchanged("make_teacher_train_step"),

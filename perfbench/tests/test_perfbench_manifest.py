@@ -60,7 +60,8 @@ def test_workloads():
         traffic = json.loads((BENCH / "traffic" / f"{w['traffic']}.json").read_text())
         assert (BENCH / "drivers" / f"{traffic['driver']}.py").is_file()
         assert json.loads((BENCH / "limits" / f"{w['name']}.json").read_text())
-    assert [w["name"] for w in M["workloads"]] == ["r2l_serve", "r2l_distill", "teacher_train"]
+    assert [w["name"] for w in M["workloads"]] == ["r2l_serve", "r2l_distill", "teacher_train",
+                                                   "r2l_serve_int8"]
 
 
 def test_end_to_end():
@@ -85,7 +86,8 @@ def test_per_layer():
             assert m["unit"] == "%"
 
 
-@pytest.mark.parametrize("cell", ["r2l_serve", "r2l_distill", "teacher_train"])
+@pytest.mark.parametrize("cell", ["r2l_serve", "r2l_distill", "teacher_train",
+                                  "r2l_serve_int8"])
 def test_every_cell_reports_enough(cell):
     e2e = [m for m in M["end_to_end"] if cell in m.get("workloads", [cell])]
     per_layer = [m for m in M["per_layer"] if cell in m.get("workloads", [cell])]

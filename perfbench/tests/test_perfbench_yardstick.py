@@ -19,6 +19,22 @@ def test_r2l_backward_leaves_out_the_input_gradient():
     assert Y.r2l_backward_macs(R2L) == 5_894_912 + (5_894_912 - 1008 * 256) == 11_531_776
 
 
+def test_r2l_int8_split():
+    # the int8 body and the bf16 head and tail make up the whole forward
+    body, head_tail = Y.r2l_int8_macs(R2L)
+    assert (body, head_tail) == (86 * 256 * 256, 1008 * 256 + 256 * 3) == (5_636_096, 258_816)
+    assert body + head_tail == Y.r2l_forward_macs(R2L)
+    # int8 body, its row scales, activation scales and biases in f32, bf16
+    # head and tail, their f32 biases
+    assert Y.r2l_int8_weight_bytes(R2L) == (5_636_096 + 86 * (256 + 1 + 256) * 4
+                                            + 258_816 * 2 + (256 + 3) * 4) == 6_331_236
+    # a frame's operations: 1.804 T int8 at 1,979 TOPS, 0.083 TFLOP bf16
+    frame_ms = Y.r2l_int8_least_s(R2L, 160_000) * 1e3
+    assert abs(frame_ms - (160_000 * 2 * 5_636_096 / 1979e12
+                           + 160_000 * 2 * 258_816 / 989e12) * 1e3) < 1e-12
+    assert abs(frame_ms - 0.995) < 1e-3
+
+
 def test_r2l_step_and_frame():
     step = 98_304 * (5_894_912 + 11_531_776) * 2
     assert abs(step / 1e12 - 3.426) < 1e-3
@@ -50,3 +66,5 @@ def test_shares():
     # bound by bytes where they take longer than the operations
     assert abs(Y.roofline_share(1.0, 3.35e12, 2.0) - 50.0) < 1e-9
     assert abs(Y.roofline_share(989e12, 1.0, 4.0) - 25.0) < 1e-9
+    assert abs(Y.least_time_share(1.0, 3.35e12, 4.0) - 25.0) < 1e-9
+    assert abs(Y.least_time_share(2.0, 3.35e12, 4.0) - 50.0) < 1e-9

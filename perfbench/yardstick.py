@@ -8,11 +8,12 @@ is reported with the card's power limit beside it.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 PEAK_BF16_FLOPS = 989e12   # dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # float32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12   # HBM3 bandwidth
+PEAK_INT8_OPS = 1979e12    # dense int8 tensor-core rate
 
 
 def r2l_forward_macs(cfg: Dict) -> int:
@@ -21,6 +22,31 @@ def r2l_forward_macs(cfg: Dict) -> int:
     w = cfg["width"]
     return (cfg["input_dim"] * w + cfg["n_block"] * cfg["n_learnable"] * w * w
             + w * cfg["output_dim"])
+
+
+def r2l_int8_macs(cfg: Dict) -> Tuple[int, int]:
+    """One ray through the W8A8 student: (int8 MACs of the body, bf16 MACs
+    of head and tail): 5,636,096 and 258,816 at W256 D88, which sum to
+    `r2l_forward_macs`."""
+    body = cfg["n_block"] * cfg["n_learnable"] * cfg["width"] ** 2
+    return body, r2l_forward_macs(cfg) - body
+
+
+def r2l_int8_weight_bytes(cfg: Dict) -> int:
+    """Bytes of the W8A8 student's operands that a launch reads once: the
+    int8 body with its f32 row scales, static activation scales and biases,
+    the bf16 head and tail with their f32 biases."""
+    w, body_linears = cfg["width"], cfg["n_block"] * cfg["n_learnable"]
+    body, head_tail = r2l_int8_macs(cfg)
+    return body + 4 * body_linears * (w + 1 + w) + 2 * head_tail + 4 * (w + cfg["output_dim"])
+
+
+def r2l_int8_least_s(cfg: Dict, rays: int) -> float:
+    """The least seconds the card takes for `rays` rays of the W8A8 student:
+    the body's operations at the int8 peak plus head and tail's at the bf16
+    peak."""
+    body, head_tail = r2l_int8_macs(cfg)
+    return 2.0 * rays * (body / PEAK_INT8_OPS + head_tail / PEAK_BF16_FLOPS)
 
 
 def r2l_backward_macs(cfg: Dict) -> int:
@@ -88,7 +114,14 @@ def roofline_share(flops: float, nbytes: float, seconds: float,
     """Per cent of a kernel's roofline: the least time the card could take
     (operations at `peak` or bytes at the HBM rate, whichever is longer)
     over the kernel's measured time."""
-    return 100.0 * max(flops / peak, nbytes / PEAK_HBM_BYTES) / seconds
+    return least_time_share(flops / peak, nbytes, seconds)
+
+
+def least_time_share(compute_s: float, nbytes: float, seconds: float) -> float:
+    """Per cent of a roofline whose operations take `compute_s` at their
+    peaks: the longer of that and the bytes at the HBM rate, over the
+    measured seconds."""
+    return 100.0 * max(compute_s, nbytes / PEAK_HBM_BYTES) / seconds
 
 
 def r2l_weight_count(cfg: Dict) -> int:
