@@ -84,6 +84,10 @@ step's), need_dx off, the global residual on. Pass 1, csrc/r2l_train.cu
   no_loads         no TMA weight copies (each stage completes on the loading
                    thread's arrival alone): the products on stale stages
   ring_2           a 2-stage weight ring instead of as many as fit (3 at W256)
+  loader_waits     thread 0 loads every chunk after the first ST, waiting for
+                   its stage to be free (the design before the last releasing
+                   warp loaded): warp 0 stalls on the slowest warp of the
+                   other warpgroup at every chunk
 and pass 2, csrc/r2l_wgrad.cu, on the shipped pass 1's scratch:
   wgrad_shipped    the kernel as the port runs it (TMA boxes, mbarriers)
   wgrad_loads_only no products: the TMA copies and the barriers alone
@@ -268,6 +272,19 @@ _TB_STORE = "      tma_store_box(map, src + q * wg::PANEL, 64 * q, (int)ray0, la
 _TB_PRODUCTS = "        wg::Wgmma<NT>::run(acc, da + 2 * k, db + 2 * k, kc + k > 0);\n"
 _TB_ISSUE = "    mbar_arrive_expect_tx(&full[st], WP * 128);\n"
 _TB_STAGES = "constexpr int BWD_MAX_STAGES = 6;"
+_TB_RELEASE = """    if (lane == 0 && wg::atom_add_acq_rel(&freed[read % ST], 1u) % (NTHREADS / 32) ==
+                         NTHREADS / 32 - 1)
+      issue(read + ST);
+"""
+# whether every warp has released the chunk ST before n from its stage (an
+# acquire read of the stage's count)
+_TB_LOADER = _WG_CONSUMED + """  auto stage_free = [&](int n) {
+    unsigned v;
+    asm volatile("ld.acquire.cta.shared::cta.u32 %0, [%1];\\n"
+                 : "=r"(v) : "r"(tma_smem_addr(&freed[n % ST])) : "memory");
+    return (int)v >= (NTHREADS / 32) * (n / ST);
+  };
+"""
 _W_PRODUCTS = "      if (active) stage_product(As, As + A_TILE, acc, ms, ns, lane);\n"
 _W_EXPECT = "        mbar_arrive_expect_tx(&full[s], bytes);"
 _W_BOXES_A = "        for (int b = 0; b < na; ++b)"
@@ -359,6 +376,15 @@ KERNELS = {
         "no_products": [("r2l_train.cu", _TB_PRODUCTS, "")],
         "no_loads": [("r2l_train.cu", _TB_ISSUE, "    mbar_arrive(&full[st]);\n    return;\n")],
         "ring_2": [("r2l_train.cu", _TB_STAGES, "constexpr int BWD_MAX_STAGES = 2;")],
+        "loader_waits": [
+            ("r2l_train.cu", _TB_RELEASE, """    if (lane == 0) wg::atom_add_acq_rel(&freed[read % ST], 1u);
+    if (tid == 0 && read + ST < total) {
+      while (!stage_free(read + ST)) {
+      }
+      issue(read + ST);
+    }
+"""),
+            ("r2l_train.cu", _WG_CONSUMED, _TB_LOADER)],
         "wgrad_shipped": ("r2l_wgrad.cu", []),
         "wgrad_loads_only": ("r2l_wgrad.cu", [("r2l_wgrad.cu", _W_PRODUCTS, "")]),
         "wgrad_products_only": ("r2l_wgrad.cu", [

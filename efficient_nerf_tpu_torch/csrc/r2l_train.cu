@@ -62,32 +62,44 @@
 //     the forward proved on the card; wgmma's transpose-B with MN-major
 //     descriptors would read body_w itself, but no card run has checked that
 //     layout here, and the copy costs the step about as much as reading it.
-//   * A TMA weight ring with mbarriers and no block barrier a chunk: thread 0
-//     (one of the consumers; no producer warpgroup, no cluster, no deferred
-//     loads, as r2l_wgmma.cuh says why) loads each [W, 64] chunk of W0,
-//     W1^T and W0^T, block by block in reverse, by one box from 3-D tensor
-//     maps over body_w and body_wt into a ring of as many stages as fit (3 at
-//     W256), each with a full and an empty mbarrier. Its depth matters most:
-//     2 stages took 10.1 ms a step against 7.9 for 3; 7 stages of [W, 32]
-//     chunks (the 64-byte swizzle) took 9.1 against 7.5 (PERF.md).
+//   * A TMA weight ring that no thread waits on to load, as r2l_wgmma.cuh's:
+//     each [W, 64] chunk of W0, W1^T and W0^T, block by block in reverse, is
+//     one box from 3-D tensor maps over body_w and body_wt into a ring of as
+//     many stages as fit (3 at W256), completing on the stage's full
+//     mbarrier. Thread 0 loads the first ST chunks; after that each warp,
+//     once its products have read a stage, counts its release in shared
+//     memory (an acq_rel atomic), and the warp whose release is the stage's
+//     eighth loads the chunk ST ahead into it (a loading thread that waits
+//     for the stage to be free holds its warpgroup to the other's slowest
+//     warp at every chunk). No producer warpgroup, no cluster, as
+//     r2l_wgmma.cuh says why. The ring's depth matters most: 2 stages took
+//     10.1 ms a step against 7.9 for 3; 7 stages of [W, 32] chunks (the
+//     64-byte swizzle) took 9.1 against 7.5 (PERF.md).
 //   * TMA for the activation tiles. hs[blk] lands by TMA (rows past B as
 //     zeros) into the h tile; dg2, dg1 and dpre leave shared memory by TMA
-//     stores from the swizzled tiles the products read, thread 0 waiting
-//     (cp.async.bulk.wait_group.read) before a tile is rewritten. g1, which
-//     no product of this pass reads, goes from the registers to g1s, 4
-//     bytes a store: the h tile is then free once g1's products have read
-//     it, and thread 0 stalls on no store before it loads the next hs (a g1
-//     tile stored by TMA took 7.9 ms against 7.5, PERF.md).
+//     stores from the swizzled tiles the products read. g1, which no
+//     product of this pass reads, goes from the registers to g1s, 4 bytes a
+//     store, so the h tile is free once g1's products have read it (a g1
+//     tile stored by TMA took 7.9 ms against 7.5, PERF.md). One h tile
+//     does: each warp counts its g1 products' end, and the eighth loads the
+//     next block's hs, which lands during the rest of the chain.
 //   * Two block barriers a block, each where a product's A is complete. A
 //     block's schedule:
-//       dg2 = dh rs -> dg2 tile; A; store dg2; g1 products (h tile); mask,
-//       g1 -> g1s; dg1 products (dg2 tile); dg1 -> dg1 tile; B; store dg1,
-//       hs[blk - 1] -> h tile; dh products (dg1 tile).
-//     A also orders the dh products of the block before (both warpgroups
-//     read the dg1 tile) before this block's dg1 writes, and B the products
-//     that read h and dg2 before their refills; between g1's and dg1's
-//     products there is none. One h tile does: the next block's hs lands
-//     during the dh products.
+//       dg2 = dh rs -> dg2 tile; A; store dg2; g1 products (h tile), count;
+//       mask, g1 -> g1s; dg1 products (dg2 tile); dg1 -> dg1 tile; B; store
+//       dg1; dh products (dg1 tile).
+//     The write-after-read hazards and what carries each:
+//       - the dg2 tile is rewritten only after both warpgroups' dg1
+//         products of block blk + 1 have read it (B of blk + 1), and the
+//         dg1 tile only after their dh products of blk + 1 (A of blk);
+//       - the h tile is refilled with hs[blk - 1] only after both
+//         warpgroups' g1 products have read it: the count of 8 releases
+//         above, whose last warp loads;
+//       - a tile is rewritten only after its TMA store has read it: thread
+//         0 stores each whole tile after a barrier and waits
+//         (cp.async.bulk.wait_group.read) before the next one.
+//     The barriers stay because the two warpgroups reach their epilogues
+//     together: per-panel signals in their place measured slower (PERF.md).
 //   * The bias sums: each warp's column sums of its 16 rows by a shuffle
 //     butterfly (each step halves the values a lane keeps), its partials in
 //     shared memory, added by one thread a column in a fixed order after the
@@ -154,6 +166,9 @@ struct BwdArgs {
 
 constexpr int MAX_OUT = 4;         // rgb, or rgb + depth
 constexpr int BWD_MAX_STAGES = 6;  // weight-ring stages of the backward, at most
+// 8-byte slots besides the ring's 2 a stage (full, freed): the h tile's
+// barrier and release count
+constexpr int BWD_SLOTS = 2;
 
 __host__ __device__ inline size_t max_sz(size_t x, size_t y) { return x > y ? x : y; }
 
@@ -161,11 +176,11 @@ __host__ __device__ inline size_t max_sz(size_t x, size_t y) { return x > y ? x 
 __host__ __device__ constexpr size_t bwd_tile(int W) { return (size_t)TB * W * 2; }
 
 // Bytes besides the ring: three tiles, two [4, W] f32 partial buffers, dt
-// [TB, MAX_OUT] f32, two slots of W f32 biases, the barriers and the slack
-// that aligns the base to 1024 (the swizzle's period).
+// [TB, MAX_OUT] f32, two slots of W f32 biases, the barriers and counts, and
+// the slack that aligns the base to 1024 (the swizzle's period).
 __host__ __device__ constexpr size_t bwd_rest(int W) {
   return 3 * bwd_tile(W) + 2 * 4 * (size_t)W * 4 + (size_t)TB * MAX_OUT * 4 +
-         2 * (size_t)W * 4 + (2 * BWD_MAX_STAGES + 1) * 8 + 1024;
+         2 * (size_t)W * 4 + (2 * BWD_MAX_STAGES + BWD_SLOTS) * 8 + 1024;
 }
 
 // The ring's stages at width W: as many as fit, at most BWD_MAX_STAGES.
@@ -203,7 +218,7 @@ __host__ __device__ inline BwdLayout bwd_layout(int in_pad, int W) {
   l.emb = 0;
   const size_t body = l.b0 + 2 * (size_t)W * 4;
   l.bars = max_sz(body, (size_t)TB * (in_pad + PAD) * 2);
-  l.total = l.bars + (2 * l.stages + 1) * 8 + 1024;
+  l.total = l.bars + (2 * l.stages + BWD_SLOTS) * 8 + 1024;
   return l;
 }
 
@@ -315,8 +330,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   float* sdt = reinterpret_cast<float*>(smem + lay.dt);
   float* sb0 = reinterpret_cast<float*>(smem + lay.b0);  // [2 slots][W] b0 of a block
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
-  uint64_t* empty = full + ST;
-  uint64_t* hbar = empty + ST;  // the h tile's loads
+  unsigned* freed = reinterpret_cast<unsigned*>(full + ST);  // [ST] warps' releases of each stage
+  uint64_t* hbar = full + 2 * ST;                            // the h tile's loads
+  unsigned* hfree = reinterpret_cast<unsigned*>(hbar + 1);   // warps whose products read h
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wgi = tid / 128, w4 = warp % 4, g = lane / 4, t = lane % 4, wr = w4 * 16;
   const int col0 = wgi * NT + 2 * t;
@@ -331,21 +347,23 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   if (tid == 0) {
     for (int st = 0; st < ST; ++st) {
-      mbar_init(&full[st], 1);               // the loading thread's arrive, plus the bytes
-      mbar_init(&empty[st], NTHREADS / 32);  // every warp
+      mbar_init(&full[st], 1);  // the loading thread's arrive, plus the bytes
+      freed[st] = 0u;
     }
     mbar_init(hbar, 1);
+    *hfree = 0u;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();  // the barriers exist before any copy or arrival
 
-  // ---- the loads, by thread 0: the weight chunks, ST ahead of the
-  // products: per block in reverse, W0 (K-major), W1^T, W0^T, each [W, 64]
+  // ---- the loads: the weight chunks, ST ahead of the products: per block
+  // in reverse, W0 (K-major), W1^T, W0^T, each [W, 64]. Thread 0 loads the
+  // first ST; then the warp whose release of a stage is its eighth loads the
+  // chunk ST ahead into it
   const int total = nb * 3 * NCH;
   auto issue = [&](int n) {
     if (n >= total) return;
     const int st = n % ST;
-    mbar_wait(&empty[st], ((n / ST) & 1) ^ 1);
     const int q = n / NCH, blk = nb - 1 - q / 3, prod = q % 3;
     mbar_arrive_expect_tx(&full[st], WP * 128);
     tma_box(ring + (size_t)st * WP * wg::KC, prod == 0 ? &maps.body : &maps.body_t,
@@ -365,10 +383,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       cp_async16(sb0 + (blk & 1) * W + 4 * tid, p.w.body_b + (size_t)(2 * blk) * W + 4 * tid);
     cp_async_commit();
   };
-  // a [64, W] tile to rows ray0.. of layer `layer` of a map
+  // a [64, W] tile to rows ray0.. of layer `layer` of a map, one bulk group
   auto store_t = [&](const CUtensorMap* map, const __nv_bfloat16* src, int layer) {
     for (int q = 0; q < NCH; ++q)
       tma_store_box(map, src + q * wg::PANEL, 64 * q, (int)ray0, layer);
+    bulk_commit();
   };
   if (tid == 0) {
     // the tail's input and the last block's, one phase of hbar
@@ -393,12 +412,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     return a;
   };
   int c = 0;  // chunks consumed
-  // frees the stage of chunk `read` once this warp's products have read it;
-  // thread 0 then loads chunk read + ST
+  // this warp's products have read chunk `read`: the warp whose release is
+  // the last of the stage's round loads chunk read + ST into it, so that no
+  // thread waits for a stage to be free
   auto release = [&](int read) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[read % ST]);
-    if (tid == 0) issue(read + ST);
+    if (lane == 0 && wg::atom_add_acq_rel(&freed[read % ST], 1u) % (NTHREADS / 32) ==
+                         NTHREADS / 32 - 1)
+      issue(read + ST);
   };
   // acc = X[64, W] @ (the next NCH chunks)^T, X in swizzled panels
   auto products = [&](const __nv_bfloat16* X) {
@@ -441,6 +462,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     for (int col = tid; col < W; col += NTHREADS)
       dst[col] = __fadd_rn(__fadd_rn(__fadd_rn(red[col], red[W + col]), red[2 * W + col]),
                            red[3 * W + col]);
+  };
+  // an epilogue's end, once this warp's column partials are written: the
+  // block meets once thread 0's stores have read their tiles, and thread 0
+  // stores the whole tile
+  auto end_epilogue = [&](const CUtensorMap* map, const __nv_bfloat16* tile, int layer) {
+    fence_proxy_async();
+    if (tid == 0) bulk_wait_read();
+    __syncthreads();
+    if (tid == 0) store_t(map, tile, layer);
   };
   // dh (+)= bf16(dt) @ tail_w: out_dim exact bf16 products summed in f32
   auto tail_dh = [&](bool add) {
@@ -512,14 +542,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         v[2 * j + 1] = hf ? __fadd_rn(v[2 * j + 1], d1) : d1;
       }
     col_partials(v, red2);
-    fence_proxy_async();
-    if (tid == 0) bulk_wait_read();  // dg1's store (blk + 1) has read its tile
-    __syncthreads();  // A: dg2 is whole; both warpgroups' dh products have read dg1
-    if (tid == 0) {
-      store_t(&maps.dg2, sdg2, blk);
-      bulk_commit();
-    }
-    if (blk > 0) prefetch_b0(blk - 1);  // into the slot blk + 1 read before B (blk + 1)
+    // A: dg2 is whole; both warpgroups' dh products have read dg1
+    end_epilogue(&maps.dg2, sdg2, blk);
+    if (blk > 0) prefetch_b0(blk - 1);  // into the slot that blk + 1's g1 epilogue read
     combine(red2, part_body_b + (size_t)(2 * blk + 1) * W);
 
     // g1 = relu(h_in @ W0^T + b0): the relu mask, and g1 straight from the
@@ -527,6 +552,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // W256 D88, do not stay in the L1 beside the tiles)
     mbar_wait(hbar, (nb - 1 - blk) & 1);
     products(sh);
+    // this warp's products have read h_in: the eighth warp to get here loads
+    // the next block's input into the h tile, which lands during the chain
+    if (lane == 0 && wg::atom_add_acq_rel(hfree, 1u) % (NTHREADS / 32) == NTHREADS / 32 - 1 &&
+        blk > 0) {
+      mbar_arrive_expect_tx(hbar, TB * WP * 2);
+      load_h(sh, blk - 1);
+    }
     const float* b0s = sb0 + (blk & 1) * W;
     a = at();
     __nv_bfloat16* g1r = p.g1s + ((size_t)blk * Bp + ray0 + a.row) * W + a.col;
@@ -558,18 +590,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         v[2 * j + 1] = hf ? __fadd_rn(v[2 * j + 1], d1) : d1;
       }
     col_partials(v, red1);
-    fence_proxy_async();
-    cp_async_wait<0>();              // b0 of blk - 1 has landed
-    if (tid == 0) bulk_wait_read();  // dg2's store has read its tile
-    __syncthreads();  // B: dg1 is whole; both warpgroups have read h_in and dg2
-    if (tid == 0) {
-      store_t(&maps.dg1, sdg1, blk);
-      bulk_commit();
-      if (blk > 0) {  // the h tile is free: the next block's input lands meanwhile
-        mbar_arrive_expect_tx(hbar, TB * WP * 2);
-        load_h(sh, blk - 1);
-      }
-    }
+    cp_async_wait<0>();  // b0 of blk - 1 has landed
+    end_epilogue(&maps.dg1, sdg1, blk);  // B: dg1 is whole; both have read dg2
     combine(red1, part_body_b + (size_t)(2 * blk) * W);
 
     // dh += dg1 @ W0
@@ -600,10 +622,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   col_partials(v, red2);
   fence_proxy_async();
   __syncthreads();  // dpre is whole; every product has run (the ring and h are free)
-  if (tid == 0) {
-    store_t(&maps.dpre, sdg2, 0);
-    bulk_commit();
-  }
+  if (tid == 0) store_t(&maps.dpre, sdg2, 0);
   combine(red2, part_head_b);
 
   // ---- dx = dpre @ head_w, chained through the embed when embed_L > 0,

@@ -578,9 +578,14 @@ def test_each_pass_matches_its_plain_version(width, n_rays, grs, need_dx, depth,
     kw = dict(use_global_residual=grs, need_dx=need_dx)
     launches = rt.r2l_train_bwd_act.launches
     act = rt.r2l_train_bwd_act(packed, x, hs, dout, **kw)
+    again = rt.r2l_train_bwd_act(packed, x, hs, dout, **kw)
     act_p = rt.r2l_train_bwd_act_ref(packed, x, hs, dout, **kw)
     torch.cuda.synchronize()
-    assert rt.r2l_train_bwd_act.launches == launches + 1
+    assert rt.r2l_train_bwd_act.launches == launches + 2
+    # a second call repeats the scratch's bits (the bias sums' fixed order;
+    # dx, off in the training step, adds its embed terms by shared atomics)
+    for k in ("dg2", "dg1", "g1", "dpre", "emb", "part"):
+        assert torch.equal(act[k], again[k]), k
     # pass 1, through the gradients pass 2's plain version makes of its
     # scratch: an operand can differ by its whole size where a relu mask
     # flips with the summation order, which the sums over rays average out
